@@ -6,14 +6,19 @@
 Builds the port's CUDA kernel from the sources in this checkout, holds it
 bit-exact against its plain PyTorch version, drives consecutive north-star
 scheduling ticks (1,024 workers, 1M ready tasks, 128 sampled request
-classes, 4 priority levels) through the port's run_tick, and prints timings.
+classes, 4 priority levels) through the port's run_tick, then the same
+north star in fused mode (gang rows, worker groups and a policy), and
+prints timings.
 
 Phases:
   1. the card (nvidia-smi name and power limit) and the kernel build;
   2. the kernel against its plain version on the card, exact on counts,
      free and nt_free, over a bench-shaped instance and random small, odd,
      ALL-policy, min_time-masked, negative-free and wide (several workers
-     per thread) cases;
+     per thread) cases, then the gang-row and policy-mask branches (K1g)
+     on the solver tests' gang and weighted generators at bench width, odd
+     and wide worker counts, 1, 8 and W worker groups, infeasible gangs and
+     gangs behind rows that touched every idle worker;
   3. the main path: ticks through run_tick with GreedyCutScanModel on the
      card; each tick's counts are checked against the plain version on the
      same padded inputs and its assignments against the workers' capacity,
@@ -21,7 +26,19 @@ Phases:
   4. timings: per-tick wall time and phases, the kernel's time from CUDA
      events, its plain version's time, its bounds, and the device's busy
      time and idle share over a steady window of three more ticks under
-     torch.profiler.
+     torch.profiler;
+  5. the fused path: the north-star tasks over 8 jobs, the workers in 8
+     groups of 128, 16 gang rows of 2-16 nodes per tick, gang_ok from
+     idleness and a policy table (weights 2.0 on some groups, 0.0 on some
+     (task class, group) pairs, prediction boosts from a predictor fed by
+     observe()) through run_tick(gang_ok=, group_ids=, policy=); each tick
+     is checked as in phase 3, and every gang row must be all-or-nothing
+     on idle members of one group, no excluded pair may receive a task and
+     the kernel must launch once, with its gang and mask inputs;
+  6. fused timings as in phase 4, the kernel's prologue alone (the visit
+     order of every visit-class row), and the two glue steps of the solve
+     timed alone: the dirty-row index_copy_ (K3) and the counts slice and
+     pinned copy to the host (K4).
 
 The second-to-last line is the kernels JSON, the line before it the card;
 the last line is {"ok": true, "device": {...}}. Exits non-zero, printing no
@@ -44,6 +61,25 @@ FP32_OPS_PER_S = 67e12  # non-tensor rate; the int32 rate is not above it
 
 N_TICKS = 8
 SEED = 42
+U = 10_000
+INF = 2**31 - 1
+
+# the fused path: the JAX server's MAX_FUSED_GANG_ROWS gang rows per tick
+N_FUSED_TICKS = 8
+MAX_FUSED_GANG_ROWS = 16
+N_JOBS = 8
+N_GROUPS = 8
+N_GANG_TASKS = 160
+# weights 2.0 on some groups, 0.0 (exclusion) on some (task class, group)
+# pairs, and runtime-prediction boosts
+FUSED_POLICY = {
+    "affinity": {
+        "cpus+mem": {"*": 1.0, "g0": 2.0, "g1": 2.0, "g7": 0.0},
+        "cpus+gpus+mem": {"*": 1.0, "g2": 2.0, "g5": 0.0},
+        "nodes": {"*": 1.0, "g3": 2.0, "g6": 0.0},
+    },
+    "prediction": {"enabled": True, "max_boost": 4},
+}
 
 
 def log(tag: str, **fields) -> None:
@@ -73,7 +109,6 @@ def bench_instance(n_workers=1024, n_tasks=1_000_000, n_r=8, n_b=256, n_v=2,
     from hyperqueue_tpu_torch.scheduler.tick import _range_compress
     from hyperqueue_tpu_torch.utils.constants import INF_TIME
 
-    U = 10_000
     rng = np.random.default_rng(seed)
     free = np.zeros((n_workers, n_r), dtype=np.int64)
     free[:, 0] = rng.choice([32, 64, 128], size=n_workers) * U
@@ -110,7 +145,6 @@ def random_case(seed, n_w, n_r, n_b, n_v, with_all):
         scarcity_weights,
     )
 
-    U, INF = 10_000, 2**31 - 1
     rng = np.random.default_rng(seed)
     total = rng.integers(0, 9, size=(n_w, n_r)) * U
     free = total - rng.integers(0, 5, size=(n_w, n_r)) * (U // 2)
@@ -144,16 +178,19 @@ def random_case(seed, n_w, n_r, n_b, n_v, with_all):
 
 
 def north_star_state(n_workers=1024, n_tasks=1_000_000, n_classes=128,
-                     seed=SEED):
+                     seed=SEED, n_jobs=1, n_groups=1):
     """The north-star tick state as plain data, with the distribution of
     the repository's tick benchmark: request classes of 1/2/4/8 cpus, a
     gpu share on 30% and a cpu-only fallback variant on half of them,
     1M ready tasks spread over the classes at 4 priority levels, and 1,024
-    workers of 32/64/128 cpus, some with 4 or 8 gpus."""
+    workers of 32/64/128 cpus, some with 4 or 8 gpus. With n_jobs > 1 the
+    tasks are spread over that many jobs (scheduler priority = the job's
+    encoded submission order), with n_groups > 1 the workers form groups
+    g0, g1, ... of consecutive workers."""
     from hyperqueue_tpu_torch.ids import make_task_id
+    from hyperqueue_tpu_torch.scheduler.queues import encode_sched_priority
     from hyperqueue_tpu_torch.utils.constants import INF_TIME
 
-    U = 10_000
     rng = np.random.default_rng(seed)
     classes, index_of, class_ids = [], {}, []
     for _ in range(n_classes):
@@ -175,30 +212,211 @@ def north_star_state(n_workers=1024, n_tasks=1_000_000, n_classes=128,
     class_ids = np.asarray(class_ids)
     class_of = class_ids[rng.integers(0, n_classes, size=n_tasks)]
     prio_of = rng.integers(0, 4, size=n_tasks)
-    tasks = [
-        (make_task_id(1, t), c, (p, 0))
-        for t, (c, p) in enumerate(zip(class_of.tolist(), prio_of.tolist()))
-    ]
+    if n_jobs == 1:
+        tasks = [
+            (make_task_id(1, t), c, (p, 0))
+            for t, (c, p) in enumerate(zip(class_of.tolist(),
+                                           prio_of.tolist()))
+        ]
+    else:
+        job_of = np.random.default_rng(seed + 7).integers(
+            1, n_jobs + 1, size=n_tasks)
+        sched = {j: encode_sched_priority(j) for j in range(1, n_jobs + 1)}
+        tasks = [
+            (make_task_id(j, t), c, (p, sched[j]))
+            for t, (c, p, j) in enumerate(zip(
+                class_of.tolist(), prio_of.tolist(), job_of.tolist()))
+        ]
     workers = []
     for wid in range(1, n_workers + 1):
         n_cpus = int(rng.choice([32, 64, 128]))
         free = [n_cpus * U, int(rng.choice([0, 0, 0, 4, 8])) * U,
                 int(rng.choice([256, 512, 1024])) * U]
-        workers.append((wid, free, min(n_cpus, 256), INF_TIME, list(free)))
+        group = f"g{(wid - 1) * n_groups // n_workers}" if n_groups > 1 \
+            else "default"
+        workers.append((wid, free, min(n_cpus, 256), INF_TIME, list(free),
+                        group))
     return ["cpus", "gpus", "mem"], classes, tasks, workers
+
+
+def gang_tasks(n_classes, n_jobs=N_JOBS, n_gangs=N_GANG_TASKS, seed=SEED):
+    """Multi-node gang tasks of 2-16 nodes over the jobs, as plain data:
+    the 15 gang classes (one per node count, appended after n_classes
+    ordinary ones) and (gang_task, rq_id, priority, n_nodes) rows. The
+    gangs carry the top user priority of the tasks (3): a gang row sorts
+    ahead of ordinary rows of its own user priority only, and below the
+    top one the deep backlog touches every idle worker first."""
+    from hyperqueue_tpu_torch.ids import make_task_id
+    from hyperqueue_tpu_torch.scheduler.queues import encode_sched_priority
+
+    rng = np.random.default_rng(seed + 11)
+    classes = [[{"entries": [], "n_nodes": n}] for n in range(2, 17)]
+    gangs = []
+    for i in range(n_gangs):
+        n = int(rng.integers(2, 17))
+        job = int(rng.integers(1, n_jobs + 1))
+        gangs.append((make_task_id(job, 2_000_000 + i), n_classes + n - 2,
+                      (3, encode_sched_priority(job)), n))
+    return classes, gangs
+
+
+# -- the gang-row and policy-mask cases (K1g) --------------------------------
+
+def _onehot(gids, n_g):
+    onehot = np.zeros((len(gids), n_g), np.int32)
+    member = gids >= 0
+    onehot[np.flatnonzero(member), gids[member]] = 1
+    return onehot
+
+
+def solver_gang_case(seed, n_w, n_r, n_b, n_v, n_g, n_gang_rows=16,
+                     with_mask=False, gang_sizes=(2, 17)):
+    """tests/test_solver.py's gang generator (test_gang_rows_numpy_matches_
+    jax_and_hold_invariants) at a given width: gang rows of 2-16 nodes,
+    half the workers idle, n_g groups; with_mask adds the weighted
+    generator's affinity (zeros, fractional and > 1 weights), which keys
+    the visit classes and gives the policy mask."""
+    from hyperqueue_tpu_torch.ops.assign import (
+        host_visit_classes,
+        scarcity_weights,
+    )
+
+    rng = np.random.default_rng(seed)
+    free = rng.integers(0, 8, size=(n_w, n_r)) * U
+    needs = rng.integers(0, 3, size=(n_b, n_v, n_r)) * (U // 2)
+    needs[:, 0, 0] = np.maximum(needs[:, 0, 0], U)
+    sizes = rng.integers(0, 12, size=n_b)
+    case = {
+        "free": free,
+        "nt_free": rng.integers(0, 10, size=n_w),
+        "lifetime": np.where(rng.random(n_w) < 0.2, 100, INF),
+        "needs": needs, "sizes": sizes,
+        "min_time": np.where(rng.random((n_b, n_v)) < 0.2, 3600, 0),
+    }
+    if n_gang_rows:
+        gang_nodes = np.zeros(n_b, np.int64)
+        rows = rng.choice(n_b, size=n_gang_rows, replace=False)
+        gang_nodes[rows] = rng.integers(*gang_sizes, size=n_gang_rows)
+        sizes[rows] = 1
+        case.update(gang_nodes=gang_nodes,
+                    gang_ok=rng.integers(0, 2, size=n_w),
+                    group_onehot=_onehot(rng.integers(0, n_g, size=n_w),
+                                         n_g))
+    affinity = None
+    if with_mask:
+        affinity = rng.choice(np.array([0.0, 0.5, 1.0, 2.0, 4.0]),
+                              size=(n_b, n_w))
+        case["policy_mask"] = (affinity > 0).astype(np.int32)
+    scarcity = scarcity_weights(free.sum(axis=0))
+    case["class_m"], case["order_ids"] = host_visit_classes(
+        free, needs, scarcity, affinity=affinity)
+    return {k: np.ascontiguousarray(v, dtype=np.int32)
+            for k, v in case.items()}
+
+
+def fused_random_case(seed, n_w, n_r, n_b, n_v, n_g):
+    """random_case with gang rows (a quarter of the rows, 1-16 nodes), 60%
+    idle workers in n_g groups (5% in none) and an affinity with zeros that
+    keys the visit classes and gives the policy mask."""
+    from hyperqueue_tpu_torch.ops.assign import (
+        host_visit_classes,
+        scarcity_weights,
+    )
+
+    case = random_case(seed, n_w, n_r, n_b, n_v, False)
+    rng = np.random.default_rng(seed + 77)
+    affinity = rng.choice(np.array([0.0, 0.5, 1.0, 2.0], np.float32),
+                          size=(n_b, n_w), p=[0.2, 0.2, 0.4, 0.2])
+    scarcity = scarcity_weights(np.maximum(case["free"], 0).sum(axis=0))
+    case["class_m"], case["order_ids"] = host_visit_classes(
+        case["free"], case["needs"], scarcity, affinity=affinity)
+    gids = np.where(rng.random(n_w) < 0.95,
+                    rng.integers(0, n_g, size=n_w), -1)
+    case.update(
+        policy_mask=(affinity > 0).astype(np.int32),
+        gang_nodes=np.where(rng.random(n_b) < 0.25,
+                            rng.integers(1, 17, size=n_b), 0),
+        gang_ok=(rng.random(n_w) < 0.6).astype(np.int32),
+        group_onehot=_onehot(gids, n_g),
+    )
+    return {k: np.ascontiguousarray(v, dtype=np.int32)
+            for k, v in case.items()}
+
+
+def touched_case(n_w=1024, n_g=8, touch=None):
+    """Gang rows behind an ordinary row that places one task on each of the
+    first `touch` workers (one 3-cpu task fits per 4-cpu worker); all
+    workers idle, 8 gang rows of 4-64 nodes. touch=None touches all."""
+    from hyperqueue_tpu_torch.ops.assign import (
+        host_visit_classes,
+        scarcity_weights,
+    )
+
+    n_b = 9
+    touch = n_w if touch is None else touch
+    free = np.full((n_w, 1), 4 * U)
+    needs = np.zeros((n_b, 1, 1), np.int64)
+    needs[0, 0, 0] = 3 * U
+    sizes = np.ones(n_b, np.int64)
+    sizes[0] = touch
+    gang_nodes = np.array([0, 4, 8, 16, 32, 64, 4, 8, 16])
+    case = {
+        "free": free, "nt_free": np.full(n_w, 4),
+        "lifetime": np.full(n_w, INF), "needs": needs, "sizes": sizes,
+        "min_time": np.zeros((n_b, 1)), "gang_nodes": gang_nodes,
+        "gang_ok": np.ones(n_w),
+        "group_onehot": _onehot(np.arange(n_w) * n_g // n_w, n_g),
+    }
+    case["class_m"], case["order_ids"] = host_visit_classes(
+        free, needs, scarcity_weights(free.sum(axis=0)))
+    return {k: np.ascontiguousarray(v, dtype=np.int32)
+            for k, v in case.items()}
+
+
+def k1g_cases():
+    """name -> kernel inputs of every K1g case."""
+    cases = {
+        "gang_solver_1024x8x256x2_G8":
+            solver_gang_case(500, 1024, 8, 256, 2, 8),
+        "mask_solver_1024x8x256x2":
+            solver_gang_case(900, 1024, 8, 256, 2, 8, n_gang_rows=0,
+                             with_mask=True),
+        "gang_mask_solver_1024x8x256x2_G8":
+            solver_gang_case(1300, 1024, 8, 256, 2, 8, with_mask=True),
+        "gang_infeasible_1024x8x256x2_G64":
+            solver_gang_case(1700, 1024, 8, 256, 2, 64, with_mask=True,
+                             gang_sizes=(17, 33)),
+        "gang_after_touch_all_1024_G8": touched_case(),
+        "gang_after_touch_half_1024_G8": touched_case(touch=512),
+    }
+    for i, shape in enumerate([
+        (1021, 3, 37, 2, 5), (1024, 4, 64, 2, 1024), (4096, 4, 64, 2, 8),
+        (16384, 3, 32, 2, 1), (16384, 3, 32, 2, 8), (16384, 3, 32, 2, 16384),
+    ]):
+        name = "gang_mask_" + "x".join(map(str, shape[:4])) + (
+            f"_G{shape[4]}")
+        cases[name] = fused_random_case(2000 + i, *shape)
+    return cases
 
 
 # -- checks ------------------------------------------------------------------
 
 KEYS = ("free", "nt_free", "lifetime", "needs", "sizes", "min_time",
         "class_m", "order_ids")
+OPTIONAL = ("total", "all_mask", "gang_nodes", "gang_ok", "group_onehot",
+            "policy_mask")
 
 
 def to_device(case, device):
     import torch
 
     return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.int32))
-            .to(device) for k, v in case.items() if v is not None}
+            .to(device) for k, v in case.items()
+            if v is not None and not k.startswith("_")}
+
+
+def _args(t):
+    return [t[k] for k in KEYS], {k: t.get(k) for k in OPTIONAL}
 
 
 def kernel_vs_plain(case, device) -> int:
@@ -213,14 +431,9 @@ def kernel_vs_plain(case, device) -> int:
     )
 
     t = to_device(case, device)
-    ref = greedy_cut_scan_reference(
-        *(t[k] for k in KEYS), total=t.get("total"),
-        all_mask=t.get("all_mask"),
-    )
-    counts = greedy_cut_scan(
-        *(t[k] for k in KEYS), total=t.get("total"),
-        all_mask=t.get("all_mask"),
-    )
+    args, opt = _args(t)
+    ref = greedy_cut_scan_reference(*args, **opt)
+    counts = greedy_cut_scan(*args, **opt)
     torch.cuda.synchronize()
     err = 0
     for name, got, want in zip(("counts", "free", "nt_free"),
@@ -252,30 +465,53 @@ class RecordingModel:
 
 
 def padded_inputs(model, kwargs):
-    solve_args = {k: kwargs.get(k) for k in
-                  ("free", "nt_free", "lifetime", "needs", "sizes",
-                   "min_time", "total", "all_mask")}
-    prep = model.prepare(**solve_args)
+    """The kernel's padded inputs of one recorded solve (the model's own
+    prepare), with the live (B, V, W) extents."""
+    prep = model.prepare(**kwargs)
     case = {"free": prep["free_p"], "nt_free": prep["nt_p"],
             "lifetime": prep["life_p"], "needs": prep["needs_p"],
             "sizes": prep["sizes_p"], "min_time": prep["mt_p"],
             "class_m": prep["class_m"], "order_ids": prep["order_ids"],
-            "total": prep["total_p"], "all_mask": prep["amask_p"]}
+            "total": prep["total_p"], "all_mask": prep["amask_p"],
+            "gang_nodes": prep["gang_p"], "gang_ok": prep["gok_p"],
+            "group_onehot": prep["goh_p"], "policy_mask": prep["pmask_p"]}
     return {k: np.array(v, dtype=np.int32) for k, v in case.items()
             if v is not None}, prep["extents"]
 
 
+def check_tick_against_plain(model, kwargs, counts, device, tick):
+    """The same padded inputs through the plain version on the card; raises
+    unless the counts agree. Returns the padded case with the plain
+    counts under "_counts"."""
+    from hyperqueue_tpu_torch.ops.assign import greedy_cut_scan_reference
+
+    case, (n_b, n_v, n_w) = padded_inputs(model, kwargs)
+    args, opt = _args(to_device(case, device))
+    ref = greedy_cut_scan_reference(*args, **opt)[0].cpu().numpy()
+    if not np.array_equal(ref[:n_b, :n_v, :n_w], counts):
+        raise AssertionError(f"tick {tick}: counts differ from the plain "
+                             "version")
+    case["_counts"] = ref
+    case["_extents"] = (n_b, n_v, n_w)
+    return case
+
+
 def executed_steps(case) -> int:
-    """(batch, variant) steps the kernel runs: those that start with tasks
-    left to place (it skips the rest)."""
-    counts_free = case["_counts"]
+    """Steps the kernel runs: one per gang row, and the (batch, variant)
+    steps of ordinary rows that start with tasks left to place (it skips
+    the rest)."""
+    counts = case["_counts"]
+    gang = case.get("gang_nodes")
     n = 0
     for b in range(case["sizes"].shape[0]):
+        if gang is not None and gang[b] > 0:
+            n += 1
+            continue
         remaining = int(case["sizes"][b])
         for v in range(case["needs"].shape[1]):
             if remaining > 0:
                 n += 1
-            remaining -= int(counts_free[b, v].sum())
+            remaining -= int(counts[b, v].sum())
     return n
 
 
@@ -287,7 +523,7 @@ def bounds(case, steps, step_latency_ms):
     card's non-tensor rate. The scan is sequential, so its binding floor is
     the latency bound: one block-wide scan plus barrier per step, over the
     steps this run's data executes (the kernel skips a step with no tasks
-    left) and over all B*V steps."""
+    left) and over all steps (B*V, a gang row counting one)."""
     n_w, n_r = case["free"].shape
     in_bytes = sum(v.nbytes for k, v in case.items() if not k.startswith("_"))
     out_bytes = case["_counts"].nbytes + case["free"].nbytes \
@@ -295,20 +531,24 @@ def bounds(case, steps, step_latency_ms):
     bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
     ops = steps * n_w * (2 * n_r + 10)
     ops_ms = ops / FP32_OPS_PER_S * 1e3
+    n_b, n_v = case["min_time"].shape
+    n_gang = int((case["gang_nodes"] > 0).sum()) if "gang_nodes" in case \
+        else 0
     return {
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "bytes": in_bytes + out_bytes, "ops": ops,
         "latency_bound_ms": steps * step_latency_ms,
         "latency_bound_all_steps_ms":
-            case["sizes"].shape[0] * case["needs"].shape[1] * step_latency_ms,
+            ((n_b - n_gang) * n_v + n_gang) * step_latency_ms,
     }
 
 
 def time_kernel(case, device, reps=50) -> float:
-    """Mean device ms of one launch at these inputs, by CUDA events over
-    `reps` back-to-back launches (each on its own copy of the state it
-    updates in place)."""
+    """Mean ms of one call of the kernel's wrapper at these inputs, by CUDA
+    events over `reps` back-to-back calls (each on its own copy of the
+    state it updates in place). With gang rows this includes the wrapper's
+    group one-hot check, which reads a flag back."""
     import torch
 
     from hyperqueue_tpu_torch.ops.assign import greedy_cut_scan
@@ -316,19 +556,46 @@ def time_kernel(case, device, reps=50) -> float:
     t = to_device(case, device)
     states = [(t["free"].clone(), t["nt_free"].clone())
               for _ in range(reps + 5)]
-    rest = [t[k] for k in KEYS[2:]]
-    extra = dict(total=t.get("total"), all_mask=t.get("all_mask"))
+    args, opt = _args(t)
+    rest = args[2:]
     for f, n in states[:5]:
-        greedy_cut_scan(f, n, *rest, **extra)
+        greedy_cut_scan(f, n, *rest, **opt)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for f, n in states[5:]:
-        greedy_cut_scan(f, n, *rest, **extra)
+        greedy_cut_scan(f, n, *rest, **opt)
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_device_ms(case, device, reps=20) -> float:
+    """Mean device ms of cut_scan_kernel alone at these inputs: the
+    profiler's (CUPTI) kernel time over `reps` launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hyperqueue_tpu_torch.ops.assign import greedy_cut_scan
+
+    t = to_device(case, device)
+    states = [(t["free"].clone(), t["nt_free"].clone())
+              for _ in range(reps + 2)]
+    args, opt = _args(t)
+    for f, n in states[:2]:
+        greedy_cut_scan(f, n, *args[2:], **opt)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for f, n in states[2:]:
+            greedy_cut_scan(f, n, *args[2:], **opt)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if "cut_scan_kernel" in e.key]
+    total_us = sum(e.self_device_time_total for e in events)
+    if total_us <= 0:
+        raise AssertionError("the profiler saw no cut_scan_kernel time")
+    return total_us / 1e3 / reps
 
 
 def time_plain(case, device, reps=3) -> float:
@@ -336,27 +603,50 @@ def time_plain(case, device, reps=3) -> float:
 
     from hyperqueue_tpu_torch.ops.assign import greedy_cut_scan_reference
 
-    t = to_device(case, device)
-    args = [t[k] for k in KEYS]
-    extra = dict(total=t.get("total"), all_mask=t.get("all_mask"))
-    greedy_cut_scan_reference(*args, **extra)
+    args, opt = _args(to_device(case, device))
+    greedy_cut_scan_reference(*args, **opt)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
-        greedy_cut_scan_reference(*args, **extra)
+        greedy_cut_scan_reference(*args, **opt)
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
 
 
+def kernel_timing(case, device, step_lat):
+    """The kernel's times and bounds at one tick's padded inputs, with the
+    visit-class table's rows (M) and the prologue's own time."""
+    import torch
+
+    from hyperqueue_tpu_torch.ops.assign import prologue_ms
+
+    kernel_case = {k: v for k, v in case.items() if not k.startswith("_")}
+    steps = executed_steps(case)
+    class_m = torch.from_numpy(case["class_m"]).to(device)
+    return {
+        "ms": kernel_device_ms(kernel_case, device),
+        "wrapper_ms": time_kernel(kernel_case, device),
+        "plain_ms": time_plain(kernel_case, device),
+        "steps": steps,
+        "M": int(case["class_m"].shape[0]),
+        "prologue_ms": prologue_ms(class_m),
+        "shape": list(case["_counts"].shape),
+        **bounds(case, steps, step_lat),
+    }
+
+
 def check_assignments(assignments, rows, rq_map, seen):
     """Every task is assigned once and no worker goes over its free
-    resources or task slots."""
+    resources or task slots (gang sentinels, variant -1, are checked by
+    check_gangs)."""
     by_id = {row.worker_id: row for row in rows}
     used, slots = {}, {}
     for task_id, worker_id, rq_id, variant in assignments:
+        if variant < 0:
+            continue
         if task_id in seen:
             raise AssertionError(f"task {task_id} assigned twice")
         seen.add(task_id)
@@ -371,12 +661,56 @@ def check_assignments(assignments, rows, rq_map, seen):
             raise AssertionError(f"worker {worker_id} over-committed")
 
 
+def check_gangs(assignments, gang_batches, rows, idle, excluded):
+    """Every gang row is all-or-nothing on idle members of one group that
+    take nothing else this tick; returns the gangs placed. `excluded`:
+    (task class "nodes", group) pairs the policy gives weight 0."""
+    index_of = {row.worker_id: i for i, row in enumerate(rows)}
+    members: dict = {}
+    ordinary_workers = set()
+    for task, worker, _rq, variant in assignments:
+        if variant < 0:
+            members.setdefault(task, []).append(worker)
+        else:
+            ordinary_workers.add(worker)
+    want = {b.gang_task: b.gang_nodes for b in gang_batches}
+    taken = set()
+    for task, workers in members.items():
+        if task not in want or len(workers) != want[task]:
+            raise AssertionError(f"gang {task} placed on {len(workers)} "
+                                 "workers, not all or nothing")
+        groups = {rows[index_of[w]].group for w in workers}
+        if len(groups) != 1:
+            raise AssertionError(f"gang {task} spans groups {groups}")
+        if ("nodes", groups.pop()) in excluded:
+            raise AssertionError(f"gang {task} on an excluded group")
+        for w in workers:
+            if not idle[index_of[w]] or w in taken or w in ordinary_workers:
+                raise AssertionError(f"gang {task} member {w} not idle "
+                                     "and free")
+            taken.add(w)
+    return set(members)
+
+
+def check_exclusions(assignments, rows, classes_of, excluded):
+    by_id = {row.worker_id: row for row in rows}
+    for _task, worker, rq_id, _variant in assignments:
+        if (classes_of[rq_id], by_id[worker].group) in excluded:
+            raise AssertionError(f"rq {rq_id} placed on worker {worker} "
+                                 "of a group its policy excludes")
+
+
 def advance(assignments, rows, rq_map, totals, nt0, rng) -> None:
-    """Start the assigned tasks on the worker rows, then let a random
-    quarter of the workers finish all their tasks."""
+    """Start the assigned tasks on the worker rows (a gang member is taken
+    whole), then let a random quarter of the workers finish all their
+    tasks."""
     by_id = {row.worker_id: row for row in rows}
     for _task, worker_id, rq_id, variant in assignments:
         row = by_id[worker_id]
+        if variant < 0:
+            row.free[:] = [0] * len(row.free)
+            row.nt_free = 0
+            continue
         for e in rq_map.get_variants(rq_id).variants[variant].entries:
             row.free[e.resource_id] -= e.amount
         row.nt_free -= 1
@@ -386,22 +720,19 @@ def advance(assignments, rows, rq_map, totals, nt0, rng) -> None:
         rows[i].nt_free = nt0[i]
 
 
-def profiled_window(queues, rows, rq_map, resource_map, model, advance_state,
-                    n_ticks=3):
-    """A short steady window of `n_ticks` ticks (each applying its
-    assignments, as the main path does) under torch.profiler: the window's
-    wall ms and the device's busy ms and the kernel's ms in it."""
+def profiled_window(one_tick, n_ticks=3):
+    """A short steady window of `n_ticks` calls of one_tick() (each runs,
+    checks and applies a tick, as the path does) under torch.profiler: the
+    window's wall ms and the device's busy ms and the kernel's ms in it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-
-    from hyperqueue_tpu_torch.scheduler.tick import run_tick
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n_ticks):
-            advance_state(run_tick(queues, rows, rq_map, resource_map, model))
+            one_tick()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
@@ -413,68 +744,133 @@ def profiled_window(queues, rows, rq_map, resource_map, model, advance_state,
     return wall_ms, busy_ms, kernel_ms
 
 
-# -- main --------------------------------------------------------------------
+def tick_summary(tick_ms, tick_phases, card):
+    steady = tick_ms[1:]
+    return dict(
+        wall_ms=tick_ms, steady_median_ms=float(np.median(steady)),
+        steady_min_ms=float(np.min(steady)),
+        steady_max_ms=float(np.max(steady)),
+        phases_median_ms={
+            k: float(np.median([p.get(k, 0.0) for p in tick_phases[1:]]))
+            for k in ("assemble", "solve_host_prep", "solve_dispatch",
+                      "device_sync", "mapping")
+        },
+        card=card)
 
-def main() -> int:
+
+def window_summary(wall_ms, busy_ms, kernel_ms, n_window, steady_median_ms,
+                   card):
+    # the profiler lengthens the host's side of a tick, so the idle share
+    # is given against both the profiled window and the unprofiled ticks
+    busy_per_tick = busy_ms / n_window
+    return dict(
+        ticks=n_window, wall_ms=wall_ms, device_busy_ms=busy_ms,
+        kernel_ms=kernel_ms, device_busy_per_tick_ms=busy_per_tick,
+        device_idle_share_of_window=1 - busy_ms / wall_ms,
+        device_idle_share_of_steady_median=(
+            1 - busy_per_tick / steady_median_ms),
+        card=card)
+
+
+def time_glue(model, padded_shape, live_shape, device, reps=200):
+    """K3 and K4 alone at the main path's shapes, CUDA events over `reps`
+    calls each. K3: the dirty-row index_copy_ of free, nt_free and lifetime
+    into the resident tensors, at the last tick's dirty-row count. K4: the
+    slice of the padded counts to the live extents (.contiguous()), and the
+    pinned copies of the counts and the state after the solve to the host.
+    Bounds: bytes over the HBM rate; the pinned copies' bytes over the
+    host link's rate, measured with a 256 MiB pinned copy."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; the port's smoke run needs one",
-              file=sys.stderr)
-        return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    res = model._res
+    pw, pr = res.free.shape
+    dirty = max(res.dirty_rows_last, 1)
+
+    def events_ms(fn, n=reps):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / n
+
+    free, nt, life = (res.free.clone(), res.nt_free.clone(),
+                      res.lifetime.clone())
+    idx = torch.randperm(pw, device=device)[:dirty].sort().values
+    src_f = torch.ones((dirty, pr), dtype=torch.int32, device=device)
+    src_n = torch.ones(dirty, dtype=torch.int32, device=device)
+
+    def k3():
+        free.index_copy_(0, idx, src_f)
+        nt.index_copy_(0, idx, src_n)
+        life.index_copy_(0, idx, src_n)
+
+    k3_ms = events_ms(k3)
+    # each index read once per copy, each source row read, each row written
+    k3_bytes = 3 * idx.numel() * 8 + 2 * dirty * (pr + 2) * 4
+
+    n_b, n_v, n_w = live_shape
+    padded = torch.zeros(padded_shape, dtype=torch.int32, device=device)
+    k4_slice_ms = events_ms(
+        lambda: padded[:n_b, :n_v, :n_w].contiguous())
+    live_bytes = n_b * n_v * n_w * 4
+    live = padded[:n_b, :n_v, :n_w].contiguous()
+    pinned = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+              for x in (live, res.free, res.nt_free)]
+
+    def k4_copy():
+        for dst, src in zip(pinned, (live, res.free, res.nt_free)):
+            dst.copy_(src, non_blocking=True)
+
+    k4_copy_ms = events_ms(k4_copy)
+    copy_bytes = sum(p.numel() * p.element_size() for p in pinned)
+    big = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    big_host = torch.empty(big.shape, dtype=torch.uint8, pin_memory=True)
+    big_ms = events_ms(lambda: big_host.copy_(big, non_blocking=True), 5)
+    link_bytes_per_s = big.numel() / (big_ms / 1e3)
+    return {
+        "K3": {"ms": k3_ms, "library_ms": k3_ms, "dirty_rows": dirty,
+               "bytes": k3_bytes,
+               "bound_ms": k3_bytes / HBM_BYTES_PER_S * 1e3,
+               "bound_by": "bytes"},
+        "K4": {"slice_ms": k4_slice_ms, "library_ms": k4_slice_ms,
+               "slice_bytes": 2 * live_bytes,
+               "slice_bound_ms": 2 * live_bytes / HBM_BYTES_PER_S * 1e3,
+               "copy_ms": k4_copy_ms, "copy_bytes": copy_bytes,
+               "link_bytes_per_s": link_bytes_per_s,
+               "copy_bound_ms": copy_bytes / link_bytes_per_s * 1e3,
+               "bound_by": "bytes"},
+    }
+
+
+# -- main --------------------------------------------------------------------
+
+def main_path(card, device, seen):
+    """Phase 3: the default tick, N_TICKS ticks through run_tick. Returns
+    the model, the per-tick wall ms and phases, the last tick's padded
+    case, the launches and a closure that runs one more tick."""
     from hyperqueue_tpu_torch.convert import tick_state_from_plain
     from hyperqueue_tpu_torch.models.greedy import GreedyCutScanModel
     from hyperqueue_tpu_torch.ops import assign
-    from hyperqueue_tpu_torch.ops.build import load_library
     from hyperqueue_tpu_torch.scheduler.tick import run_tick
 
-    device = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-    # phase 1: the card and the build
-    card = card_info()
-    kind = torch.cuda.get_device_name(0)
     t0 = time.perf_counter()
-    _lib, record = load_library("cut_scan")
-    build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in record["ptxas"].splitlines()
-             if "registers" in ln or "spill" in ln]
-    log("card", card=card, kind=kind, torch=torch.__version__,
-        cuda=torch.version.cuda)
-    log("build", kernel="cut_scan", seconds=round(build_s, 3),
-        compiled=record["compiled"], ptxas=ptxas, card=card)
-
-    # phase 2: the kernel against its plain version
-    max_err = 0
-    cases = {"bench_1024x8x256x2": bench_instance()}
-    shapes = [(8, 4, 8, 2), (13, 3, 5, 3), (100, 2, 9, 1), (1000, 4, 40, 2),
-              (1500, 2, 17, 3), (4096, 4, 24, 2), (16384, 3, 6, 2)]
-    for i, shape in enumerate(shapes):
-        for with_all in (False, True):
-            name = "x".join(map(str, shape)) + ("_all" if with_all else "")
-            cases[name] = random_case(100 + i, *shape, with_all)
-    for name, case in cases.items():
-        max_err = max(max_err, kernel_vs_plain(case, device))
-    log("kernel_vs_plain", cases=sorted(cases), max_abs_err=max_err,
-        card=card)
-
-    # phase 3: the main path, ticks through run_tick on the card
-    t0 = time.perf_counter()
-    plain = north_star_state()
-    resource_map, rq_map, queues, rows = tick_state_from_plain(*plain)
-    setup_s = time.perf_counter() - t0
+    resource_map, rq_map, queues, rows = tick_state_from_plain(
+        *north_star_state())
     log("state", workers=len(rows), ready_tasks=queues.total_ready(),
-        classes=len(rq_map), seconds=round(setup_s, 3))
+        classes=len(rq_map), seconds=round(time.perf_counter() - t0, 3))
     totals = [list(row.total) for row in rows]
     nt0 = [row.nt_free for row in rows]
     model = GreedyCutScanModel(device="cuda")
     recorder = RecordingModel(model)
     rng = np.random.default_rng(SEED + 1)
-    seen: set = set()
     tick_ms, tick_phases, last_case = [], [], None
     assign.greedy_cut_scan.launches = 0
+    assign.greedy_cut_scan.gang_launches = 0
     for tick in range(N_TICKS):
         before = assign.greedy_cut_scan.launches
         phases: dict = {}
@@ -491,81 +887,254 @@ def main() -> int:
         kwargs, counts = recorder.calls[-1]
         if counts.sum() != len(assignments):
             raise AssertionError("assignments do not match the counts")
-        # the same padded inputs through the plain version
-        case, (n_b, n_v, n_w) = padded_inputs(model, kwargs)
-        t = to_device(case, device)
-        ref = assign.greedy_cut_scan_reference(
-            *(t[k] for k in KEYS), total=t.get("total"),
-            all_mask=t.get("all_mask"),
-        )[0].cpu().numpy()
-        if not np.array_equal(ref[:n_b, :n_v, :n_w], counts):
-            raise AssertionError(f"tick {tick}: counts differ from the "
-                                 "plain version")
-        case["_counts"] = ref
-        last_case = case
+        last_case = check_tick_against_plain(model, kwargs, counts, device,
+                                             tick)
         log("tick", tick=tick, assigned=len(assignments),
-            batches=int(n_b), wall_ms=tick_ms[-1], phases=phases,
+            batches=int(counts.shape[0]), wall_ms=tick_ms[-1], phases=phases,
             resident=model.resident_stats(), card=card)
         advance(assignments, rows, rq_map, totals, nt0, rng)
     launches = assign.greedy_cut_scan.launches
-    if launches != N_TICKS:
+    if launches != N_TICKS or assign.greedy_cut_scan.gang_launches:
         raise AssertionError(f"main path launched the kernel {launches} "
                              f"times in {N_TICKS} ticks")
 
-    # phase 4: timings at the main path's shapes (the last tick's inputs)
-    kernel_case = {k: v for k, v in last_case.items()
-                   if not k.startswith("_")}
-    k_ms = time_kernel(kernel_case, device)
-    p_ms = time_plain(kernel_case, device)
-    steps = executed_steps(last_case)
-    step_lat = assign.scan_step_latency_ms(4096, device)
-    b = bounds(last_case, steps, step_lat)
-    log("timing", kernel_ms=k_ms, plain_ms=p_ms, steps=steps,
-        step_scan_latency_ms=step_lat, shape=list(last_case["_counts"].shape),
-        **b, card=card)
-    steady = tick_ms[1:]
-    log("ticks", wall_ms=tick_ms, steady_median_ms=float(np.median(steady)),
-        steady_min_ms=float(np.min(steady)),
-        steady_max_ms=float(np.max(steady)),
-        phases_median_ms={
-            k: float(np.median([p.get(k, 0.0) for p in tick_phases[1:]]))
-            for k in ("assemble", "solve_host_prep", "solve_dispatch",
-                      "device_sync", "mapping")
-        },
-        card=card)
-    n_window = 3
-    wall_ms, busy_ms, kernel_in_window_ms = profiled_window(
-        queues, rows, rq_map, resource_map, model,
-        lambda a: (check_assignments(a, rows, rq_map, seen),
-                   advance(a, rows, rq_map, totals, nt0, rng)),
-        n_window,
-    )
-    # the profiler lengthens the host's side of a tick, so the idle share
-    # is given against both the profiled window and the unprofiled ticks
-    busy_per_tick = busy_ms / n_window
-    log("profiled_window", ticks=n_window, wall_ms=wall_ms,
-        device_busy_ms=busy_ms, kernel_ms=kernel_in_window_ms,
-        device_busy_per_tick_ms=busy_per_tick,
-        device_idle_share_of_window=1 - busy_ms / wall_ms,
-        device_idle_share_of_steady_median=(
-            1 - busy_per_tick / float(np.median(steady))),
-        card=card)
+    def one_tick():
+        a = run_tick(queues, rows, rq_map, resource_map, model)
+        check_assignments(a, rows, rq_map, seen)
+        advance(a, rows, rq_map, totals, nt0, rng)
 
-    kernels = [{
-        "name": "cut_scan",
-        "route": "cuda",
-        "source": "hyperqueue_tpu_torch/csrc/cut_scan.cu",
-        "replaces": "hyperqueue_tpu/ops/assign.py:398",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-        "bound_ms": b["bound_ms"],
-        "bound_by": b["bound_by"],
-        "library_ms": None,
-        "latency_bound_ms": b["latency_bound_ms"],
-        "latency_bound_all_steps_ms": b["latency_bound_all_steps_ms"],
-    }]
+    return model, tick_ms, tick_phases, last_case, launches, one_tick
+
+
+def fused_path(card, device, seen):
+    """Phase 5: the fused tick, N_FUSED_TICKS ticks through
+    run_tick(gang_ok=, group_ids=, policy=). Returns the per-tick wall ms
+    and phases, the last tick's padded case, the K1g launches, the visit-
+    class rows M per tick and a closure that runs one more tick."""
+    from hyperqueue_tpu_torch.convert import (
+        group_ids,
+        policy_table_from_plain,
+        tick_state_from_plain,
+    )
+    from hyperqueue_tpu_torch.models.greedy import GreedyCutScanModel
+    from hyperqueue_tpu_torch.ops import assign
+    from hyperqueue_tpu_torch.scheduler.policy import PolicyState, task_class
+    from hyperqueue_tpu_torch.scheduler.predict import RuntimePredictor
+    from hyperqueue_tpu_torch.scheduler.tick import (
+        Batch,
+        create_batches,
+        run_tick,
+    )
+
+    t0 = time.perf_counter()
+    resources, classes, tasks, workers = north_star_state(
+        n_jobs=N_JOBS, n_groups=N_GROUPS)
+    gang_classes, pending = gang_tasks(len(classes))
+    resource_map, rq_map, queues, rows = tick_state_from_plain(
+        resources, classes + gang_classes, tasks, workers)
+    table = policy_table_from_plain(FUSED_POLICY)
+    predictor = RuntimePredictor(alpha=table.ewma_alpha)
+    feed = np.random.default_rng(SEED + 3)
+    for _ in range(4):
+        for job in range(1, N_JOBS + 1):
+            predictor.observe(f"job{job}", float(feed.uniform(1, 600)))
+    policy = PolicyState(table, predictor=predictor,
+                         job_name=lambda job: f"job{job}")
+    classes_of = [task_class(rq_map.get_variants(rq), resource_map)
+                  for rq in range(len(rq_map))]
+    excluded = {(tclass, group)
+                for tclass, row in FUSED_POLICY["affinity"].items()
+                for group, weight in row.items() if weight == 0.0}
+    gids = group_ids(rows)
+    worker_ids = [row.worker_id for row in rows]
+    by_id = {row.worker_id: row for row in rows}
+    log("fused_state", workers=len(rows), ready_tasks=queues.total_ready(),
+        classes=len(rq_map), jobs=N_JOBS, groups=int(gids.max()) + 1,
+        gang_tasks=len(pending), seconds=round(time.perf_counter() - t0, 3))
+    totals = [list(row.total) for row in rows]
+    nt0 = [row.nt_free for row in rows]
+    model = GreedyCutScanModel(device="cuda")
+    recorder = RecordingModel(model)
+    rng = np.random.default_rng(SEED + 2)
+    state = {"pending": pending}
+
+    def tick_inputs():
+        idle = np.array([row.free == totals[i] and row.nt_free == nt0[i]
+                         for i, row in enumerate(rows)], np.int32)
+        gang_batches = [
+            Batch(rq_id=rq, priority=prio, size=1, gang_task=task,
+                  gang_nodes=n)
+            for task, rq, prio, n in state["pending"][:MAX_FUSED_GANG_ROWS]
+        ]
+        batches = create_batches(queues) + gang_batches
+        ctx = policy.tick_context(by_id, rq_map, resource_map, worker_ids,
+                                  batches)
+        return idle, gang_batches, batches, ctx
+
+    def finish(assignments, idle, gang_batches):
+        check_assignments(assignments, rows, rq_map, seen)
+        placed = check_gangs(assignments, gang_batches, rows, idle, excluded)
+        check_exclusions(assignments, rows, classes_of, excluded)
+        state["pending"] = [g for g in state["pending"] if g[0] not in placed]
+        advance(assignments, rows, rq_map, totals, nt0, rng)
+        return placed
+
+    tick_ms, tick_phases, m_rows, last_case = [], [], [], None
+    assign.greedy_cut_scan.launches = 0
+    assign.greedy_cut_scan.gang_launches = 0
+    for tick in range(N_FUSED_TICKS):
+        idle, gang_batches, batches, ctx = tick_inputs()
+        before = (assign.greedy_cut_scan.launches,
+                  assign.greedy_cut_scan.gang_launches)
+        phases: dict = {}
+        t0 = time.perf_counter()
+        assignments = run_tick(queues, rows, rq_map, resource_map, recorder,
+                               batches=batches, phases=phases, gang_ok=idle,
+                               group_ids=gids, policy=ctx)
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+        tick_phases.append(phases)
+        after = (assign.greedy_cut_scan.launches,
+                 assign.greedy_cut_scan.gang_launches)
+        if after != (before[0] + 1, before[1] + 1):
+            raise AssertionError(f"fused tick {tick}: launches "
+                                 f"{before} -> {after}, expected one launch "
+                                 "with gang and mask inputs")
+        kwargs, counts = recorder.calls[-1]
+        last_case = check_tick_against_plain(model, kwargs, counts, device,
+                                             tick)
+        if "policy_mask" not in last_case:
+            raise AssertionError(f"fused tick {tick}: the mask is not live")
+        placed = finish(assignments, idle, gang_batches)
+        m_rows.append(int(last_case["class_m"].shape[0]))
+        log("fused_tick", tick=tick, assigned=len(assignments),
+            batches=len(batches), gang_rows=len(gang_batches),
+            gangs_placed=len(placed), idle_workers=int(idle.sum()),
+            M=m_rows[-1], boosts=ctx.boosts if ctx else {},
+            wall_ms=tick_ms[-1], phases=phases,
+            resident=model.resident_stats(), card=card)
+    launches = assign.greedy_cut_scan.gang_launches
+    if launches != N_FUSED_TICKS:
+        raise AssertionError(f"fused path launched the kernel {launches} "
+                             f"times in {N_FUSED_TICKS} ticks")
+
+    def one_tick():
+        idle, gang_batches, batches, ctx = tick_inputs()
+        a = run_tick(queues, rows, rq_map, resource_map, model,
+                     batches=batches, gang_ok=idle, group_ids=gids,
+                     policy=ctx)
+        finish(a, idle, gang_batches)
+
+    return tick_ms, tick_phases, last_case, launches, m_rows, one_tick
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke run needs one",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from hyperqueue_tpu_torch.ops import assign
+    from hyperqueue_tpu_torch.ops.build import load_library
+
+    device = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # phase 1: the card and the build
+    card = card_info()
+    kind = torch.cuda.get_device_name(0)
+    t0 = time.perf_counter()
+    _lib, record = load_library("cut_scan")
+    build_s = time.perf_counter() - t0
+    ptxas = [ln.strip() for ln in record["ptxas"].splitlines()
+             if "registers" in ln or "spill" in ln or "Compiling" in ln]
+    log("card", card=card, kind=kind, torch=torch.__version__,
+        cuda=torch.version.cuda)
+    log("build", kernel="cut_scan", seconds=round(build_s, 3),
+        compiled=record["compiled"], ptxas=ptxas, card=card)
+
+    # phase 2: the kernel against its plain version, K1 then K1g cases
+    max_err = 0
+    cases = {"bench_1024x8x256x2": bench_instance()}
+    shapes = [(8, 4, 8, 2), (13, 3, 5, 3), (100, 2, 9, 1), (1000, 4, 40, 2),
+              (1500, 2, 17, 3), (4096, 4, 24, 2), (16384, 3, 6, 2)]
+    for i, shape in enumerate(shapes):
+        for with_all in (False, True):
+            name = "x".join(map(str, shape)) + ("_all" if with_all else "")
+            cases[name] = random_case(100 + i, *shape, with_all)
+    for name, case in cases.items():
+        max_err = max(max_err, kernel_vs_plain(case, device))
+    log("kernel_vs_plain", cases=sorted(cases), max_abs_err=max_err,
+        card=card)
+    max_err_g = 0
+    for name, case in k1g_cases().items():
+        max_err_g = max(max_err_g, kernel_vs_plain(case, device))
+        gang = case.get("gang_nodes")
+        log("kernel_vs_plain_k1g", case=name, M=int(case["class_m"].shape[0]),
+            gang_rows=0 if gang is None else int((gang > 0).sum()),
+            max_abs_err=max_err_g, card=card)
+
+    # phase 3: the main path, ticks through run_tick on the card
+    seen: set = set()
+    model, tick_ms, tick_phases, last_case, launches, one_tick = \
+        main_path(card, device, seen)
+
+    # phase 4: timings at the main path's shapes (the last tick's inputs)
+    step_lat = assign.scan_step_latency_ms(4096, device)
+    k1 = kernel_timing(last_case, device, step_lat)
+    log("timing", kernel="cut_scan", step_scan_latency_ms=step_lat, **k1,
+        card=card)
+    ticks = tick_summary(tick_ms, tick_phases, card)
+    log("ticks", **ticks)
+    n_window = 3
+    log("profiled_window", **window_summary(
+        *profiled_window(one_tick, n_window), n_window,
+        ticks["steady_median_ms"], card))
+    glue = time_glue(model, last_case["_counts"].shape,
+                     last_case["_extents"], device)
+    log("glue", **glue, card=card)
+
+    # phase 5: the fused path
+    # (a state of its own, whose task ids may repeat the main path's)
+    f_ms, f_phases, f_case, f_launches, m_rows, f_one_tick = fused_path(
+        card, device, set())
+
+    # phase 6: fused timings
+    k1g = kernel_timing(f_case, device, step_lat)
+    log("timing", kernel="cut_scan_gang", step_scan_latency_ms=step_lat,
+        **k1g, card=card)
+    f_ticks = tick_summary(f_ms, f_phases, card)
+    log("fused_ticks", M=m_rows, **f_ticks)
+    log("fused_profiled_window", **window_summary(
+        *profiled_window(f_one_tick, n_window), n_window,
+        f_ticks["steady_median_ms"], card))
+
+    kernels = []
+    for name, replaces, launch_count, err, timing in (
+        ("cut_scan", "hyperqueue_tpu/ops/assign.py:398", launches, max_err,
+         k1),
+        ("cut_scan_gang", "hyperqueue_tpu/ops/assign.py:246", f_launches,
+         max_err_g, k1g),
+    ):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "hyperqueue_tpu_torch/csrc/cut_scan.cu",
+            "replaces": replaces,
+            "launches": launch_count,
+            "max_abs_err": err,
+            "ms": timing["ms"],
+            "plain_ms": timing["plain_ms"],
+            "bound_ms": timing["bound_ms"],
+            "bound_by": timing["bound_by"],
+            "library_ms": None,
+            "latency_bound_ms": timing["latency_bound_ms"],
+            "latency_bound_all_steps_ms":
+                timing["latency_bound_all_steps_ms"],
+            "wrapper_ms": timing["wrapper_ms"],
+        })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,10 +5,14 @@ and request-class interning maps, the ready-task queues and the worker rows.
 `tick_state_from_plain` builds the port's objects from plain Python and
 numpy data, so that any producer (another implementation of the scheduler,
 a snapshot, a generator) can hand its state over and both sides compute from
-identical state.
+identical state. The fused tick's extra state crosses the same way: a group
+name per worker (`group_ids` turns the rows' groups into the tick's group
+index map) and the scheduling policy's tables (`policy_table_from_plain`).
 """
 
 from __future__ import annotations
+
+import numpy as np
 
 from hyperqueue_tpu_torch.resources.map import ResourceIdMap, ResourceRqMap
 from hyperqueue_tpu_torch.resources.request import (
@@ -17,6 +21,7 @@ from hyperqueue_tpu_torch.resources.request import (
     ResourceRequestEntry,
     ResourceRequestVariants,
 )
+from hyperqueue_tpu_torch.scheduler.policy import PolicyTable
 from hyperqueue_tpu_torch.scheduler.queues import TaskQueues
 from hyperqueue_tpu_torch.scheduler.tick import WorkerRow
 
@@ -31,9 +36,10 @@ def tick_state_from_plain(resources, classes, tasks, workers):
       three optional).
     tasks: (task_id, class_index, (user_priority, scheduler_priority))
       rows in queue (FIFO) order.
-    workers: (worker_id, free, nt_free, lifetime_secs, total) rows; free and
-      total are per-resource amounts in resource-id order, total may be
-      None.
+    workers: (worker_id, free, nt_free, lifetime_secs, total[, group])
+      rows; free and total are per-resource amounts in resource-id order,
+      total may be None; group is the worker group's name ("default" when
+      absent).
 
     Raises ValueError where the data does not give the ids it promises
     (a resource name out of place, two classes that intern to one rq-id).
@@ -77,7 +83,25 @@ def tick_state_from_plain(resources, classes, tasks, workers):
             nt_free=int(nt_free),
             lifetime_secs=int(lifetime),
             total=None if total is None else [int(a) for a in total],
+            group=str(group[0]) if group else "default",
         )
-        for worker_id, free, nt_free, lifetime, total in workers
+        for worker_id, free, nt_free, lifetime, total, *group in workers
     ]
     return resource_map, rq_map, queues, rows
+
+
+def group_ids(rows) -> np.ndarray:
+    """(W,) int32 group index of each worker row, groups numbered in order
+    of first appearance (the fused tick's `group_ids=`)."""
+    index: dict[str, int] = {}
+    return np.fromiter(
+        (index.setdefault(row.group, len(index)) for row in rows),
+        dtype=np.int32, count=len(rows),
+    )
+
+
+def policy_table_from_plain(data: dict) -> PolicyTable:
+    """A PolicyTable from the policy file's tables given as a dict
+    ({"affinity": {task_class: {worker_class: weight}}, "fairness": {...},
+    "prediction": {...}}), validated as a policy file is."""
+    return PolicyTable.from_plain(data)

@@ -15,6 +15,16 @@
 //             (visit class class_m[order_ids[b,v], w] asc, worker index asc);
 //   free   -= assign * need (and an ALL assignment empties the marked
 //             pools), nt_free -= assign, remaining -= min(remaining, sum cap).
+// With a policy mask, cap[w] = 0 where policy_mask[b, w] == 0 (after the
+// remaining clamp).  A gang row (gang_nodes[b] = n > 0; the JAX kernel's
+// _gang_select_local and the gang branch of scan_batches) replaces its
+// steps with one gang step: a worker is eligible if it is idle (gang_ok),
+// untouched by every earlier step of this solve, has a task slot, lives
+// past min_time[b, 0] and is not masked; the row takes the first worker
+// group with >= n eligible members (else the first with the most), and in
+// it the n lowest-index eligible workers; those get one count each in
+// variant 0 if the group had n, and are held either way (free row and
+// nt_free zeroed, no longer available to gangs).
 //
 // What bounds it: step (b, v) reads the free resources that step (b, v-1)
 // left, so the B*V steps run one after another, and every step needs one
@@ -32,7 +42,17 @@
 // [t*K, t*K+K): one int64 exclusive block scan of the capacities then IS the
 // water-fill prefix.  Integer division replaces the TPU's float32 division
 // and its fix-up.  free and nt_free are updated in place.
+//
+// Gang steps visit workers in index order (thread t owns workers
+// [t*K, t*K+K)), not in visit order, so they have a block scan of their own
+// over the selected members.  The gang-availability carry is indexed by
+// worker, whom threads do not own from step to step, so it is a W-byte
+// array in shared memory; the per-group eligible counts are G ints there
+// too (warp-aggregated shared atomics), both in dynamic shared memory sized
+// by the launch.  The gang step is a separate, non-inlined function, so its
+// state stays out of the ordinary step's registers.
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
@@ -41,6 +61,7 @@ constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxPerThread = 16;           // W <= 16384
 constexpr int kClasses = 16;                // N_VISIT_CLASSES
+constexpr int kMaxGroups = 16384;           // MAX_KERNEL_GROUPS (2^14)
 constexpr long long kUnneeded = 1LL << 30;  // cap of an unrequested resource
 
 __device__ __forceinline__ long long floor_div(long long a, long long b) {
@@ -147,18 +168,117 @@ __device__ __forceinline__ long long capacity(
   return cap < 0 ? 0 : cap;
 }
 
+// One gang row (see the header): picks and holds the gang's workers and
+// writes the row's counts, all V variants.  Every thread of the block calls
+// it; it ends with the step's closing barrier.
+__device__ __noinline__ void gang_step(
+    int n, int mt0, int* __restrict__ free_, int* __restrict__ nt_free,
+    const int* __restrict__ lifetime, const int* __restrict__ group_ids,
+    const int* __restrict__ pmask, int* __restrict__ crow, int W, int R,
+    int V, int G, int* s_group, unsigned char* s_avail, long long* s_warp,
+    int* s_sel) {
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int K = (W + kThreads - 1) / kThreads;
+  for (int g = t; g < G; g += kThreads) s_group[g] = 0;
+  if (t == 0) {
+    s_sel[0] = INT_MAX;  // first group with >= n eligible
+    s_sel[1] = -1;       // (count, -group) of the first group with the most
+  }
+  __syncthreads();
+
+  // eligible workers of this thread (bit j = worker t*K + j), counted per
+  // group; lanes with the same group add once, through their leader
+  unsigned elig = 0;
+  for (int j = 0; j < K; ++j) {
+    const int w = t * K + j;
+    int key = -1;
+    if (w < W && s_avail[w] && mt0 <= lifetime[w] && nt_free[w] >= 1 &&
+        (pmask == nullptr || pmask[w] > 0)) {
+      key = group_ids[w];
+      if (key >= 0) elig |= 1u << j;
+    }
+    const unsigned peers = __match_any_sync(0xffffffffu, key);
+    if (key >= 0 && lane == __ffs(peers) - 1) {
+      atomicAdd(&s_group[key], __popc(peers));
+    }
+  }
+  __syncthreads();
+
+  int first = INT_MAX;
+  int best = -1;
+  for (int g = t; g < G; g += kThreads) {
+    const int c = s_group[g];
+    if (c >= n && g < first) first = g;
+    const int key = (c << 14) | (kMaxGroups - 1 - g);  // c <= W <= 2^14
+    if (key > best) best = key;
+  }
+  first = __reduce_min_sync(0xffffffffu, first);
+  best = __reduce_max_sync(0xffffffffu, best);
+  if (lane == 0) {
+    atomicMin(&s_sel[0], first);
+    atomicMax(&s_sel[1], best);
+  }
+  __syncthreads();
+  const bool feasible = s_sel[0] != INT_MAX;
+  const int chosen =
+      feasible ? s_sel[0] : kMaxGroups - 1 - (s_sel[1] & (kMaxGroups - 1));
+
+  // the n lowest-index eligible members of the chosen group
+  unsigned sel = 0;
+  for (int j = 0; j < K; ++j) {
+    if (((elig >> j) & 1u) && group_ids[t * K + j] == chosen) sel |= 1u << j;
+  }
+  long long total;
+  long long before = block_exclusive(__popc(sel), s_warp, &total);
+  for (int j = 0; j < K; ++j) {
+    const int w = t * K + j;
+    if (w >= W) break;
+    int emit = 0;
+    if ((sel >> j) & 1u) {
+      if (before < n) {
+        // held, feasible or not: the in-solve reservation
+        int* frow = free_ + (size_t)w * R;
+        for (int r = 0; r < R; ++r) frow[r] = 0;
+        nt_free[w] = 0;
+        s_avail[w] = 0;
+        emit = feasible ? 1 : 0;
+      }
+      ++before;
+    }
+    crow[w] = emit;
+  }
+  for (int v = 1; v < V; ++v) {
+    for (int w = t; w < W; w += kThreads) crow[(size_t)v * W + w] = 0;
+  }
+  __syncthreads();
+}
+
 __global__ void __launch_bounds__(kThreads, 1) cut_scan_kernel(
     int* __restrict__ free_, int* __restrict__ nt_free,
     const int* __restrict__ lifetime, const int* __restrict__ needs,
     const int* __restrict__ sizes, const int* __restrict__ min_time,
     const int* __restrict__ class_m, const int* __restrict__ order_ids,
     const int* __restrict__ total, const int* __restrict__ all_mask,
+    const int* __restrict__ gang_nodes, const int* __restrict__ gang_ok,
+    const int* __restrict__ group_ids, const int* __restrict__ policy_mask,
     int* __restrict__ counts, int* __restrict__ order, int W, int R, int B,
-    int V, int M) {
+    int V, int M, int G) {
   __shared__ long long s_warp[kWarps];
   __shared__ unsigned long long s_pack[4][kWarps];
+  __shared__ int s_sel[2];
+  // gang rows only: per-group counts (G ints), then the W-byte carry
+  extern __shared__ __align__(16) unsigned char s_dyn[];
+  int* s_group = reinterpret_cast<int*>(s_dyn);
+  unsigned char* s_avail =
+      gang_nodes != nullptr ? s_dyn + (size_t)G * sizeof(int) : nullptr;
   const int t = threadIdx.x;
   const int K = (W + kThreads - 1) / kThreads;
+
+  if (s_avail != nullptr) {
+    for (int w = t; w < W; w += kThreads) s_avail[w] = gang_ok[w] != 0;
+    __syncthreads();
+  }
 
   // Prologue: order[m] lists the workers by (class_m[m, w], w).  Thread t
   // counts the classes of workers [t*K, t*K+K) (index order), and a packed
@@ -194,6 +314,17 @@ __global__ void __launch_bounds__(kThreads, 1) cut_scan_kernel(
   }
 
   for (int b = 0; b < B; ++b) {
+    if (gang_nodes != nullptr && gang_nodes[b] > 0) {
+      gang_step(gang_nodes[b], min_time[(size_t)b * V], free_, nt_free,
+                lifetime, group_ids,
+                policy_mask != nullptr ? policy_mask + (size_t)b * W
+                                       : nullptr,
+                counts + (size_t)b * V * W, W, R, V, G, s_group, s_avail,
+                s_warp, s_sel);
+      continue;
+    }
+    const int* pmask =
+        policy_mask != nullptr ? policy_mask + (size_t)b * W : nullptr;
     long long remaining = sizes[b];
     for (int v = 0; v < V; ++v) {
       const size_t bv = (size_t)b * V + v;
@@ -225,6 +356,7 @@ __global__ void __launch_bounds__(kThreads, 1) cut_scan_kernel(
                                                   : nullptr,
                                  need, amask, R, nt_free[w], lifetime[w], mt);
           if (c > remaining) c = remaining;
+          if (pmask != nullptr && pmask[w] <= 0) c = 0;
           wk[j] = w;
           cap[j] = (int)c;
           local += c;
@@ -251,6 +383,7 @@ __global__ void __launch_bounds__(kThreads, 1) cut_scan_kernel(
             frow[r] = f;
           }
           nt_free[w] = (int)((uint32_t)nt_free[w] - ua);
+          if (s_avail != nullptr) s_avail[w] = 0;
         }
       }
       remaining -= remaining < step_total ? remaining : step_total;
@@ -280,22 +413,38 @@ extern "C" {
 
 // All pointers are device pointers to C-contiguous int32 arrays: free (W,R)
 // and nt_free (W,) are updated in place; total and all_mask are both null
-// or both set; counts (B,V,W) is written in full; order is (M,W) scratch.
-// Returns the cudaError_t of the launch (0 = launched).
+// or both set; gang_nodes (B,), gang_ok (W,) and group_ids (W,) (values in
+// [-1, G), -1 = no group) are all null or all set, with 1 <= G <= 16384;
+// policy_mask (B,W) may be null; counts (B,V,W) is written in full; order
+// is (M,W) scratch.  B = 0 runs the prologue alone.  Returns the
+// cudaError_t of the launch (0 = launched).
 int hq_cut_scan(void* free_, void* nt_free, const void* lifetime,
                 const void* needs, const void* sizes, const void* min_time,
                 const void* class_m, const void* order_ids, const void* total,
-                const void* all_mask, void* counts, void* order, int W, int R,
-                int B, int V, int M, void* stream) {
+                const void* all_mask, const void* gang_nodes,
+                const void* gang_ok, const void* group_ids,
+                const void* policy_mask, void* counts, void* order, int W,
+                int R, int B, int V, int M, int G, void* stream) {
+  const bool gang = gang_nodes != nullptr;
   if (W < 1 || W > kThreads * kMaxPerThread || R < 1 || B < 0 || V < 1 ||
-      M < 1 || ((total == nullptr) != (all_mask == nullptr))) {
+      M < 1 || ((total == nullptr) != (all_mask == nullptr)) ||
+      (gang != (gang_ok != nullptr)) || (gang != (group_ids != nullptr)) ||
+      (gang && (G < 1 || G > kMaxGroups))) {
     return (int)cudaErrorInvalidValue;
   }
-  cut_scan_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(
+  const size_t smem = gang ? (size_t)G * sizeof(int) + (size_t)W : 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        cut_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cut_scan_kernel<<<1, kThreads, smem, (cudaStream_t)stream>>>(
       (int*)free_, (int*)nt_free, (const int*)lifetime, (const int*)needs,
       (const int*)sizes, (const int*)min_time, (const int*)class_m,
       (const int*)order_ids, (const int*)total, (const int*)all_mask,
-      (int*)counts, (int*)order, W, R, B, V, M);
+      (const int*)gang_nodes, (const int*)gang_ok, (const int*)group_ids,
+      (const int*)policy_mask, (int*)counts, (int*)order, W, R, B, V, M, G);
   return (int)cudaGetLastError();
 }
 

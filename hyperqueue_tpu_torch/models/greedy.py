@@ -7,8 +7,9 @@ floor), so that steady-state ticks reuse the same persistent padded buffers
 and device tensors.
 
 Padding is semantically inert: padded workers have zero free resources and
-zero task slots; padded batches have size 0; padded variants are all-zero
-need rows with an infinite min_time, which the kernel masks off.
+zero task slots, are not idle for gangs and belong to no group; padded
+batches have size 0 and no gang; padded variants are all-zero need rows
+with an infinite min_time, which the kernel masks off.
 
 The padded state stays RESIDENT on the device (parallel/resident.py): per-
 tick uploads are only the dirty-row delta, the kernel updates free/nt_free
@@ -41,6 +42,7 @@ _WORKER_FLOOR = 8
 _BATCH_FLOOR = 8
 _RESOURCE_FLOOR = 4
 _VARIANT_FLOOR = 1
+_GROUP_FLOOR = 4
 
 
 def _bucket(n: int, floor: int) -> int:
@@ -127,44 +129,47 @@ class GreedyCutScanModel:
         min_time: np.ndarray,   # (B, V) int32 seconds
         total: np.ndarray | None = None,     # (W, R) int32 pool totals
         all_mask: np.ndarray | None = None,  # (B, V, R) int32 0/1 ALL-policy
-        gang_nodes: np.ndarray | None = None,
-        affinity: np.ndarray | None = None,
+        gang_nodes: np.ndarray | None = None,    # (B,) int32 gang sizes
+        gang_ok: np.ndarray | None = None,       # (W,) int32 host idleness
+        group_onehot: np.ndarray | None = None,  # (W, G) int32 group map
+        affinity: np.ndarray | None = None,      # (B, W) float policy
+                                                 # weights per batch row
     ) -> np.ndarray:
         """Returns counts (B, V, W) int32 (unpadded, C-contiguous)."""
         return self.solve_async(
             free, nt_free, lifetime, needs, sizes, min_time,
             total=total, all_mask=all_mask, gang_nodes=gang_nodes,
-            affinity=affinity,
+            gang_ok=gang_ok, group_onehot=group_onehot, affinity=affinity,
         ).result()
 
     def solve_async(self, free, nt_free, lifetime, needs, sizes, min_time,
-                    total=None, all_mask=None, gang_nodes=None,
-                    affinity=None) -> _DeviceCounts:
+                    total=None, all_mask=None, gang_nodes=None, gang_ok=None,
+                    group_onehot=None, affinity=None) -> _DeviceCounts:
         """Dispatch one solve; returns a handle whose `.result()` yields the
         unpadded counts. On the card the handle comes back with the kernel
         and the copies ENQUEUED, so the caller can overlap host work."""
-        if gang_nodes is not None and np.any(np.asarray(gang_nodes) > 0):
-            raise NotImplementedError(
-                "gang rows (K1g) are not ported yet; they come with the "
-                "greedy-fused slice"
-            )
-        if affinity is not None:
-            raise NotImplementedError(
-                "policy affinity rows are not ported yet; they come with "
-                "the policy slice"
-            )
         prep = self.prepare(
-            free, nt_free, lifetime, needs, sizes, min_time, total, all_mask
+            free, nt_free, lifetime, needs, sizes, min_time, total, all_mask,
+            gang_nodes=gang_nodes, gang_ok=gang_ok,
+            group_onehot=group_onehot, affinity=affinity,
         )
         return self._device_solve(prep)
 
     # -- preparation -------------------------------------------------------
     def prepare(self, free, nt_free, lifetime, needs, sizes, min_time,
-                total=None, all_mask=None) -> dict:
+                total=None, all_mask=None, gang_nodes=None, gang_ok=None,
+                group_onehot=None, affinity=None) -> dict:
         """Pad one solve's inputs into the persistent bucket buffers and
         compute the visit classes: returns the kernel's padded host inputs
         (free_p, nt_p, life_p, needs_p, sizes_p, mt_p, total_p, amask_p,
-        class_m, order_ids) with the live extents and timings."""
+        gang_p, gok_p, goh_p, pmask_p, class_m, order_ids) with the live
+        extents and timings.
+
+        Gang rows: an all-zero `gang_nodes` is an ordinary solve; missing
+        `gang_ok` / `group_onehot` mean no idle worker / one group of none.
+        Affinity: a uniform positive matrix cannot reorder or exclude and
+        is dropped; otherwise it keys the visit classes, and where some
+        weight is <= 0 its positive entries become the policy mask."""
         _t0 = time.perf_counter()
         n_w, n_r = free.shape
         n_b, n_v, _ = needs.shape
@@ -177,6 +182,19 @@ class GreedyCutScanModel:
         if all_mask is not None and not np.any(all_mask):
             all_mask = None  # keep the common no-ALL buffers
         has_all = all_mask is not None
+        if gang_nodes is not None and not np.any(np.asarray(gang_nodes) > 0):
+            gang_nodes = None  # an all-zero gang column: no gang rows
+        has_gang = gang_nodes is not None
+        if affinity is not None:
+            affinity = np.asarray(affinity, dtype=np.float32)
+            if (
+                affinity.size == 0
+                or (affinity.min() == affinity.max() and affinity.min() > 0)
+            ):
+                # a uniform positive matrix cannot change the visit order
+                # or exclude a worker
+                affinity = None
+        has_pmask = affinity is not None and bool(np.any(affinity <= 0))
 
         buf = self._get_buffers(pw, pb, pr, pv, has_all)
         free_p = buf["free"]
@@ -229,13 +247,36 @@ class GreedyCutScanModel:
                 amask_p[:n_b, n_v:lv] = 0
             total_p[:n_w, :n_r] = total if total is not None else free
             amask_p[:n_b, :n_v, :n_r] = all_mask
+        gang_p = gok_p = goh_p = None
+        if has_gang:
+            # FRESH per-solve allocations, not persistent buffers: gang rows
+            # appear on a minority of ticks, and the arrays are small
+            n_g = group_onehot.shape[1] if group_onehot is not None else 1
+            pg = _bucket(max(n_g, 1), _GROUP_FLOOR)
+            gang_p = np.zeros(pb, dtype=np.int32)
+            gang_p[:n_b] = gang_nodes
+            gok_p = np.zeros(pw, dtype=np.int32)
+            if gang_ok is not None:
+                gok_p[:n_w] = gang_ok
+            goh_p = np.zeros((pw, pg), dtype=np.int32)
+            if group_onehot is not None:
+                goh_p[:n_w, :n_g] = group_onehot
+        aff_p = pmask_p = None
+        if affinity is not None:
+            # fresh per-solve allocations too: weighted objectives appear
+            # only under an active policy
+            aff_p = np.zeros((pb, pw), dtype=np.float32)
+            aff_p[:n_b, :n_w] = affinity
+            if has_pmask:
+                pmask_p = np.zeros((pb, pw), dtype=np.int32)
+                pmask_p[:n_b, :n_w] = (affinity > 0).astype(np.int32)
         _t1 = time.perf_counter()
 
         scarcity = np.asarray(
             scarcity_weights(free_p.astype(np.int64).sum(axis=0))
         ).astype(np.float32)
         class_m, order_ids = host_visit_classes(
-            free_p, needs_p, scarcity, all_mask=amask_p
+            free_p, needs_p, scarcity, all_mask=amask_p, affinity=aff_p
         )
         _t2 = time.perf_counter()
 
@@ -243,6 +284,8 @@ class GreedyCutScanModel:
             "free_p": free_p, "nt_p": nt_p, "life_p": life_p,
             "needs_p": needs_p, "sizes_p": sizes_p, "mt_p": mt_p,
             "total_p": total_p, "amask_p": amask_p,
+            "gang_p": gang_p, "gok_p": gok_p, "goh_p": goh_p,
+            "pmask_p": pmask_p,
             "class_m": class_m, "order_ids": order_ids,
             "extents": (n_b, n_v, n_w),
             "pad_ms": (_t1 - _t0) * 1e3,
@@ -269,6 +312,10 @@ class GreedyCutScanModel:
             res.place_cached("order_ids", prep["order_ids"]),
             total=total_d,
             all_mask=res.place_cached("all_mask", prep["amask_p"]),
+            gang_nodes=res.place_cached("gang_nodes", prep["gang_p"]),
+            gang_ok=res.place_cached("gang_ok", prep["gok_p"]),
+            group_onehot=res.place_cached("group_onehot", prep["goh_p"]),
+            policy_mask=res.place_cached("policy_mask", prep["pmask_p"]),
         )
         # the kernel updated free_d/nt_d in place: they are the state after
         # the tick and stay resident for the next one

@@ -24,6 +24,12 @@ Semantics preserved from the reference solver:
     workers in an order that penalizes burning scarce resources a batch does
     not request, then lower index first.
 
+Fused-mode additions (the JAX kernel's gang and policy-mask branches):
+  * Gang rows: a multi-node task rides the scan as one all-or-nothing row
+    that takes n idle workers of one worker group, or holds them without
+    emitting when fewer are eligible.
+  * Policy mask: an affinity weight of 0 excludes a worker from a batch.
+
 Shapes (padded to buckets by the caller, models/greedy.py):
   free      (W, R) int32   free resource fractions per worker
   nt_free   (W,)   int32   remaining simultaneous-task slots per worker
@@ -36,6 +42,10 @@ Shapes (padded to buckets by the caller, models/greedy.py):
   order_ids (B, V) int32   row of class_m each batch variant uses
   total     (W, R) int32   pool totals (ALL-policy only)
   all_mask  (B, V, R) int32  0/1 ALL-policy resources (ALL-policy only)
+  gang_nodes (B,)   int32   gang size of a gang row, 0 = ordinary row
+  gang_ok   (W,)    int32   0/1 host idleness (gang members must be idle)
+  group_onehot (W, G) int32 0/1 worker group, at most one per worker
+  policy_mask (B, W) int32  0/1, 0 = the policy excludes worker w for batch b
 Output:
   counts    (B, V, W) int32  tasks of batch b, variant v to start on worker w
 """
@@ -67,6 +77,8 @@ N_VISIT_CLASSES = 16
 
 # one kernel block of 1024 threads, at most 16 workers per thread
 MAX_KERNEL_WORKERS = 16384
+# per-group eligible counts live in the block's shared memory
+MAX_KERNEL_GROUPS = 16384
 
 # per-resource capacity of a resource the variant does not request
 _UNNEEDED = 2**30
@@ -144,14 +156,25 @@ def host_visit_classes(free0, needs, scarcity, all_mask=None, affinity=None):
 def greedy_cut_scan_reference(
     free, nt_free, lifetime, needs, sizes, min_time, class_m, order_ids,
     total=None, all_mask=None,
+    gang_nodes=None, gang_ok=None, group_onehot=None, policy_mask=None,
 ):
     """The cut-scan in plain PyTorch, one step per (batch, variant).
 
     Pure: returns (counts (B,V,W) int32, free_after (W,R) int32,
     nt_after (W,) int32) and leaves its inputs untouched. Sums are int64;
     free and nt_free keep int32 wrap-around arithmetic between steps. The
-    scalar `remaining` stays a tensor, so on the card the loop never waits
-    for the device.
+    scalar `remaining` stays a tensor, so on the card the loop waits for the
+    device only once, to read the gang sizes.
+
+    Gang rows (gang_nodes[b] > 0) and the policy mask follow the JAX
+    kernel's scan_batches: a gang row picks the first worker group with
+    gang_nodes[b] eligible members (idle in gang_ok, untouched by any
+    earlier step of this solve, min_time of variant 0 within the lifetime,
+    a task slot free, not masked), else the first group with the most; it
+    takes that group's lowest-index eligible members, emits one count on
+    each in variant 0 only if the gang is feasible, and holds them either
+    way (free row and task slots zeroed). policy_mask[b, w] == 0 zeroes
+    worker w's capacity for batch b after the remaining-size clamp.
     """
     n_w = free.shape[0]
     n_b, n_v, _n_r = needs.shape
@@ -170,7 +193,35 @@ def greedy_cut_scan_reference(
     tot = None if total is None else total.to(i64)
     counts = torch.zeros((n_b, n_v, n_w), dtype=torch.int32, device=dev)
     zero = torch.zeros((), dtype=i64, device=dev)
+    gangs = None
+    if gang_nodes is not None:
+        gangs = gang_nodes.tolist()
+        # the scan's gang-availability carry: idle and untouched so far
+        avail = gang_ok != 0
+        groups = group_onehot != 0
+    pmask = None if policy_mask is None else policy_mask > 0
     for b in range(n_b):
+        if gangs is not None and gangs[b] > 0:
+            n = gangs[b]
+            elig = avail & (min_time[b, 0].to(i64) <= life) & (nt >= 1)
+            if pmask is not None:
+                elig = elig & pmask[b]
+            per_group = (elig[:, None] & groups).sum(dim=0)  # (G,)
+            feasible = per_group >= n
+            any_feasible = feasible.any()
+            chosen = torch.where(
+                any_feasible, torch.argmax(feasible.to(torch.int32)),
+                torch.argmax(per_group),
+            )
+            sel = elig & groups.index_select(1, chosen.view(1))[:, 0]
+            before = torch.cumsum(sel.to(i64), 0) - sel.to(i64)
+            take = sel & (before < n)
+            counts[b, 0] = (take & any_feasible).to(torch.int32)
+            keep = (~take).to(torch.int32)
+            f = f * keep[:, None]
+            nt = nt * keep
+            avail = avail & ~take
+            continue
         remaining = sizes[b].to(i64)
         for v in range(n_v):
             need = need_all[b, v]
@@ -195,6 +246,8 @@ def greedy_cut_scan_reference(
             ok = (min_time[b, v].to(i64) <= life) & any_req
             cap = torch.where(ok, cap, zero).clamp(min=0)
             cap = torch.minimum(cap, remaining.clamp(min=0))
+            if pmask is not None:
+                cap = torch.where(pmask[b], cap, zero)
             perm = order[oid[b, v]]
             cap_sorted = cap[perm]
             prefix = torch.cumsum(cap_sorted, 0) - cap_sorted
@@ -211,6 +264,8 @@ def greedy_cut_scan_reference(
             if all_r is not None:
                 f = f * (1 - a32[:, None] * all_r[None, :])
             nt = nt - a32
+            if gangs is not None:
+                avail = avail & (assign == 0)
             counts[b, v] = a32
     return counts, f, nt
 
@@ -221,7 +276,7 @@ def _cut_scan_lib():
     lib, record = load_library("cut_scan")
     if not getattr(lib, "_hq_prototypes", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.hq_cut_scan.argtypes = [vp] * 12 + [ci] * 5 + [vp]
+        lib.hq_cut_scan.argtypes = [vp] * 16 + [ci] * 6 + [vp]
         lib.hq_cut_scan.restype = ci
         lib.hq_scan_latency.argtypes = [ci, vp, vp]
         lib.hq_scan_latency.restype = ci
@@ -241,6 +296,22 @@ def _check(name, t, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _group_ids(group_onehot):
+    """(W,) int32 group index of each worker, -1 where its row is all zero.
+    Raises unless every row of the one-hot is 0/1 with at most one 1 (on
+    the card this check reads one flag back, a synchronization)."""
+    bad = ((group_onehot != 0) & (group_onehot != 1)).any() | (
+        group_onehot.sum(dim=1) > 1
+    ).any()
+    if bool(bad):
+        raise ValueError(
+            "group_onehot must be 0/1 with at most one group per worker"
+        )
+    member = group_onehot.sum(dim=1) > 0
+    ids = torch.argmax(group_onehot, dim=1).to(torch.int32)
+    return torch.where(member, ids, torch.full_like(ids, -1)).contiguous()
+
+
 def greedy_cut_scan(
     free, nt_free, lifetime, needs, sizes, min_time, class_m, order_ids,
     total=None, all_mask=None,
@@ -250,24 +321,24 @@ def greedy_cut_scan(
     `nt_free` IN PLACE to the state after the solve (the counterpart of the
     JAX kernel's donated free/nt_free buffers).
 
+    Optional inputs, all int32: `total` (W, R) with `all_mask` (B, V, R)
+    for ALL-policy requests; `gang_nodes` (B,), `gang_ok` (W,) and
+    `group_onehot` (W, G), together, for all-or-nothing gang rows;
+    `policy_mask` (B, W) 0/1 for the policy's hard exclusions. See
+    greedy_cut_scan_reference for their semantics.
+
     On CUDA tensors it launches the CUDA kernel (csrc/cut_scan.cu) on the
-    current stream, without synchronizing, and counts the launch in
-    `greedy_cut_scan.launches`; a refused launch raises. On CPU tensors it
-    runs `greedy_cut_scan_reference`. Gang rows and policy masks belong to
-    a later port slice and raise NotImplementedError.
+    current stream and counts the launch in `greedy_cut_scan.launches`
+    (and, when gang rows or a policy mask ride it, in
+    `greedy_cut_scan.gang_launches` too); a refused launch raises. On CPU
+    tensors it runs `greedy_cut_scan_reference`. The launch does not
+    synchronize, except to validate a group one-hot (see _group_ids).
     """
-    if any(x is not None for x in (gang_nodes, gang_ok, group_onehot)):
-        raise NotImplementedError(
-            "gang rows (K1g) are not ported yet; they come with the "
-            "greedy-fused slice"
-        )
-    if policy_mask is not None:
-        raise NotImplementedError(
-            "policy masks (K1g) are not ported yet; they come with the "
-            "greedy-fused slice"
-        )
     if (total is None) != (all_mask is None):
         raise ValueError("total and all_mask come together")
+    gang = (gang_nodes, gang_ok, group_onehot)
+    if any(x is None for x in gang) and any(x is not None for x in gang):
+        raise ValueError("gang_nodes, gang_ok and group_onehot come together")
     device = free.device
     n_w, n_r = free.shape
     n_b, n_v = min_time.shape
@@ -284,6 +355,16 @@ def greedy_cut_scan(
         _check("all_mask", all_mask, (n_b, n_v, n_r), device)
         if total.data_ptr() == free.data_ptr():
             raise ValueError("total must not share free's storage")
+    n_g = 0
+    if gang_nodes is not None:
+        if group_onehot.dim() != 2 or group_onehot.shape[1] < 1:
+            raise ValueError("group_onehot must be (W, G) with G >= 1")
+        n_g = group_onehot.shape[1]
+        _check("gang_nodes", gang_nodes, (n_b,), device)
+        _check("gang_ok", gang_ok, (n_w,), device)
+        _check("group_onehot", group_onehot, (n_w, n_g), device)
+    if policy_mask is not None:
+        _check("policy_mask", policy_mask, (n_b, n_w), device)
     if n_r < 1 or n_v < 1 or (n_m < 1 and n_b > 0):
         raise ValueError(
             f"need R >= 1, V >= 1 and M >= 1 (got R={n_r}, V={n_v}, "
@@ -291,9 +372,13 @@ def greedy_cut_scan(
         )
 
     if device.type == "cpu":
+        if gang_nodes is not None:
+            _group_ids(group_onehot)  # the kernel's contract, checked alike
         counts, free_after, nt_after = greedy_cut_scan_reference(
             free, nt_free, lifetime, needs, sizes, min_time, class_m,
             order_ids, total=total, all_mask=all_mask,
+            gang_nodes=gang_nodes, gang_ok=gang_ok,
+            group_onehot=group_onehot, policy_mask=policy_mask,
         )
         free.copy_(free_after)
         nt_free.copy_(nt_after)
@@ -305,29 +390,73 @@ def greedy_cut_scan(
             f"the cut-scan kernel takes at most {MAX_KERNEL_WORKERS} "
             f"workers, got {n_w}"
         )
+    if n_g > MAX_KERNEL_GROUPS:
+        raise ValueError(
+            f"the cut-scan kernel takes at most {MAX_KERNEL_GROUPS} "
+            f"worker groups, got {n_g}"
+        )
     counts = torch.empty((n_b, n_v, n_w), dtype=torch.int32, device=device)
     if n_b == 0:
         return counts
+    group_ids = None if gang_nodes is None else _group_ids(group_onehot)
     lib, _record = _cut_scan_lib()
     order = torch.empty((n_m, n_w), dtype=torch.int32, device=device)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.hq_cut_scan(
             free.data_ptr(), nt_free.data_ptr(), lifetime.data_ptr(),
             needs.data_ptr(), sizes.data_ptr(), min_time.data_ptr(),
-            class_m.data_ptr(), order_ids.data_ptr(),
-            None if total is None else total.data_ptr(),
-            None if all_mask is None else all_mask.data_ptr(),
-            counts.data_ptr(), order.data_ptr(),
-            n_w, n_r, n_b, n_v, n_m, stream,
+            class_m.data_ptr(), order_ids.data_ptr(), ptr(total),
+            ptr(all_mask), ptr(gang_nodes), ptr(gang_ok), ptr(group_ids),
+            ptr(policy_mask), counts.data_ptr(), order.data_ptr(),
+            n_w, n_r, n_b, n_v, n_m, n_g, stream,
         )
     if rc != 0:
         raise RuntimeError(f"cut-scan kernel launch failed: cudaError {rc}")
     greedy_cut_scan.launches += 1
+    if gang_nodes is not None or policy_mask is not None:
+        greedy_cut_scan.gang_launches += 1
     return counts
 
 
 greedy_cut_scan.launches = 0
+greedy_cut_scan.gang_launches = 0
+
+
+def prologue_ms(class_m, reps=20) -> float:
+    """Device ms of the kernel's prologue alone (the counting sort of every
+    visit-class row into visit order) at this (M, W) table: a launch with
+    no batches runs nothing else. CUDA events over `reps` launches after
+    one warm-up. Measurement only: the tick never calls it, and it does
+    not count as a launch of the solve."""
+    lib, _record = _cut_scan_lib()
+    device = class_m.device
+    n_m, n_w = class_m.shape
+    _check("class_m", class_m, (n_m, n_w), device)
+    dummy = torch.zeros(max(n_w, 1), dtype=torch.int32, device=device)
+    order = torch.empty((n_m, n_w), dtype=torch.int32, device=device)
+    p = dummy.data_ptr()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device)
+        for n in (1, reps):  # the first round warms up
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            for _ in range(n):
+                rc = lib.hq_cut_scan(
+                    p, p, p, p, p, p, class_m.data_ptr(), p, None, None,
+                    None, None, None, None, p, order.data_ptr(),
+                    n_w, 1, 0, 1, n_m, 0, stream.cuda_stream,
+                )
+                if rc != 0:
+                    raise RuntimeError(f"prologue launch failed: {rc}")
+            end.record(stream)
+        end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def scan_step_latency_ms(steps: int, device="cuda") -> float:

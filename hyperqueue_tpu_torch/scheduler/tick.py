@@ -10,10 +10,14 @@ at MAX_CUTS_PER_QUEUE with the tail merged into the last cut (reference
 batches.rs:183-217 prunes similarly). Batches from all queues are solved
 jointly, globally ordered by priority.
 
+Fused mode (the JAX package's `--scheduler greedy-fused`): gang batches
+ride the solve as all-or-nothing rows (`gang_ok=`, `group_ids=`), and a
+policy (`policy=`, a scheduler/policy.TickPolicyContext) reorders the batches
+by its job boosts and the workers by its affinity rows.
+
 Not in this module yet, each raising NotImplementedError: the incremental
-dense snapshot (`dense=`), the pipelined tick (`pipeline=`), the weighted
-policy objective (`policy=`), fused gang batches and min-utilization
-workers.
+dense snapshot (`dense=`), the pipelined tick (`pipeline=`) and
+min-utilization workers.
 """
 
 from __future__ import annotations
@@ -26,7 +30,11 @@ import numpy as np
 from hyperqueue_tpu_torch.ops.assign import scarcity_weights
 from hyperqueue_tpu_torch.resources.map import ResourceIdMap, ResourceRqMap
 from hyperqueue_tpu_torch.resources.request import AllocationPolicy
-from hyperqueue_tpu_torch.scheduler.queues import Priority, TaskQueues
+from hyperqueue_tpu_torch.scheduler.queues import (
+    BLEVEL_STRIDE,
+    Priority,
+    TaskQueues,
+)
 from hyperqueue_tpu_torch.utils.constants import INF_TIME
 
 MAX_CUTS_PER_QUEUE = 32
@@ -59,6 +67,9 @@ class WorkerRow:
     # min-utilization floor in cpu fractions still to fill before this worker
     # may take any task at all (reference solver.rs:479-518); 0 = normal
     cpu_floor: int = 0
+    # worker group (gang members come from one group; the policy's worker
+    # class)
+    group: str = "default"
 
 
 # One assignment is a plain (task_id, worker_id, rq_id, variant) tuple.
@@ -154,6 +165,8 @@ def run_tick(
     dense=None,
     phases: dict | None = None,
     pipeline=None,
+    gang_ok=None,
+    group_ids=None,
     policy=None,
 ) -> list[Assignment]:
     """Solve one tick and pop assigned tasks from the queues.
@@ -163,9 +176,18 @@ def run_tick(
     which keeps one owner for the free/nt_free bookkeeping.
 
     `batches` lets the caller pass a precomputed create_batches(queues)
-    result; the caller's list order is left untouched. `phases` (optional
-    dict) collects a per-phase latency breakdown in ms: assemble,
-    solve_dispatch, device_sync, solve_host_prep and mapping.
+    result, with fused gang batches appended; the caller's list order is
+    left untouched. `phases` (optional dict) collects a per-phase latency
+    breakdown in ms: assemble, solve_dispatch, device_sync, solve_host_prep
+    and mapping.
+
+    Fused mode: `gang_ok` (W,) 0/1 marks the idle workers and `group_ids`
+    (W,) gives each worker's group index, both aligned with `workers`; a
+    gang batch comes back as one (gang_task, worker_id, rq_id, -1) sentinel
+    per member. `policy` (a scheduler/policy.TickPolicyContext) carries this
+    tick's affinity rows (aligned with `workers`) and per-job boosts.
+    The JAX package passes gang_ok and group_ids to the solve on its
+    dense-snapshot path only; here they reach the solve from `workers`.
     """
     if dense is not None:
         raise NotImplementedError(
@@ -177,38 +199,39 @@ def run_tick(
             "the pipelined tick is not ported yet; it comes with the "
             "tick-cache and pipeline slice"
         )
-    if policy is not None:
-        raise NotImplementedError(
-            "the weighted policy objective is not ported yet; it comes "
-            "with the policy slice"
-        )
     if batches is None:
         batches = create_batches(queues)
     else:
         batches = list(batches)  # sorted in place below; don't reorder caller
-    if any(b.gang_nodes for b in batches):
-        raise NotImplementedError(
-            "fused gang batches (K1g) are not ported yet; they come with "
-            "the greedy-fused slice"
-        )
     if not batches or not workers:
         return []
-    if any(w.cpu_floor > 0 for w in workers):
+    mu_workers = [w for w in workers if w.cpu_floor > 0]
+    if mu_workers and policy is not None and policy.rows:
+        # the mu carve-out drops workers from the row list, so the (B, W)
+        # affinity rows (built against the unfiltered order) no longer
+        # align — keep only the alignment-free priority boosts
+        policy = type(policy)(rows={}, boosts=policy.boosts)
+    if mu_workers:
         raise NotImplementedError(
             "min-utilization workers (_solve_mu_workers) are not ported "
             "yet; they come with their own slice"
         )
     return _run_main_solve(
-        queues, workers, rq_map, resource_map, model, batches, phases=phases
+        queues, workers, rq_map, resource_map, model, batches,
+        phases=phases, gang_ok=gang_ok, group_ids=group_ids, policy=policy,
     )
 
 
-def assemble_solve_inputs(workers, batches, rq_map, resource_map):
+def assemble_solve_inputs(workers, batches, rq_map, resource_map,
+                          gang_ok=None, group_ids=None, policy=None):
     """Build the dense model.solve inputs for `batches` over `workers`.
 
     Sorts `batches` IN PLACE into the production solve order (priority,
-    scarcity, achievable objective) and applies range compression. Returns
-    the kwargs dict for model.solve().
+    gang rows first within a user priority, boosted scheduler priority,
+    scarcity, achievable objective) and applies range compression. Adds
+    the policy's (B, W) `affinity` rows and, when a gang batch is present,
+    `gang_nodes`, `gang_ok` and `group_onehot`. Returns the kwargs dict for
+    model.solve().
     """
     n_r = len(resource_map)
     n_b = len(batches)
@@ -323,6 +346,13 @@ def assemble_solve_inputs(workers, batches, rq_map, resource_map):
             out.append((variant.weight * share, fit))
         return out
 
+    # policy priority boosts (scheduler/policy.py): a boosted job's batches
+    # sort as if the job had been submitted `boost` jobs earlier — one
+    # BLEVEL_STRIDE per boost step, the arithmetic of the scheduler-priority
+    # encoding (queues.encode_sched_priority). The batch's own priority
+    # tuple is NOT mutated: the mapping keeps the submission order.
+    pol_boosts = policy is not None and bool(policy.boosts)
+
     def _sort_key(b: Batch):
         cached = key_cache.get(b.rq_id)
         if cached is None:
@@ -337,9 +367,18 @@ def assemble_solve_inputs(workers, batches, rq_map, resource_map):
             cand = (value * (size if size < fit else fit), -value)
             if cand > best:
                 best = cand
-        # (gang rows would sort ahead of same-user-priority work; this
-        # module refuses them before assembly)
-        return ((b.priority[0], 0, b.priority[1]), scarcity, best)
+        sched = b.priority[1]
+        if pol_boosts:
+            boost = policy.boost_for_sched(sched)
+            if boost:
+                sched = sched + boost * BLEVEL_STRIDE
+        # gang rows sort ahead of same-user-priority single-node work: else
+        # a deep filler backlog would touch every idle worker before any
+        # gang row scans, starving gangs forever
+        return (
+            (b.priority[0], 1 if b.gang_nodes else 0, sched),
+            scarcity, best,
+        )
 
     batches.sort(key=_sort_key, reverse=True)
 
@@ -385,6 +424,38 @@ def assemble_solve_inputs(workers, batches, rq_map, resource_map):
     extra = {}
     if all_mask is not None and all_mask.any():
         extra = {"total": total.astype(np.int32), "all_mask": all_mask}
+    if policy is not None and policy.rows:
+        # heterogeneity affinity (B, W): one row per batch in the SORTED
+        # order, index-aligned with the solve's worker axis; classes the
+        # policy does not name keep a flat 1.0 row
+        aff = None
+        for bi, b in enumerate(batches):
+            row = policy.affinity_for(b.rq_id)
+            if row is None:
+                continue
+            if aff is None:
+                aff = np.ones((n_b, n_w), dtype=np.float32)
+            aff[bi, : min(len(row), n_w)] = row[:n_w]
+        if aff is not None:
+            extra["affinity"] = aff
+    if any(b.gang_nodes for b in batches):
+        # fused gang rows: per-batch gang sizes plus the worker-side
+        # idleness and group inputs of the all-or-nothing selection
+        extra["gang_nodes"] = np.fromiter(
+            (b.gang_nodes for b in batches), dtype=np.int32, count=n_b
+        )
+        extra["gang_ok"] = (
+            np.zeros(n_w, dtype=np.int32) if gang_ok is None
+            else np.asarray(gang_ok, dtype=np.int32)
+        )
+        gids = (
+            np.zeros(n_w, dtype=np.int32) if group_ids is None
+            else np.asarray(group_ids, dtype=np.int32)
+        )
+        n_g = int(gids.max(initial=0)) + 1
+        extra["group_onehot"] = (
+            gids[:, None] == np.arange(n_g, dtype=np.int32)[None, :]
+        ).astype(np.int32)
     return {
         "free": free.astype(np.int32),
         "nt_free": nt_free,
@@ -397,9 +468,12 @@ def assemble_solve_inputs(workers, batches, rq_map, resource_map):
 
 
 def _run_main_solve(queues, workers, rq_map, resource_map, model, batches,
-                    phases=None):
+                    phases=None, gang_ok=None, group_ids=None, policy=None):
     _t0 = _time.perf_counter()
-    kwargs = assemble_solve_inputs(workers, batches, rq_map, resource_map)
+    kwargs = assemble_solve_inputs(
+        workers, batches, rq_map, resource_map, gang_ok=gang_ok,
+        group_ids=group_ids, policy=policy,
+    )
     _t1 = _time.perf_counter()
     counts = model.solve(**kwargs)
     _t2 = _time.perf_counter()
@@ -438,6 +512,32 @@ def _map_counts(queues, batches, worker_ids, counts,
         if bs.size == 0:
             return assignments
         vals = counts[bs, vs, ws]
+        if any(b.gang_nodes for b in batches):
+            # gang cells never touch the queues (the gang task is held by
+            # the caller until its assignment is applied): one
+            # (gang_task, worker, rq, -1) sentinel per selected worker.
+            # Ordinary cells pop from queues fetched LAZILY: fetching a
+            # queue for a gang rq-id would create an empty single-node one.
+            queue_by_bi: dict = {}
+            for bi, vi, wi, n in zip(
+                bs.tolist(), vs.tolist(), ws.tolist(), vals.tolist()
+            ):
+                batch = batches[bi]
+                if batch.gang_nodes:
+                    assignments.append(
+                        (batch.gang_task, worker_ids[wi], batch.rq_id, -1)
+                    )
+                    continue
+                queue = queue_by_bi.get(bi)
+                if queue is None:
+                    queue = queue_by_bi[bi] = queues.queue(batch.rq_id)
+                task_ids = queue.take(batch.priority, n)
+                worker_id = worker_ids[wi]
+                assignments.extend(
+                    [(task_id, worker_id, batch.rq_id, vi)
+                     for task_id in task_ids]
+                )
+            return assignments
         batch_queues = [queues.queue(b.rq_id) for b in batches]
         extend = assignments.extend
         cur_bi = -1

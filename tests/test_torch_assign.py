@@ -87,27 +87,24 @@ def _visit_classes(case, pm=PM, affinity=None):
     return case
 
 
+OPTIONAL = ("total", "all_mask", "gang_nodes", "gang_ok", "group_onehot",
+            "policy_mask")
+
+
 def _solve_all(case):
     """(port, jax, numpy) results, each (counts, free_after, nt_after)."""
     keys = ("free", "nt_free", "lifetime", "needs", "sizes", "min_time",
             "class_m", "order_ids")
-    opt = ("total", "all_mask")
     t = {k: torch.from_numpy(np.array(case[k], dtype=np.int32))
-         for k in keys + opt if k in case}
+         for k in keys + OPTIONAL if k in case}
     counts = port_assign.greedy_cut_scan(
-        *(t[k] for k in keys), total=t.get("total"),
-        all_mask=t.get("all_mask"),
+        *(t[k] for k in keys), **{k: t.get(k) for k in OPTIONAL}
     )
     port = (counts.numpy(), t["free"].numpy(), t["nt_free"].numpy())
-    jx = _JAX_SCAN(
-        *(case[k] for k in keys), total=case.get("total"),
-        all_mask=case.get("all_mask"),
-    )
+    opt = {k: case.get(k) for k in OPTIONAL}
+    jx = _JAX_SCAN(*(case[k] for k in keys), **opt)
     jx = tuple(np.asarray(a) for a in jx)
-    npy = jax_assign.greedy_cut_scan_numpy(
-        *(case[k] for k in keys), total=case.get("total"),
-        all_mask=case.get("all_mask"),
-    )
+    npy = jax_assign.greedy_cut_scan_numpy(*(case[k] for k in keys), **opt)
     return port, jx, npy
 
 
@@ -289,19 +286,204 @@ def test_visit_classes_with_affinity_match(seed):
     _visit_classes(case, affinity=affinity)
 
 
-def test_gang_and_policy_inputs_raise():
+# -- gang rows and the policy mask (the K1g branches) ------------------------
+
+PG = 4  # the model's group bucket floor
+
+
+def _gang_random(seed):
+    """tests/test_solver.py test_gang_rows_numpy_matches_jax_and_hold_
+    invariants' generator: up to two gang rows of 2-3 nodes, random
+    idleness and one or two worker groups."""
+    rng = np.random.default_rng(seed + 500)
+    n_w = int(rng.integers(4, 12))
+    n_r, n_b, n_v = 2, int(rng.integers(2, 7)), 2
+    n_g = int(rng.integers(1, 3))
+    free = rng.integers(0, 8, size=(n_w, n_r)) * U
+    nt_free = rng.integers(0, 10, size=n_w)
+    lifetime = np.where(rng.random(n_w) < 0.2, 100, INF)
+    needs = rng.integers(0, 3, size=(n_b, n_v, n_r)) * (U // 2)
+    needs[:, 0, 0] = np.maximum(needs[:, 0, 0], U)
+    sizes = rng.integers(0, 12, size=n_b)
+    min_time = np.where(rng.random((n_b, n_v)) < 0.2, 3600, 0)
+    gang_nodes = np.zeros(n_b, dtype=np.int64)
+    for b in rng.choice(n_b, size=min(2, n_b), replace=False):
+        gang_nodes[b] = int(rng.integers(2, 4))
+        sizes[b] = 1
+    gang_ok = rng.integers(0, 2, size=n_w)
+    gids = rng.integers(0, n_g, size=n_w)
+    kernel = dict(free=free, nt_free=nt_free, lifetime=lifetime, needs=needs,
+                  sizes=sizes, min_time=min_time)
+    return kernel, gang_nodes, gang_ok, gids
+
+
+def _weighted_random(seed):
+    """tests/test_solver.py _random_weighted_case's generator (seeded as
+    test_weighted_affinity_numpy_matches_jax seeds it): affinity rows with
+    zeros (hard exclusion), fractional and > 1 weights."""
+    rng = np.random.default_rng(seed + 900)
+    n_w = int(rng.integers(1, 9))
+    n_r = int(rng.integers(1, 4))
+    n_b = int(rng.integers(1, 6))
+    n_v = int(rng.integers(1, 3))
+    kernel = dict(
+        free=rng.integers(0, 8, size=(n_w, n_r)) * U,
+        nt_free=rng.integers(0, 10, size=n_w),
+        lifetime=np.where(rng.random(n_w) < 0.2, 100, INF),
+        needs=rng.integers(0, 3, size=(n_b, n_v, n_r)) * (U // 2),
+        sizes=rng.integers(0, 12, size=n_b),
+        min_time=np.where(rng.random((n_b, n_v)) < 0.2, 3600, 0),
+    )
+    affinity = rng.choice(
+        np.array([0.0, 0.5, 1.0, 2.0, 4.0]), size=(n_b, n_w))
+    return kernel, affinity
+
+
+def _with_gangs(case, gang_nodes, gang_ok, gids):
+    """Pad the gang inputs as the model does (G bucketed at 4)."""
+    case["gang_nodes"] = np.zeros(PB, np.int32)
+    case["gang_nodes"][:len(gang_nodes)] = gang_nodes
+    case["gang_ok"] = np.zeros(PW, np.int32)
+    case["gang_ok"][:len(gang_ok)] = gang_ok
+    case["group_onehot"] = np.zeros((PW, PG), np.int32)
+    case["group_onehot"][np.arange(len(gids)), gids] = 1
+    return case
+
+
+def _padded_affinity(affinity):
+    aff = np.zeros((PB, PW), np.float32)
+    aff[:affinity.shape[0], :affinity.shape[1]] = affinity
+    return aff
+
+
+def _assert_gang_invariants(counts, free, needs, gang_nodes, gang_ok, gids,
+                            pmask=None):
+    """test_solver.py's invariants: a gang row emits exactly n counts on
+    idle members of ONE group in variant 0, or nothing; members never
+    overlap; ordinary rows fit the free resources."""
+    n_b, n_w = len(gang_nodes), len(gids)
+    counts = counts[:n_b, :, :n_w]
+    ordinary = (np.asarray(gang_nodes) == 0)[:, None, None]
+    used = np.einsum("bvw,bvr->wr", (counts * ordinary).astype(np.int64),
+                     np.asarray(needs, np.int64)[:n_b])
+    assert (used <= np.asarray(free)[:n_w]).all()
+    taken: set[int] = set()
+    for b in range(n_b):
+        n = int(gang_nodes[b])
+        if not n:
+            continue
+        assert counts[b, 1:].sum() == 0
+        members = np.flatnonzero(counts[b, 0])
+        assert counts[b, 0, members].tolist() == [1] * len(members)
+        assert len(members) in (0, n)
+        for w in members:
+            assert gang_ok[w] == 1 and int(w) not in taken
+            if pmask is not None:
+                assert pmask[b, w] > 0
+            taken.add(int(w))
+        if len(members):
+            assert len({int(gids[w]) for w in members}) == 1
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_gang_rows_match_jax_and_numpy(seed):
+    kernel, gang_nodes, gang_ok, gids = _gang_random(seed)
+    case = _with_gangs(_visit_classes(_pad(**kernel)), gang_nodes, gang_ok,
+                       gids)
+    counts, _free, _nt = _assert_exact(case)
+    _assert_gang_invariants(counts, kernel["free"], kernel["needs"],
+                            gang_nodes, gang_ok, gids)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_policy_mask_matches_jax_and_numpy(seed):
+    kernel, affinity = _weighted_random(seed)
+    aff = _padded_affinity(affinity)
+    case = _visit_classes(_pad(**kernel), affinity=aff)
+    case["policy_mask"] = (aff > 0).astype(np.int32)
+    counts, _free, _nt = _assert_exact(case)
+    # a zero weight is a hard exclusion
+    n_b, n_w = affinity.shape
+    assert not counts[:n_b, :, :n_w][
+        np.broadcast_to((affinity == 0)[:, None, :], (n_b, PV, n_w))
+    ].any()
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_gang_rows_with_policy_mask_match(seed):
+    kernel, gang_nodes, gang_ok, gids = _gang_random(seed + 10)
+    rng = np.random.default_rng(seed + 3000)
+    n_b, n_w = len(gang_nodes), len(gids)
+    affinity = rng.choice(np.array([0.0, 1.0, 2.0]), size=(n_b, n_w),
+                          p=[0.2, 0.5, 0.3])
+    aff = _padded_affinity(affinity)
+    case = _visit_classes(_pad(**kernel), affinity=aff)
+    case["policy_mask"] = (aff > 0).astype(np.int32)
+    case = _with_gangs(case, gang_nodes, gang_ok, gids)
+    counts, _free, _nt = _assert_exact(case)
+    _assert_gang_invariants(counts, kernel["free"], kernel["needs"],
+                            gang_nodes, gang_ok, gids,
+                            pmask=case["policy_mask"])
+
+
+def test_infeasible_gang_holds_its_workers():
+    # two idle workers in one group, a 3-node gang first: infeasible, so it
+    # emits nothing but holds both; the ordinary row after it gets nothing
+    spec = dict(free=[[4 * U]] * 3, nt_free=[4] * 3, lifetime=[INF] * 3,
+                needs=[[[0]], [[U]]], sizes=[1, 10], min_time=[[0], [0]])
+    case = _with_gangs(_visit_classes(_pad(**spec)), [3, 0], [1, 1, 0],
+                       [0, 0, 0])
+    counts, free, nt = _assert_exact(case)
+    assert counts[0, 0, :3].tolist() == [0, 0, 0]
+    assert counts[1, 0, :3].tolist() == [0, 0, 4]
+    assert free[:2, 0].tolist() == [0, 0] and nt[:2].tolist() == [0, 0]
+
+
+def test_gang_after_rows_that_touched_every_idle_worker():
+    # the ordinary first row places one task on every idle worker (one
+    # 3-cpu task fits per worker), so the gang row behind it finds no
+    # available member although every worker keeps free task slots
+    spec = dict(free=[[4 * U]] * 4, nt_free=[4] * 4, lifetime=[INF] * 4,
+                needs=[[[3 * U]], [[0]]], sizes=[4, 1], min_time=[[0], [0]])
+    case = _with_gangs(_visit_classes(_pad(**spec)), [0, 2], [1, 1, 1, 1],
+                       [0, 0, 1, 1])
+    counts, _free, _nt = _assert_exact(case)
+    assert counts[0, 0, :4].tolist() == [1, 1, 1, 1]
+    assert counts[1].sum() == 0
+
+
+def test_gang_picks_first_feasible_group_else_the_largest():
+    spec = dict(free=[[4 * U]] * 6, nt_free=[4] * 6, lifetime=[INF] * 6,
+                needs=[[[0]], [[0]]], sizes=[1, 1], min_time=[[0], [0]])
+    # groups: 0 = {0}, 1 = {1, 2}, 2 = {3, 4, 5}; the 2-node gang takes
+    # group 1, the 3-node gang group 2
+    case = _with_gangs(_visit_classes(_pad(**spec)), [2, 3], [1] * 6,
+                       [0, 1, 1, 2, 2, 2])
+    counts, _free, _nt = _assert_exact(case)
+    assert counts[0, 0, :6].tolist() == [0, 1, 1, 0, 0, 0]
+    assert counts[1, 0, :6].tolist() == [0, 0, 0, 1, 1, 1]
+
+
+def test_gang_inputs_come_together_and_groups_partition():
     case = _visit_classes(_pad(**_solver_random(0)))
     t = {k: torch.from_numpy(np.array(v, dtype=np.int32))
          for k, v in case.items()}
     args = [t[k] for k in ("free", "nt_free", "lifetime", "needs", "sizes",
                            "min_time", "class_m", "order_ids")]
-    with pytest.raises(NotImplementedError, match="K1g"):
+    with pytest.raises(ValueError, match="come together"):
         port_assign.greedy_cut_scan(
             *args, gang_nodes=torch.zeros(PB, dtype=torch.int32)
         )
-    with pytest.raises(NotImplementedError, match="K1g"):
+    two_groups = torch.ones((PW, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="one group per worker"):
         port_assign.greedy_cut_scan(
-            *args, policy_mask=torch.ones((PB, PW), dtype=torch.int32)
+            *args, gang_nodes=torch.full((PB,), 2, dtype=torch.int32),
+            gang_ok=torch.ones(PW, dtype=torch.int32),
+            group_onehot=two_groups,
+        )
+    with pytest.raises(ValueError, match="policy_mask"):
+        port_assign.greedy_cut_scan(
+            *args, policy_mask=torch.ones((PB, PW - 1), dtype=torch.int32)
         )
 
 

@@ -136,16 +136,63 @@ def test_place_cached_reuses_unchanged_inputs():
     assert model.resident_stats()["rep_cache_hits"] == hits + 5
 
 
-def test_gang_and_affinity_inputs_raise():
+def _fused_extras(rng, n_w, n_b, n_g, with_zeros=True):
+    """Gang rows, idleness, groups and an affinity matrix for one tick."""
+    gang_nodes = np.zeros(n_b, np.int32)
+    gang_nodes[rng.choice(n_b, size=min(2, n_b), replace=False)] = (
+        rng.integers(2, 4, size=min(2, n_b)))
+    gids = rng.integers(0, n_g, size=n_w)
+    weights = [0.0, 0.5, 1.0, 2.0] if with_zeros else [0.5, 1.0, 2.0]
+    return dict(
+        gang_nodes=gang_nodes,
+        gang_ok=rng.integers(0, 2, size=n_w).astype(np.int32),
+        group_onehot=(gids[:, None] == np.arange(n_g)[None, :])
+        .astype(np.int32),
+        affinity=rng.choice(np.array(weights, np.float32), size=(n_b, n_w)),
+    )
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_fused_inputs_match_jax_and_numpy(seed):
+    """Gang rows, idleness, groups and affinity (with and without zero
+    weights) through the port's model and the JAX package's, over ticks
+    that change buckets."""
+    rng = np.random.default_rng(700 + seed)
+    port = GreedyCutScanModel(device="cpu")
+    jax_model = JaxModel(backend="jax")
+    np_model = JaxModel(backend="numpy")
+    for n_w, n_b, n_g, with_zeros in [(12, 5, 2, True), (7, 3, 1, False),
+                                      (10, 6, 3, True)]:
+        kw = _tick(rng, n_w, n_b, 2, 2)
+        kw.update(_fused_extras(rng, n_w, n_b, n_g, with_zeros))
+        got = port.solve(**kw)
+        np.testing.assert_array_equal(got, jax_model.solve(**kw))
+        np.testing.assert_array_equal(got, np_model.solve(**kw))
+        # the affinity alone and the gang rows alone
+        for drop in (("gang_nodes", "gang_ok", "group_onehot"),
+                     ("affinity",)):
+            part = {k: v for k, v in kw.items() if k not in drop}
+            np.testing.assert_array_equal(port.solve(**part),
+                                          np_model.solve(**part))
+
+
+def test_uniform_affinity_and_zero_gang_column_are_ordinary_solves():
     rng = np.random.default_rng(7)
     model = GreedyCutScanModel(device="cpu")
     kw = _tick(rng, 8, 3, 2, 1)
-    with pytest.raises(NotImplementedError, match="gang"):
-        model.solve(**kw, gang_nodes=np.array([2, 0, 0], np.int32))
-    with pytest.raises(NotImplementedError, match="affinity"):
-        model.solve(**kw, affinity=np.ones((3, 8), np.float32))
-    # an all-zero gang column is an ordinary solve
+    plain = JaxModel(backend="numpy").solve(**kw)
     np.testing.assert_array_equal(
-        model.solve(**kw, gang_nodes=np.zeros(3, np.int32)),
-        JaxModel(backend="numpy").solve(**kw),
+        model.solve(**kw, gang_nodes=np.zeros(3, np.int32)), plain
+    )
+    uniform = np.full((3, 8), 2.0, np.float32)
+    np.testing.assert_array_equal(model.solve(**kw, affinity=uniform), plain)
+    prep = model.prepare(**kw, affinity=uniform,
+                         gang_nodes=np.zeros(3, np.int32))
+    assert prep["pmask_p"] is None and prep["gang_p"] is None
+    # a uniform zero matrix excludes every worker
+    zeros = np.zeros((3, 8), np.float32)
+    assert model.solve(**kw, affinity=zeros).sum() == 0
+    np.testing.assert_array_equal(
+        model.solve(**kw, affinity=zeros),
+        JaxModel(backend="numpy").solve(**kw, affinity=zeros),
     )

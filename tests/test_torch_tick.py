@@ -8,6 +8,8 @@ to plain data here, the port's state is built from that data with
 The assignment lists must be identical (tolerance 0).
 """
 
+import types
+
 import numpy as np
 import pytest
 
@@ -20,11 +22,22 @@ from hyperqueue_tpu.resources.request import (
     ResourceRequestEntry,
     ResourceRequestVariants,
 )
+from hyperqueue_tpu.scheduler import policy as jax_policy
 from hyperqueue_tpu.scheduler import tick as jax_tick
-from hyperqueue_tpu.scheduler.queues import TaskQueues
-from hyperqueue_tpu_torch.convert import tick_state_from_plain
+from hyperqueue_tpu.scheduler.predict import (
+    RuntimePredictor as JaxPredictor,
+)
+from hyperqueue_tpu.scheduler.queues import TaskQueues, encode_sched_priority
+from hyperqueue_tpu.scheduler.tick_cache import DenseSnapshot
+from hyperqueue_tpu_torch.convert import (
+    group_ids,
+    policy_table_from_plain,
+    tick_state_from_plain,
+)
 from hyperqueue_tpu_torch.models.greedy import GreedyCutScanModel
+from hyperqueue_tpu_torch.scheduler import policy as port_policy
 from hyperqueue_tpu_torch.scheduler import tick as port_tick
+from hyperqueue_tpu_torch.scheduler.predict import RuntimePredictor
 
 U = 10_000
 INF = 2**31 - 1
@@ -259,7 +272,7 @@ def _small_state():
     )
 
 
-@pytest.mark.parametrize("option", ["dense", "pipeline", "policy"])
+@pytest.mark.parametrize("option", ["dense", "pipeline"])
 def test_unported_tick_options_raise(option):
     resource_map, rq_map, queues, rows = _small_state()
     with pytest.raises(NotImplementedError, match="not ported"):
@@ -268,17 +281,294 @@ def test_unported_tick_options_raise(option):
                            **{option: object()})
 
 
-def test_gang_batches_and_min_utilization_workers_raise():
+def test_min_utilization_workers_raise():
     resource_map, rq_map, queues, rows = _small_state()
-    model = GreedyCutScanModel(device="cpu")
-    gang = [port_tick.Batch(rq_id=0, priority=(0, 0), size=1, gang_task=9,
-                            gang_nodes=2)]
-    with pytest.raises(NotImplementedError, match="gang"):
-        port_tick.run_tick(queues, rows, rq_map, resource_map, model,
-                           batches=gang)
     rows[0].cpu_floor = U
-    with pytest.raises(NotImplementedError, match="min-utilization"):
-        port_tick.run_tick(queues, rows, rq_map, resource_map, model)
+    # with a policy too: its rows are stripped before the refusal
+    policy = port_policy.TickPolicyContext({0: np.ones(1, np.float32)}, {})
+    for kwargs in ({}, {"policy": policy}):
+        with pytest.raises(NotImplementedError, match="min-utilization"):
+            port_tick.run_tick(queues, rows, rq_map, resource_map,
+                               GreedyCutScanModel(device="cpu"), **kwargs)
+    assert queues.total_ready() == 4
+
+
+# -- the fused tick: gang batches, worker groups and a policy ---------------
+
+def _dense(rows, n_r):
+    """The JAX package's dense snapshot of worker rows over n_r resources
+    (a row may lag the resource map): its run_tick hands gang_ok and
+    group_ids to the solve on that path."""
+    free = np.zeros((len(rows), n_r), np.int64)
+    total = np.zeros((len(rows), n_r), np.int64)
+    for i, r in enumerate(rows):
+        free[i, :len(r.free)] = r.free
+        src = r.total if r.total is not None else r.free
+        total[i, :len(src)] = src
+    return DenseSnapshot(
+        worker_ids=[r.worker_id for r in rows], free=free, total=total,
+        nt_free=np.array([max(r.nt_free, 0) for r in rows], np.int32),
+        lifetime=np.array([r.lifetime_secs for r in rows], np.int32),
+    )
+
+
+def _apply_fused(assignments, rows, rq_map):
+    """Start the assignments; a gang sentinel takes its worker whole."""
+    by_id = {row.worker_id: row for row in rows}
+    for _task, worker_id, rq_id, variant in assignments:
+        row = by_id[worker_id]
+        if variant < 0:
+            row.free[:] = [0] * len(row.free)
+            row.nt_free = 0
+            continue
+        for e in rq_map.get_variants(rq_id).variants[variant].entries:
+            row.free[e.resource_id] -= e.amount
+        row.nt_free -= 1
+
+
+def _run_fused(jax_state, groups, n_ticks, gangs=(), table=None,
+               predictor_feed=(), ledger=None, job_names=None,
+               jax_policy_ctx=None, port_policy_ctx=None):
+    """Run `n_ticks` fused ticks through both packages: the JAX run_tick on
+    a dense snapshot, the port's on its worker rows, with the same gang
+    batches (gangs: (gang_task, rq_id, priority, n_nodes)), idleness,
+    groups and policy. Returns the per-tick assignment lists (asserted
+    identical)."""
+    resource_map, rq_map, queues, rows = jax_state
+    resources, classes, tasks, plain_rows = export_plain(*jax_state)
+    plain_rows = [r + (g,) for r, g in zip(plain_rows, groups)]
+    p_resource_map, p_rq_map, p_queues, p_rows = tick_state_from_plain(
+        resources, classes, tasks, plain_rows)
+    totals = [list(row.total or row.free) for row in rows]
+    nt0 = [row.nt_free for row in rows]
+    gids = group_ids(p_rows)
+    jax_model = JaxModel(backend="numpy")
+    port_model = GreedyCutScanModel(device="cpu")
+    states = None
+    if table is not None:
+        states = []
+        for pkg, predictor_cls, tbl in (
+            (jax_policy, JaxPredictor,
+             jax_policy.PolicyTable(**table)),
+            (port_policy, RuntimePredictor, policy_table_from_plain(
+                {"affinity": table.get("affinity", {}),
+                 "fairness": {
+                     "enabled": table.get("fairness_enabled", False),
+                     "max_boost": table.get("fairness_max_boost", 4)},
+                 "prediction": {
+                     "enabled": table.get("prediction_enabled", False),
+                     "max_boost": table.get("prediction_max_boost", 4)}})),
+        ):
+            predictor = predictor_cls()
+            for label, runtime in predictor_feed:
+                predictor.observe(label, runtime)
+            states.append(pkg.PolicyState(
+                tbl, predictor=predictor, ledger=ledger,
+                job_name=(job_names or {}).get))
+    pending = list(gangs)
+    out = []
+    for t in range(n_ticks):
+        idle = np.array([
+            row.free == totals[i] and row.nt_free == nt0[i]
+            for i, row in enumerate(rows)
+        ], np.int32)
+        j_batches = jax_tick.create_batches(queues) + [
+            jax_tick.Batch(rq_id=rq, priority=prio, size=1, gang_task=task,
+                           gang_nodes=n) for task, rq, prio, n in pending]
+        p_batches = port_tick.create_batches(p_queues) + [
+            port_tick.Batch(rq_id=rq, priority=prio, size=1, gang_task=task,
+                            gang_nodes=n) for task, rq, prio, n in pending]
+        j_ctx, p_ctx = jax_policy_ctx, port_policy_ctx
+        if states is not None:
+            wids = [r.worker_id for r in rows]
+            j_ctx = states[0].tick_context(
+                {r.worker_id: types.SimpleNamespace(group=r.group)
+                 for r in p_rows},
+                rq_map, resource_map, wids, j_batches)
+            p_ctx = states[1].tick_context(
+                {r.worker_id: r for r in p_rows}, p_rq_map, p_resource_map,
+                wids, p_batches)
+            assert (j_ctx is None) == (p_ctx is None)
+            if j_ctx is not None:
+                assert p_ctx.boosts == j_ctx.boosts
+                assert sorted(p_ctx.rows) == sorted(j_ctx.rows)
+                for rq in j_ctx.rows:
+                    np.testing.assert_array_equal(p_ctx.rows[rq],
+                                                  j_ctx.rows[rq])
+        fused = dict(gang_ok=idle, group_ids=gids) if pending else {}
+        want = jax_tick.run_tick(
+            queues, None, rq_map, resource_map, jax_model, batches=j_batches,
+            dense=_dense(rows, len(resource_map)), policy=j_ctx, **fused)
+        got = port_tick.run_tick(
+            p_queues, p_rows, p_rq_map, p_resource_map, port_model,
+            batches=p_batches, policy=p_ctx, **fused)
+        assert got == want, f"tick {t}"
+        placed = {task for task, _w, _rq, v in got if v < 0}
+        pending = [g for g in pending if g[0] not in placed]
+        _apply_fused(want, rows, rq_map)
+        _apply_fused(got, p_rows, p_rq_map)
+        _release(rows, totals, nt0, t)
+        _release(p_rows, totals, nt0, t)
+        out.append(got)
+    assert p_queues.total_ready() == queues.total_ready()
+    return out
+
+
+def _jobs_state(seed, n_workers=12):
+    """Three jobs over 1-cpu, 2-cpu+gpu and 4-cpu (with a 2-cpu fallback)
+    classes, plus two gang classes, on workers of 4 or 8 cpus, some with
+    gpus; returns the JAX state, the gang classes' rq ids and the jobs'
+    scheduler priorities."""
+    rng = np.random.default_rng(seed)
+    resource_map = ResourceIdMap()
+    cpus = resource_map.get_or_create("cpus")
+    gpus = resource_map.get_or_create("gpus")
+    rq_map = ResourceRqMap()
+
+    def rq(*variants, n_nodes=0):
+        return rq_map.get_or_create(ResourceRequestVariants(variants=tuple(
+            ResourceRequest(entries=tuple(
+                ResourceRequestEntry(r, a) for r, a in v), n_nodes=n_nodes)
+            for v in variants)))
+
+    plain = [rq([(cpus, U)]), rq([(cpus, 2 * U), (gpus, U)]),
+             rq([(cpus, 4 * U)], [(cpus, 2 * U)])]
+    gang_rqs = [rq([], n_nodes=2), rq([], n_nodes=3)]
+    queues = TaskQueues()
+    sched = {job: encode_sched_priority(job) for job in (1, 2, 3)}
+    task_id = 1
+    for job in (1, 2, 3):
+        for cls in plain:
+            for _ in range(int(rng.integers(2, 12))):
+                queues.add(cls, (int(rng.integers(0, 2)), sched[job]),
+                           task_id)
+                task_id += 1
+    rows = []
+    for i in range(n_workers):
+        total = [int(rng.choice([4, 8])) * U,
+                 int(rng.choice([0, 0, 2])) * U]
+        rows.append(jax_tick.WorkerRow(
+            worker_id=i + 1, free=list(total), nt_free=8,
+            lifetime_secs=INF, total=total))
+    return (resource_map, rq_map, queues, rows), gang_rqs, sched
+
+
+POLICY_TABLE = dict(
+    affinity={"cpus": {"*": 1.0, "fast": 2.0, "slow": 0.0},
+              "cpus+gpus": {"fast": 0.5},
+              "nodes": {"*": 1.0, "slow": 0.0}},
+    fairness_enabled=True, fairness_max_boost=2,
+    prediction_enabled=True, prediction_max_boost=3,
+)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_fused_ticks_match_jax(seed):
+    state, gang_rqs, sched = _jobs_state(seed)
+    groups = ["fast", "slow", "mid"] * 4
+    gangs = [(9001, gang_rqs[0], (1, sched[1]), 2),
+             (9002, gang_rqs[1], (0, sched[2]), 3),
+             (9003, gang_rqs[0], (0, sched[3]), 2),
+             (9004, gang_rqs[1], (1, sched[3]), 3)]
+    ledger = types.SimpleNamespace(
+        rows={1: {"label": "a", "resource_seconds": {"cpus": 50.0}},
+              2: {"label": "b", "resource_seconds": {"cpus": 5.0}},
+              3: {"label": "c", "resource_seconds": {}}},
+        open_runs={})
+    ticks = _run_fused(state, groups, 4, gangs=gangs, table=POLICY_TABLE,
+                       predictor_feed=[("a", 5.0), ("b", 30.0), ("c", 12.0)],
+                       ledger=ledger, job_names={1: "a", 2: "b", 3: "c"})
+    sentinels = [a for tick in ticks for a in tick if a[3] < 0]
+    assert sentinels, "no gang was placed"
+    by_task: dict = {}
+    for task, worker, _rq, _v in sentinels:
+        by_task.setdefault(task, []).append(worker)
+    for task, workers in by_task.items():
+        # all-or-nothing on one group, never on the excluded "slow" group
+        assert len(workers) == {9001: 2, 9002: 3, 9003: 2, 9004: 3}[task]
+        assert len({groups[w - 1] for w in workers}) == 1
+        assert all(groups[w - 1] != "slow" for w in workers)
+    one_cpu = 0  # rq id of the "cpus" class, which excludes "slow"
+    for tick in ticks:
+        for _task, worker, rq_id, variant in tick:
+            if variant >= 0 and rq_id == one_cpu:
+                assert groups[worker - 1] != "slow"
+
+
+def _two_jobs_state(n_workers=1):
+    """tests/test_scheduler_golden.py _policy_tick_case: two 4-task jobs at
+    the same user priority over n 4-cpu workers."""
+    resource_map = ResourceIdMap()
+    cpus = resource_map.get_or_create("cpus")
+    rq_map = ResourceRqMap()
+    rq = rq_map.get_or_create(ResourceRequestVariants.single(
+        ResourceRequest(entries=(ResourceRequestEntry(cpus, U),))))
+    queues = TaskQueues()
+    for t in range(1, 5):
+        queues.add(rq, (0, encode_sched_priority(1)), t)
+    for t in range(101, 105):
+        queues.add(rq, (0, encode_sched_priority(2)), t)
+    rows = [jax_tick.WorkerRow(worker_id=i + 1, free=[4 * U], nt_free=8,
+                               lifetime_secs=INF)
+            for i in range(n_workers)]
+    return resource_map, rq_map, queues, rows
+
+
+def test_policy_boost_reorders_jobs_in_tick():
+    flat, = _run_fused(_two_jobs_state(), ["default"], 1)
+    assert sorted(t for t, *_ in flat) == [1, 2, 3, 4]
+    boosted, = _run_fused(
+        _two_jobs_state(), ["default"], 1,
+        jax_policy_ctx=jax_policy.TickPolicyContext({}, {2: 2}),
+        port_policy_ctx=port_policy.TickPolicyContext({}, {2: 2}))
+    assert sorted(t for t, *_ in boosted) == [101, 102, 103, 104]
+
+
+def _spread_state(n_workers, n_tasks):
+    """tests/test_solver.py's affinity cases: equal 4-cpu workers, 1-cpu
+    tasks of one class."""
+    spec = dict(workers=[4] * n_workers, classes=[(0, n_tasks, 1)],
+                nt_free=8)
+    return _golden_state(**spec)
+
+
+def test_zero_weight_excludes_in_tick():
+    row = np.asarray([0.0, 1.0], np.float32)
+    got, = _run_fused(
+        _spread_state(2, 8), ["default"] * 2, 1,
+        jax_policy_ctx=jax_policy.TickPolicyContext({0: row}, {}),
+        port_policy_ctx=port_policy.TickPolicyContext({0: row}, {}))
+    assert [w for _t, w, *_ in got] == [2] * 4
+
+
+def test_affinity_reorders_water_fill_in_tick():
+    row = np.asarray([1.0, 3.0, 2.0], np.float32)
+    got, = _run_fused(
+        _spread_state(3, 6), ["default"] * 3, 1,
+        jax_policy_ctx=jax_policy.TickPolicyContext({0: row}, {}),
+        port_policy_ctx=port_policy.TickPolicyContext({0: row}, {}))
+    per_worker = [sum(1 for _t, w, *_ in got if w == i) for i in (1, 2, 3)]
+    assert per_worker == [0, 4, 2]
+
+
+def test_gang_batches_emit_sentinels_and_leave_queues():
+    state, gang_rqs, sched = _jobs_state(5, n_workers=6)
+    groups = ["a", "a", "b", "b", "b", "c"]
+    ready = state[2].total_ready()
+    ticks = _run_fused(
+        state, groups, 2,
+        gangs=[(7001, gang_rqs[1], (2, sched[1]), 3),
+               (7002, gang_rqs[0], (2, sched[2]), 2)])
+    sentinels = [a for a in ticks[0] if a[3] < 0]
+    # both gangs outrank every queue (user priority 2): the 3-node gang
+    # takes group b whole, the 2-node gang group a
+    assert sorted((t, w) for t, w, _rq, _v in sentinels) == [
+        (7001, 3), (7001, 4), (7001, 5), (7002, 1), (7002, 2)]
+    assert all(rq in gang_rqs for _t, _w, rq, _v in sentinels)
+    # placed gangs are not offered again, and only ordinary cells pop tasks
+    assert not [a for a in ticks[1] if a[3] < 0]
+    popped = sum(1 for tick in ticks for a in tick if a[3] >= 0)
+    assert state[2].total_ready() == ready - popped
 
 
 def test_tick_state_from_plain_rejects_inconsistent_ids():
