@@ -3,15 +3,17 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from the sources in this checkout, holds it
+Builds the port's CUDA kernels (the cut-scan and the sync probe) and its
+native host scan from the sources in this checkout, holds each kernel
 bit-exact against its plain PyTorch version, drives consecutive north-star
 scheduling ticks (1,024 workers, 1M ready tasks, 128 sampled request
 classes, 4 priority levels) through the port's run_tick, then the same
-north star in fused mode (gang rows, worker groups and a policy), and
-prints timings.
+north star in fused mode (gang rows, worker groups and a policy), then the
+server's own solve seam, and prints timings.
 
 Phases:
-  1. the card (nvidia-smi name and power limit) and the kernel build;
+  1. the card (nvidia-smi name and power limit) and the builds, all started
+     together: nvcc for each kernel source, g++ for the native host scan;
   2. the kernel against its plain version on the card, exact on counts,
      free and nt_free, over a bench-shaped instance and random small, odd,
      ALL-policy, min_time-masked, negative-free and wide (several workers
@@ -38,20 +40,52 @@ Phases:
   6. fused timings as in phase 4, the kernel's prologue alone (the visit
      order of every visit-class row), and the two glue steps of the solve
      timed alone: the dirty-row index_copy_ (K3) and the counts slice and
-     pinned copy to the host (K4).
+     pinned copy to the host (K4);
+  7. the sync probe (K5): the kernel against its plain version on
+     arange(256) and on seeded int32 that overflow the sum, exact; its
+     device time (profiler), its plain version's and `(v * 2).sum()`'s
+     time, and the probe's round trip;
+  8. the server path: the default north star as a server Core of 1,024
+     Worker.create'd workers, solved as `hq server start` solves it:
+     SolverWatchdog(GreedyCutScanModel(backend="auto")) with the resident
+     paranoid check every 4th device solve and the tick cache's every 4th
+     tick; the watchdog of a card model has no host fallback, so a kernel
+     fault raises. The sync probe is resolved first
+     (device_sync_ms(wait_s=30)), then 8 synchronous ticks
+     (tick_cache.sync, run_tick over the dense snapshot, a random quarter
+     of the workers finish), then 16 pipelined ticks in the server's order
+     (take_result, sync, dispatch; a paranoid tick drains and solves
+     synchronously). Every solve's counts are held against the plain
+     version, every tick must solve on the device with valid assignments,
+     the watchdog must read no failure, timeout or degraded tick, the
+     residency no invalidation, the tick cache one full rebuild; then the
+     tick medians over all steady ticks, over the non-paranoid ones and,
+     pipelined, over the ticks that map one solve and dispatch the next,
+     the device's idle share over 3 profiled ticks, the cost model's
+     EWMAs, and the host solves the cost model weighs against the kernel
+     (the numpy twin and the native scan, timed at the same north-star
+     inputs and held equal to the kernel's counts).
 
-The second-to-last line is the kernels JSON, the line before it the card;
+Each server tick prints its backend and backend_reason: "device-cuda" with
+"sync-within-budget" (first solve: no measurement yet, the probe's round
+trip fits DISPATCH_LATENCY_BUDGET_MS) or "cost-model" (the measured device
+time per shape beats the host's, or the host was never measured); a
+"host-*" backend fails the run.
+
+The third-to-last line is the kernels JSON, the second-to-last the card;
 the last line is {"ok": true, "device": {...}}. Exits non-zero, printing no
 result line, when there is no CUDA device or any phase fails.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -63,6 +97,10 @@ N_TICKS = 8
 SEED = 42
 U = 10_000
 INF = 2**31 - 1
+
+# the server path: synchronous ticks, then pipelined ones
+N_SERVER_TICKS = 8
+N_SERVER_PIPELINED_TICKS = 16
 
 # the fused path: the JAX server's MAX_FUSED_GANG_ROWS gang rows per tick
 N_FUSED_TICKS = 8
@@ -460,7 +498,9 @@ class RecordingModel:
 
     def solve(self, **kwargs):
         counts = self.model.solve(**kwargs)
-        self.calls.append((kwargs, counts))
+        # a copy: the counts array is a view of the model's pinned host
+        # buffer, which a kept reference would stop the allocator reusing
+        self.calls.append((kwargs, counts.copy()))
         return counts
 
 
@@ -847,6 +887,393 @@ def time_glue(model, padded_shape, live_shape, device, reps=200):
     }
 
 
+# -- the sync probe (K5) -----------------------------------------------------
+
+def k5_cases():
+    """name -> int32 input of every K5 case: the probe's own arange(256)
+    and seeded int32 over the whole range, whose sums overflow."""
+    cases = {"arange_256": np.arange(256, dtype=np.int32)}
+    for n in (256, 1000, 1, 0, 1 << 20):
+        cases[f"random_{n}"] = np.random.default_rng(n).integers(
+            -2**31, 2**31, size=n, dtype=np.int64).astype(np.int32)
+    return cases
+
+
+def k5_phase(device, card):
+    """Phase 7: K5 against its plain version on the card (exact), its
+    device time, its plain version's and the library call's time, and the
+    probe's round trip."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hyperqueue_tpu_torch.ops import probe
+
+    max_err = 0
+    for name, v in k5_cases().items():
+        t = torch.from_numpy(v).to(device)
+        got = probe.sync_probe(t)
+        want = probe.sync_probe_reference(t)
+        torch.cuda.synchronize()
+        exact = 2 * int(v.astype(np.int64).sum())
+        err = max(abs(int(got) - int(want)),
+                  abs(int(got) - ((exact + 2**31) % 2**32 - 2**31)))
+        if err:
+            raise AssertionError(f"K5 case {name}: kernel {int(got)}, plain "
+                                 f"{int(want)}, wrapped sum of 2v")
+        max_err = max(max_err, err)
+    v = torch.arange(probe.PROBE_SIZE, dtype=torch.int32, device=device)
+
+    def events_ms(fn, n=200):
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / n
+
+    wrapper_ms = events_ms(lambda: probe.sync_probe(v))
+    plain_ms = events_ms(lambda: probe.sync_probe_reference(v))
+    library_ms = events_ms(lambda: (v * 2).sum())
+    reps = 200
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            probe.sync_probe(v)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if "sync_probe_kernel" in e.key]
+    device_us = sum(e.self_device_time_total for e in events)
+    if device_us <= 0:
+        raise AssertionError("the profiler saw no sync_probe_kernel time")
+    round_trips = [probe.sync_round_trip_ms(device) for _ in range(5)]
+    in_bytes, out_bytes = probe.PROBE_SIZE * 4, 4
+    bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    ops = 2 * probe.PROBE_SIZE  # one multiply and one add per element
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    timing = {
+        "ms": device_us / 1e3 / reps, "wrapper_ms": wrapper_ms,
+        "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bytes": in_bytes + out_bytes, "ops": ops,
+        "round_trip_ms": round_trips,
+        "round_trip_min_ms": min(round_trips),
+        "round_trip_median_ms": float(np.median(round_trips)),
+    }
+    log("k5", cases=sorted(k5_cases()), max_abs_err=max_err, **timing,
+        card=card)
+    return max_err, timing
+
+
+# -- the server path ---------------------------------------------------------
+
+class RecordingSeam:
+    """Passes every solve to the watchdog and keeps its inputs and counts;
+    a pipelined solve's counts are kept when its handle is read. Every
+    other attribute is the watchdog's (and through it the model's)."""
+
+    def __init__(self, watchdog):
+        self.watchdog = watchdog
+        self.calls = []
+
+    def __getattr__(self, name):
+        return getattr(self.watchdog, name)
+
+    @staticmethod
+    def _copy(kwargs):
+        # the dense snapshot's arrays belong to the tick cache, which
+        # rewrites them in place at its next sync; the counts are views of
+        # the model's pinned host buffers, which a kept reference would
+        # stop the allocator reusing
+        return {k: np.array(v, copy=True) for k, v in kwargs.items()}
+
+    def solve(self, **kwargs):
+        counts = self.watchdog.solve(**kwargs)
+        self.calls.append((self._copy(kwargs), counts.copy()))
+        return counts
+
+    def solve_async(self, **kwargs):
+        handle = self.watchdog.solve_async(**kwargs)
+        calls, inputs = self.calls, self._copy(kwargs)
+
+        class Handle:
+            def result(self):
+                counts = handle.result()
+                calls.append((inputs, counts.copy()))
+                return counts
+
+        return Handle()
+
+
+def server_path(card, device):
+    """Phase 8: the server's solve seam at the north star. Returns the
+    launches of K1 and K5 in its ticks, the per-tick summaries, the last
+    synchronous tick's padded case and a closure that runs one more
+    synchronous tick."""
+    from hyperqueue_tpu_torch.convert import core_from_plain
+    from hyperqueue_tpu_torch.models import greedy
+    from hyperqueue_tpu_torch.ops import assign, probe
+    from hyperqueue_tpu_torch.scheduler.pipeline import TickPipeline
+    from hyperqueue_tpu_torch.scheduler.tick import create_batches, run_tick
+    from hyperqueue_tpu_torch.scheduler.tick_cache import paranoid_check
+    from hyperqueue_tpu_torch.scheduler.watchdog import SolverWatchdog
+
+    t0 = time.perf_counter()
+    core = core_from_plain(*north_star_state())
+    log("server_state", workers=len(core.workers),
+        ready_tasks=core.queues.total_ready(), classes=len(core.rq_map),
+        seconds=round(time.perf_counter() - t0, 3))
+    model = greedy.GreedyCutScanModel(device="cuda", backend="auto")
+    model.paranoid_resident = 4
+    core.paranoid_tick = 4
+    watchdog = SolverWatchdog(model)
+    seam = RecordingSeam(watchdog)
+    rng = np.random.default_rng(SEED + 4)
+    running: dict = {}   # worker_id -> [(task, rq_id, variant)]
+    seen: set = set()
+    result = {"ticks": [], "paranoid_ticks": 0}
+    # as the server does once it has started: freeze everything allocated
+    # so far out of the collector's generations, so that an old-generation
+    # collection never re-traverses the start-up state inside a tick; the
+    # collector's pauses in each tick are still counted (phase "gc")
+    gc.collect()
+    gc.freeze()
+    gc_time = {"ms": 0.0, "t0": None}
+
+    def on_gc(stage, _info):
+        if stage == "start":
+            gc_time["t0"] = time.perf_counter()
+        elif gc_time["t0"] is not None:
+            gc_time["ms"] += (time.perf_counter() - gc_time["t0"]) * 1e3
+            gc_time["t0"] = None
+
+    gc.callbacks.append(on_gc)
+
+    def start(assignments):
+        rows = {w.worker_id: w for w in core.workers.values()}
+        check_assignments(assignments, list(rows.values()), core.rq_map,
+                          seen)
+        for task, wid, rq_id, variant in assignments:
+            w = core.workers[wid]
+            w.assign(task, core.variant_amounts(rq_id, variant, w))
+            running.setdefault(wid, []).append((task, rq_id, variant))
+
+    def finish_quarter():
+        for w in core.workers.values():
+            if rng.random() < 0.25:
+                for task, rq_id, variant in running.pop(w.worker_id, []):
+                    w.unassign(task, core.variant_amounts(rq_id, variant, w))
+
+    def check_solves(first_call, tick):
+        for kwargs, counts in seam.calls[first_call:]:
+            check_tick_against_plain(model, kwargs, counts, device, tick)
+        return len(seam.calls)
+
+    def one_tick(pipeline=None, record=True):
+        core.tick_counter += 1
+        paranoid_now = core.tick_counter % core.paranoid_tick == 0
+        phases, decisions, solve_phases = {}, [], []
+        gc_time["ms"] = 0.0
+        t0 = time.perf_counter()
+        mapped = []
+        if pipeline is not None and pipeline.pending is not None:
+            decision: dict = {}
+            take = pipeline.drain if paranoid_now else pipeline.take_result
+            first_call = len(seam.calls)
+            mapped = take(model=seam, phases=phases, decision=decision)
+            decisions.append(decision["solver"])
+            solve_phases.append(dict(model.last_phases))
+            t1 = time.perf_counter()
+            gc_ms = gc_time["ms"]
+            start(mapped)
+            if record:
+                # held against the plain version before the next dispatch
+                # reuses the model's padded buffers
+                check_solves(first_call, core.tick_counter)
+            # applying and checking are not the tick's own time
+            t0 += time.perf_counter() - t1
+            gc_time["ms"] = gc_ms
+        t_sync = time.perf_counter()
+        snap = core.tick_cache.sync(core)
+        phases["tick_cache_sync"] = (time.perf_counter() - t_sync) * 1e3
+        batches = create_batches(core.queues)
+        if paranoid_now:
+            t_par = time.perf_counter()
+            paranoid_check(core, snap, batches, core.rq_map,
+                           core.resource_map)
+            result["paranoid_ticks"] += 1
+            # a debug check, not part of the tick's time
+            t0 += time.perf_counter() - t_par
+        decision = {}
+        this_pipeline = None if paranoid_now else pipeline
+        first_call = len(seam.calls)
+        out = run_tick(core.queues, None, core.rq_map, core.resource_map,
+                       seam, batches=batches, dense=snap,
+                       key_cache=core.tick_cache, phases=phases,
+                       decision=decision, pipeline=this_pipeline)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        phases["gc"] = gc_time["ms"]
+        if decision.get("solver", {}).get("status") != "pipelined":
+            decisions.append(decision["solver"])
+            solve_phases.append(dict(model.last_phases))
+        for d in decisions:
+            if d["backend"] != "device-cuda" or d["status"] != "ok":
+                raise AssertionError(f"server tick {core.tick_counter} "
+                                     f"solved on {d['backend']} "
+                                     f"({d['backend_reason']}), status "
+                                     f"{d['status']}")
+        start(out)
+        if record:
+            check_solves(first_call, core.tick_counter)  # a synchronous one
+            result["ticks"].append(dict(
+                tick=core.tick_counter,
+                run="sync" if pipeline is None else "pipelined",
+                paranoid=paranoid_now,
+                dispatched_async=this_pipeline is not None,
+                assigned=len(out) + len(mapped), wall_ms=wall_ms,
+                phases=phases, solve_phases=solve_phases,
+                solves=[(d["backend"], d["backend_reason"])
+                        for d in decisions],
+                dispatched=(model.last_backend, model.last_backend_reason)
+                if this_pipeline is not None else None))
+            log("server_tick", **result["ticks"][-1],
+                resident=model.resident_stats(),
+                tick_cache=core.tick_cache.counters(), card=card)
+        finish_quarter()
+        return out
+
+    # counts to 0 just before the path; the probe starts here, as the
+    # server's first solve would start it
+    assign.greedy_cut_scan.launches = 0
+    assign.greedy_cut_scan.gang_launches = 0
+    probe.sync_probe.launches = 0
+    sync_ms = greedy.device_sync_ms(wait_s=30)
+    if greedy.probe_error() is not None:
+        raise AssertionError(f"sync probe failed: {greedy.probe_error()!r}")
+    if sync_ms is None or not np.isfinite(sync_ms):
+        raise AssertionError(f"sync probe did not resolve: {sync_ms}")
+    log("server_probe", device_sync_ms=sync_ms, card=card)
+    for _ in range(N_SERVER_TICKS):
+        one_tick()
+    sync_calls = len(seam.calls)
+    pipeline = TickPipeline()
+    core.tick_pipeline = pipeline
+    for _ in range(N_SERVER_PIPELINED_TICKS):
+        one_tick(pipeline)
+    if pipeline.pending is not None:  # the last dispatch, mapped here
+        first_call = len(seam.calls)
+        start(pipeline.drain(model=seam))
+        check_solves(first_call, core.tick_counter)
+    launches = {"cut_scan": assign.greedy_cut_scan.launches,
+                "cut_scan_gang": assign.greedy_cut_scan.gang_launches,
+                "sync_probe": probe.sync_probe.launches}
+    gc.callbacks.remove(on_gc)
+    # checks of the whole path
+    stats = watchdog.stats()
+    res = model.resident_stats()
+    if (stats["failures"], stats["timeouts"], stats["degraded_ticks"],
+            stats["skipped_ticks"]) != (0, 0, 0, 0):
+        raise AssertionError(f"watchdog degraded: {stats}")
+    if res["invalidations"] != 0 or res["delta_uploads"] < 1:
+        raise AssertionError(f"residency: {res}")
+    if core.tick_cache.full_rebuilds != 1:
+        raise AssertionError(f"tick cache: {core.tick_cache.counters()}")
+    if model.paranoid_checks < 2 or result["paranoid_ticks"] < 2:
+        raise AssertionError("paranoid checks did not run")
+    n_solves = len(seam.calls)
+    if launches["cut_scan"] != n_solves + model.paranoid_checks:
+        raise AssertionError(f"K1 launched {launches['cut_scan']} times for "
+                             f"{n_solves} solves and "
+                             f"{model.paranoid_checks} paranoid checks")
+    if launches["sync_probe"] < 1 or launches["cut_scan_gang"]:
+        raise AssertionError(f"server path launches {launches}")
+    result.update(
+        launches=launches, solves=n_solves, sync_solves=sync_calls,
+        paranoid_checks=model.paranoid_checks, watchdog=stats,
+        resident=res, tick_cache=core.tick_cache.counters(),
+        pipeline=pipeline.stats(), device_sync_ms=sync_ms,
+        cost_model={kind: [{"shape_key": list(key), "ms": ms}
+                           for key, ms in table.items()]
+                    for kind, table in model._cost.items()},
+    )
+    log("server_checks", **{k: v for k, v in result.items()
+                            if k != "ticks"}, card=card)
+    last_kwargs, last_counts = seam.calls[sync_calls - 1]
+
+    def steady_tick(pipelined=False):
+        # as a checked tick, without the plain version (whose device time
+        # would count as the tick's); a synchronous tick first maps a
+        # solve that a pipelined one left pending
+        if not pipelined and pipeline.pending is not None:
+            start(pipeline.drain(model=seam))
+        one_tick(pipeline if pipelined else None, record=False)
+
+    return result, model, (last_kwargs, last_counts), steady_tick
+
+
+def host_op_profile(one_tick, n_ticks=3, top=10):
+    """The host side of `n_ticks` calls of one_tick() under torch.profiler:
+    the ops and CUDA runtime calls with the most self CPU time, in ms per
+    tick, and the device's busy ms per tick."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_ticks):
+            one_tick()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    ranked = sorted(events, key=lambda e: e.self_cpu_time_total,
+                    reverse=True)[:top]
+    return {
+        "ticks": n_ticks, "wall_ms_per_tick": wall_ms / n_ticks,
+        "device_busy_ms_per_tick": sum(e.self_device_time_total
+                                       for e in events) / 1e3 / n_ticks,
+        "top_self_cpu_ms_per_tick": [
+            [e.key, e.self_cpu_time_total / 1e3 / n_ticks, e.count]
+            for e in ranked],
+    }
+
+
+def host_solves(model, kwargs, counts, card):
+    """The cost model's host alternatives at one north-star solve's padded
+    inputs: the numpy twin and the native scan, each timed (host clock,
+    best of 3) and held equal to the kernel's counts."""
+    from hyperqueue_tpu_torch.ops.assign import greedy_cut_scan_numpy
+    from hyperqueue_tpu_torch.utils.native import native_cut_scan
+
+    prep = model.prepare(**kwargs)
+    n_b, n_v, n_w = prep["extents"]
+    args = (prep["free_p"], prep["nt_p"], prep["life_p"], prep["needs_p"],
+            prep["sizes_p"], prep["mt_p"], prep["class_m"],
+            prep["order_ids"])
+    out = {}
+    for name, fn in (
+        ("host_numpy", lambda: greedy_cut_scan_numpy(*args)[0]),
+        ("host_native", lambda: native_cut_scan(*args)),
+    ):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            got = fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        if got is None:
+            raise AssertionError(f"{name}: the native library is missing")
+        if not np.array_equal(got[:n_b, :n_v, :n_w], counts):
+            raise AssertionError(f"{name} counts differ from the kernel's")
+        out[name] = {"ms": min(times), "all_ms": times}
+    log("server_host_solves", shape=[n_b, n_v, n_w], **out, card=card)
+    return out
+
+
 # -- main --------------------------------------------------------------------
 
 def main_path(card, device, seen):
@@ -865,7 +1292,7 @@ def main_path(card, device, seen):
         classes=len(rq_map), seconds=round(time.perf_counter() - t0, 3))
     totals = [list(row.total) for row in rows]
     nt0 = [row.nt_free for row in rows]
-    model = GreedyCutScanModel(device="cuda")
+    model = GreedyCutScanModel(device="cuda", backend="device")
     recorder = RecordingModel(model)
     rng = np.random.default_rng(SEED + 1)
     tick_ms, tick_phases, last_case = [], [], None
@@ -953,7 +1380,7 @@ def fused_path(card, device, seen):
         gang_tasks=len(pending), seconds=round(time.perf_counter() - t0, 3))
     totals = [list(row.total) for row in rows]
     nt0 = [row.nt_free for row in rows]
-    model = GreedyCutScanModel(device="cuda")
+    model = GreedyCutScanModel(device="cuda", backend="device")
     recorder = RecordingModel(model)
     rng = np.random.default_rng(SEED + 2)
     state = {"pending": pending}
@@ -1037,23 +1464,33 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from hyperqueue_tpu_torch.ops import assign
     from hyperqueue_tpu_torch.ops.build import load_library
+    from hyperqueue_tpu_torch.utils.native import load_native
 
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # phase 1: the card and the build
+    # phase 1: the card and the builds, all started together
     card = card_info()
     kind = torch.cuda.get_device_name(0)
-    t0 = time.perf_counter()
-    _lib, record = load_library("cut_scan")
-    build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in record["ptxas"].splitlines()
-             if "registers" in ln or "spill" in ln or "Compiling" in ln]
     log("card", card=card, kind=kind, torch=torch.__version__,
         cuda=torch.version.cuda)
-    log("build", kernel="cut_scan", seconds=round(build_s, 3),
-        compiled=record["compiled"], ptxas=ptxas, card=card)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        builds = {name: pool.submit(load_library, name)
+                  for name in ("cut_scan", "sync_probe")}
+        native = pool.submit(load_native)
+        records = {name: f.result()[1] for name, f in builds.items()}
+        if native.result() is None:
+            raise AssertionError("the native host scan did not build")
+    build_s = time.perf_counter() - t0
+    for name, record in records.items():
+        ptxas = [ln.strip() for ln in record["ptxas"].splitlines()
+                 if "registers" in ln or "spill" in ln or "Compiling" in ln]
+        log("build", kernel=name, seconds=round(record["seconds"], 3),
+            compiled=record["compiled"], ptxas=ptxas, card=card)
+    log("builds", wall_seconds=round(build_s, 3), native="hqcore",
+        card=card)
 
     # phase 2: the kernel against its plain version, K1 then K1g cases
     max_err = 0
@@ -1111,6 +1548,47 @@ def main() -> int:
         *profiled_window(f_one_tick, n_window), n_window,
         f_ticks["steady_median_ms"], card))
 
+    # phase 7: the sync probe (K5)
+    max_err_p, k5 = k5_phase(device, card)
+
+    # phase 8: the server path, its profiled window and host solves
+    server, s_model, (s_kwargs, s_counts), s_tick = server_path(card, device)
+    server_summary = {}
+    for label in ("sync", "pipelined"):
+        group = [t for t in server["ticks"] if t["run"] == label]
+        steady = group[1:]
+        names = sorted({k for t in steady for k in t["phases"]})
+        server_summary[label] = dict(
+            ticks=len(group), wall_ms=[t["wall_ms"] for t in group],
+            steady_median_ms=float(np.median([t["wall_ms"]
+                                              for t in steady])),
+            # a paranoid tick drains the pipeline and solves synchronously
+            steady_non_paranoid_median_ms=float(np.median(
+                [t["wall_ms"] for t in steady if not t["paranoid"]])),
+            phases_median_ms={
+                k: float(np.median([t["phases"].get(k, 0.0)
+                                    for t in steady])) for k in names})
+    # the pipeline's own cycle: ticks that mapped the pending solve and
+    # dispatched the next (not a paranoid tick, nor the one after its
+    # drain, which has nothing to map)
+    cycle = [t["wall_ms"] for t in server["ticks"]
+             if t["dispatched_async"] and t["solves"]]
+    server_summary["pipelined"].update(
+        cycle_ticks=len(cycle), steady_cycle_median_ms=float(np.median(cycle)))
+    log("server_ticks", **server_summary, card=card)
+    log("server_host_ops", run="pipelined",
+        **host_op_profile(lambda: s_tick(True)), card=card)
+    s_tick()  # maps the last pipelined solve, outside the windows
+    log("server_profiled_window", **window_summary(
+        *profiled_window(s_tick, n_window), n_window,
+        server_summary["sync"]["steady_median_ms"], card))
+    log("server_host_ops", run="sync", **host_op_profile(s_tick),
+        card=card)
+    hosts = host_solves(s_model, s_kwargs, s_counts, card)
+    log("server_cost_model", cost_model=server["cost_model"],
+        host_numpy_ms=hosts["host_numpy"]["ms"],
+        host_native_ms=hosts["host_native"]["ms"], card=card)
+
     kernels = []
     for name, replaces, launch_count, err, timing in (
         ("cut_scan", "hyperqueue_tpu/ops/assign.py:398", launches, max_err,
@@ -1134,7 +1612,24 @@ def main() -> int:
             "latency_bound_all_steps_ms":
                 timing["latency_bound_all_steps_ms"],
             "wrapper_ms": timing["wrapper_ms"],
+            "server_launches": server["launches"]["cut_scan"]
+            if name == "cut_scan" else 0,
         })
+    kernels.append({
+        "name": "sync_probe",
+        "route": "cuda",
+        "source": "hyperqueue_tpu_torch/csrc/sync_probe.cu",
+        "replaces": "hyperqueue_tpu/models/greedy.py:85",
+        "launches": server["launches"]["sync_probe"],
+        "max_abs_err": max_err_p,
+        "ms": k5["ms"],
+        "plain_ms": k5["plain_ms"],
+        "bound_ms": k5["bound_ms"],
+        "bound_by": k5["bound_by"],
+        "library_ms": k5["library_ms"],
+        "wrapper_ms": k5["wrapper_ms"],
+        "round_trip_ms": k5["round_trip_min_ms"],
+    })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -8,12 +8,19 @@ a snapshot, a generator) can hand its state over and both sides compute from
 identical state. The fused tick's extra state crosses the same way: a group
 name per worker (`group_ids` turns the rows' groups into the tick's group
 index map) and the scheduling policy's tables (`policy_table_from_plain`).
+`core_from_plain` builds the server's view of the same state instead: a
+`server/core.Core` with `Worker`s, which the incremental tick cache reads.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from hyperqueue_tpu_torch.ids import IdCounter
+from hyperqueue_tpu_torch.resources.descriptor import (
+    ResourceDescriptor,
+    ResourceDescriptorItem,
+)
 from hyperqueue_tpu_torch.resources.map import ResourceIdMap, ResourceRqMap
 from hyperqueue_tpu_torch.resources.request import (
     AllocationPolicy,
@@ -24,6 +31,7 @@ from hyperqueue_tpu_torch.resources.request import (
 from hyperqueue_tpu_torch.scheduler.policy import PolicyTable
 from hyperqueue_tpu_torch.scheduler.queues import TaskQueues
 from hyperqueue_tpu_torch.scheduler.tick import WorkerRow
+from hyperqueue_tpu_torch.utils.constants import INF_TIME
 
 
 def tick_state_from_plain(resources, classes, tasks, workers):
@@ -88,6 +96,49 @@ def tick_state_from_plain(resources, classes, tasks, workers):
         for worker_id, free, nt_free, lifetime, total, *group in workers
     ]
     return resource_map, rq_map, queues, rows
+
+
+def core_from_plain(resources, classes, tasks, workers):
+    """A server Core from the same plain data as tick_state_from_plain.
+
+    Each worker row becomes a `Worker` (created through Worker.create from
+    a descriptor of one fungible pool per resource the row's total holds,
+    the total defaulting to free), with its free amounts and task slots
+    set from the row and its group from the row's sixth field. A finite
+    lifetime becomes the worker's time limit, counted from now, so its
+    lifetime_secs() reads one less as soon as a fraction of a second has
+    passed. The core's id counter continues after the largest worker id.
+    """
+    from hyperqueue_tpu_torch.server.core import Core
+    from hyperqueue_tpu_torch.server.worker import (
+        Worker,
+        WorkerConfiguration,
+    )
+
+    resource_map, rq_map, queues, rows = tick_state_from_plain(
+        resources, classes, tasks, workers
+    )
+    core = Core(resource_map=resource_map, rq_map=rq_map, queues=queues)
+    for row in rows:
+        total = row.total if row.total is not None else row.free
+        items = tuple(
+            ResourceDescriptorItem.sum(resources[rid], int(amount))
+            for rid, amount in enumerate(total) if amount > 0
+        )
+        config = WorkerConfiguration(
+            descriptor=ResourceDescriptor(items=items),
+            group=row.group,
+            time_limit_secs=(0.0 if row.lifetime_secs >= INF_TIME
+                             else float(row.lifetime_secs)),
+        )
+        worker = Worker.create(row.worker_id, config, resource_map)
+        worker.free = list(row.free)
+        worker.nt_free = row.nt_free
+        core.workers[row.worker_id] = worker
+    if core.workers:
+        core.worker_id_counter = IdCounter(start=max(core.workers) + 1)
+    core.bump_membership()
+    return core
 
 
 def group_ids(rows) -> np.ndarray:

@@ -23,3 +23,23 @@ def task_id_job(task_id: int) -> int:
 
 def task_id_task(task_id: int) -> int:
     return task_id & TASK_ID_MASK
+
+
+class IdCounter:
+    """Monotonic id allocator (1-based, 0 reserved as 'none').
+
+    With ``stride > 1`` the counter allocates only ids congruent to
+    ``start`` modulo ``stride`` (a static partition of the id space between
+    allocators that must not coordinate).
+    """
+
+    __slots__ = ("_next", "_stride")
+
+    def __init__(self, start: int = 1, stride: int = 1):
+        self._next = start
+        self._stride = max(int(stride), 1)
+
+    def next(self) -> int:
+        value = self._next
+        self._next += self._stride
+        return value

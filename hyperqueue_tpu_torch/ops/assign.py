@@ -13,6 +13,10 @@ Device half: `greedy_cut_scan` runs the scan as one hand-written CUDA kernel
 (csrc/cut_scan.cu) on CUDA tensors, and as `greedy_cut_scan_reference`, its
 plain PyTorch version, on CPU tensors.
 
+Host solve: `greedy_cut_scan_numpy`, the numpy twin of the same scan (an own
+copy of the JAX package's), which the model's cost model may pick instead
+of the device (with the native scan, utils/native.py).
+
 Semantics preserved from the reference solver:
   * Strict priority dominance with gap relaxation (solver.rs:240-410): a
     lower batch sees only the free resources left after every higher batch
@@ -268,6 +272,118 @@ def greedy_cut_scan_reference(
                 avail = avail & (assign == 0)
             counts[b, v] = a32
     return counts, f, nt
+
+
+def greedy_cut_scan_numpy(
+    free, nt_free, lifetime, needs, sizes, min_time, class_m, order_ids,
+    total=None, all_mask=None,
+    gang_nodes=None, gang_ok=None, group_onehot=None, policy_mask=None,
+):
+    """The cut-scan in numpy, on the host (identical semantics).
+
+    The host solve of the model's cost model (models/greedy.py) when the
+    native scan is unavailable or the solve carries gang rows or a policy
+    mask, and the solver watchdog's fallback. Pure: returns (counts
+    (B,V,W) int32, free_after (W,R) int64, nt_after (W,) int64).
+    """
+    free = np.asarray(free, dtype=np.int64).copy()
+    nt_free = np.asarray(nt_free, dtype=np.int64).copy()
+    lifetime = np.asarray(lifetime)
+    if total is not None:
+        total = np.asarray(total, dtype=np.int64)
+    n_b, n_v, _n_r = needs.shape
+    n_w = free.shape[0]
+    counts = np.zeros((n_b, n_v, n_w), dtype=np.int32)
+    class_ids = np.asarray(class_m)[np.asarray(order_ids)]  # (B, V, W)
+    idx = np.arange(n_w)
+    has_gang = gang_nodes is not None
+    if has_gang:
+        gang_nodes = np.asarray(gang_nodes)
+        gang_avail = np.asarray(gang_ok, dtype=bool).copy()
+        group_oh = np.asarray(group_onehot, dtype=bool)  # (W, G)
+    pmask = (
+        np.asarray(policy_mask) > 0 if policy_mask is not None else None
+    )  # (B, W) bool
+
+    for b in range(n_b):
+        remaining = int(sizes[b])
+        if has_gang and gang_nodes[b] > 0:
+            # all-or-nothing gang row (see scan_batches): feasible -> emit
+            # n co-scheduled counts in variant 0; either way HOLD the
+            # selected workers for the rest of the scan
+            n = int(gang_nodes[b])
+            elig = (
+                gang_avail
+                & (min_time[b, 0] <= lifetime)
+                & (nt_free >= 1)
+            )
+            if pmask is not None:
+                elig = elig & pmask[b]
+            per_group = (elig[:, None] & group_oh).sum(axis=0)  # (G,)
+            feasible = per_group >= n
+            chosen = int(
+                np.argmax(feasible) if feasible.any()
+                else np.argmax(per_group)
+            )
+            sel = elig & group_oh[:, chosen]
+            prefix = np.cumsum(sel) - sel
+            take = sel & (prefix < n)
+            if feasible.any():
+                counts[b, 0, take] = 1
+            free[take] = 0
+            nt_free[take] = 0
+            gang_avail[take] = False
+            continue
+        for v in range(n_v):
+            if remaining <= 0:
+                break
+            need = needs[b, v]
+            needed = need > 0
+            all_r = (
+                np.asarray(all_mask[b, v]) > 0 if all_mask is not None
+                else np.zeros_like(needed)
+            )
+            if not needed.any() and not all_r.any():
+                continue
+            if needed.any():
+                per_res = np.min(
+                    free[:, needed]
+                    // np.asarray(need, dtype=np.int64)[needed],
+                    axis=1,
+                )
+            else:
+                per_res = np.full(n_w, 2**30, dtype=np.int64)
+            if all_r.any():
+                # ALL-policy resources: fits only on a fully idle pool,
+                # at most one task per worker (solver.rs:120-124)
+                all_fit = (
+                    (free[:, all_r] == total[:, all_r])
+                    & (total[:, all_r] > 0)
+                ).all(axis=1)
+                per_res = np.minimum(per_res, all_fit.astype(np.int64))
+            cap = np.minimum(per_res, nt_free)
+            cap[min_time[b, v] > lifetime] = 0
+            np.clip(cap, 0, remaining, out=cap)
+            if pmask is not None:
+                cap[~pmask[b]] = 0
+            if not cap.any():
+                continue
+            order = np.lexsort((idx, class_ids[b, v]))
+            cap_sorted = cap[order]
+            cum = np.cumsum(cap_sorted)
+            take_sorted = np.clip(remaining - (cum - cap_sorted), 0, cap_sorted)
+            assign = np.empty(n_w, dtype=np.int64)
+            assign[order] = take_sorted
+            assigned = int(take_sorted.sum())
+            remaining -= assigned
+            free -= assign[:, None] * need[None, :]
+            if all_r.any():
+                free[:, all_r] *= 1 - assign[:, None]
+            nt_free -= assign
+            if has_gang:
+                gang_avail[assign > 0] = False
+            counts[b, v] = assign
+    return counts, free, nt_free
 
 
 def _cut_scan_lib():

@@ -15,9 +15,10 @@ ride the solve as all-or-nothing rows (`gang_ok=`, `group_ids=`), and a
 policy (`policy=`, a scheduler/policy.TickPolicyContext) reorders the batches
 by its job boosts and the workers by its affinity rows.
 
-Not in this module yet, each raising NotImplementedError: the incremental
-dense snapshot (`dense=`), the pipelined tick (`pipeline=`) and
-min-utilization workers.
+The server's tick reads its workers from the incremental dense snapshot
+(`dense=`, scheduler/tick_cache.py) and may run pipelined (`pipeline=`,
+scheduler/pipeline.py). Not in this module yet, raising
+NotImplementedError: min-utilization workers.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from hyperqueue_tpu_torch.scheduler.queues import (
     TaskQueues,
 )
 from hyperqueue_tpu_torch.utils.constants import INF_TIME
+from hyperqueue_tpu_torch.utils.native import native_nonzero
 
 MAX_CUTS_PER_QUEUE = 32
 # Values above this get range-compressed before entering the solve. The
@@ -164,6 +166,8 @@ def run_tick(
     batches: list[Batch] | None = None,
     dense=None,
     phases: dict | None = None,
+    key_cache=None,
+    decision: dict | None = None,
     pipeline=None,
     gang_ok=None,
     group_ids=None,
@@ -181,28 +185,42 @@ def run_tick(
     breakdown in ms: assemble, solve_dispatch, device_sync, solve_host_prep
     and mapping.
 
+    `dense` (a scheduler/tick_cache.DenseSnapshot) replaces `workers` with
+    the persistent incremental snapshot; the cache serves only ticks
+    without min-utilization workers, so the carve-out below is skipped
+    structurally. `key_cache` (a TickStateCache) memoizes sort keys and the
+    batch layout across ticks. `decision` (optional dict) receives the
+    solver's verdict under "solver": status, backend, backend_reason,
+    solve_ms and objective.
+
+    `pipeline` (a scheduler/pipeline.TickPipeline, dense path only)
+    switches this tick to ASYNC dispatch: the solve is enqueued through
+    `model.solve_async` and registered as the pipeline's pending solve,
+    and THIS call returns no assignments — the caller maps the pending
+    solve at the top of its next tick (pipeline.take_result).
+
     Fused mode: `gang_ok` (W,) 0/1 marks the idle workers and `group_ids`
-    (W,) gives each worker's group index, both aligned with `workers`; a
-    gang batch comes back as one (gang_task, worker_id, rq_id, -1) sentinel
-    per member. `policy` (a scheduler/policy.TickPolicyContext) carries this
-    tick's affinity rows (aligned with `workers`) and per-job boosts.
-    The JAX package passes gang_ok and group_ids to the solve on its
-    dense-snapshot path only; here they reach the solve from `workers`.
+    (W,) gives each worker's group index, both aligned with the worker
+    rows (or the snapshot's rows); a gang batch comes back as one
+    (gang_task, worker_id, rq_id, -1) sentinel per member. `policy` (a
+    scheduler/policy.TickPolicyContext) carries this tick's affinity rows
+    and per-job boosts. The JAX package passes gang_ok and group_ids to the
+    solve on its dense-snapshot path only; here they reach the solve from
+    `workers` as well.
     """
-    if dense is not None:
-        raise NotImplementedError(
-            "the incremental dense snapshot (tick_cache) is not ported yet; "
-            "it comes with the tick-cache slice"
-        )
-    if pipeline is not None:
-        raise NotImplementedError(
-            "the pipelined tick is not ported yet; it comes with the "
-            "tick-cache and pipeline slice"
-        )
     if batches is None:
         batches = create_batches(queues)
     else:
         batches = list(batches)  # sorted in place below; don't reorder caller
+    if dense is not None:
+        if not batches or not dense.worker_ids:
+            return []
+        return _run_main_solve(
+            queues, None, rq_map, resource_map, model, batches,
+            dense=dense, phases=phases, key_cache=key_cache,
+            decision=decision, pipeline=pipeline,
+            gang_ok=gang_ok, group_ids=group_ids, policy=policy,
+        )
     if not batches or not workers:
         return []
     mu_workers = [w for w in workers if w.cpu_floor > 0]
@@ -218,12 +236,14 @@ def run_tick(
         )
     return _run_main_solve(
         queues, workers, rq_map, resource_map, model, batches,
-        phases=phases, gang_ok=gang_ok, group_ids=group_ids, policy=policy,
+        phases=phases, key_cache=key_cache, decision=decision,
+        gang_ok=gang_ok, group_ids=group_ids, policy=policy,
     )
 
 
 def assemble_solve_inputs(workers, batches, rq_map, resource_map,
-                          gang_ok=None, group_ids=None, policy=None):
+                          dense=None, key_cache=None, gang_ok=None,
+                          group_ids=None, policy=None):
     """Build the dense model.solve inputs for `batches` over `workers`.
 
     Sorts `batches` IN PLACE into the production solve order (priority,
@@ -232,6 +252,20 @@ def assemble_solve_inputs(workers, batches, rq_map, resource_map,
     the policy's (B, W) `affinity` rows and, when a gang batch is present,
     `gang_nodes`, `gang_ok` and `group_onehot`. Returns the kwargs dict for
     model.solve().
+
+    Two input forms, bit-identical by contract (tick_cache.paranoid_check):
+
+    - `workers`: a list of WorkerRow — the from-scratch path, rebuilding
+      the (W, R) arrays from Python lists each call;
+    - `dense`: a tick_cache.DenseSnapshot — the incremental path; the
+      persistent cache arrays are used directly (read-only: copied only
+      when a range-compression shift must mutate them).
+
+    `key_cache` (a TickStateCache, optional) memoizes the per-request-class
+    (scarcity, objective) sort keys across ticks (they are pure in the rq
+    class and this tick's free column totals, which steady-state ticks
+    repeat) and the batch-shaped layout arrays (pure in the sorted rq-id
+    sequence).
     """
     n_r = len(resource_map)
     n_b = len(batches)
@@ -248,32 +282,41 @@ def assemble_solve_inputs(workers, batches, rq_map, resource_map,
         for entry in variant.entries
     )
 
-    n_w = len(workers)
-    free_lists = [row.free for row in workers]
-    if all(len(f) == n_r for f in free_lists):
-        # uniform rows (steady state): one C-level conversion instead of a
-        # per-worker Python fill loop
-        free = np.array(free_lists, dtype=np.int64)
+    if dense is not None:
+        n_w = len(dense.worker_ids)
+        free = dense.free
+        total = dense.total if has_all else None
+        nt_free = dense.nt_free
+        lifetime = dense.lifetime
+        cache_owns_arrays = True
     else:
-        # a worker's dense row can lag the global resource map right after
-        # a new resource name is interned
-        free = np.zeros((n_w, n_r), dtype=np.int64)
-        for i, f in enumerate(free_lists):
-            free[i, : len(f)] = f
-    total = None
-    if has_all:
-        total = np.zeros((n_w, n_r), dtype=np.int64)
-        for i, row in enumerate(workers):
-            src = row.total if row.total is not None else row.free
-            total[i, : min(len(src), n_r)] = src[:n_r]
-    nt_free = np.fromiter(
-        (row.nt_free if row.nt_free > 0 else 0 for row in workers),
-        dtype=np.int32,
-        count=n_w,
-    )
-    lifetime = np.fromiter(
-        (row.lifetime_secs for row in workers), dtype=np.int32, count=n_w
-    )
+        n_w = len(workers)
+        free_lists = [row.free for row in workers]
+        if all(len(f) == n_r for f in free_lists):
+            # uniform rows (steady state): one C-level conversion instead
+            # of a per-worker Python fill loop
+            free = np.array(free_lists, dtype=np.int64)
+        else:
+            # a worker's dense row can lag the global resource map right
+            # after a new resource name is interned
+            free = np.zeros((n_w, n_r), dtype=np.int64)
+            for i, f in enumerate(free_lists):
+                free[i, : len(f)] = f
+        total = None
+        if has_all:
+            total = np.zeros((n_w, n_r), dtype=np.int64)
+            for i, row in enumerate(workers):
+                src = row.total if row.total is not None else row.free
+                total[i, : min(len(src), n_r)] = src[:n_r]
+        nt_free = np.fromiter(
+            (row.nt_free if row.nt_free > 0 else 0 for row in workers),
+            dtype=np.int32,
+            count=n_w,
+        )
+        lifetime = np.fromiter(
+            (row.lifetime_secs for row in workers), dtype=np.int32, count=n_w
+        )
+        cache_owns_arrays = False
 
     # Most-constrained-first within a priority level: a class that can ONLY
     # run on scarce resources is placed before same-priority classes with
@@ -308,8 +351,18 @@ def assemble_solve_inputs(workers, batches, rq_map, resource_map,
     # numpy scalar indexing is ~10x a list index on this path
     totals_by_r = col_totals.tolist()
     # the (scarcity, objective) key is pure per request class + this tick's
-    # totals; distinct classes per tick << batches, so memoize per rq_id
-    key_cache: dict = {}
+    # totals; distinct classes per tick << batches, so memoize per rq_id —
+    # and ACROSS ticks through `key_cache` when the totals signature repeats
+    sig = (n_w, n_r, tuple(totals_by_r))
+    if key_cache is not None:
+        if key_cache.sort_key_sig == sig:
+            sort_keys = key_cache.sort_keys
+        else:
+            sort_keys = {}
+            key_cache.sort_key_sig = sig
+            key_cache.sort_keys = sort_keys
+    else:
+        sort_keys = {}
 
     def _objective_value(rq_id: int) -> list[tuple[float, float]]:
         """Within equal scarcity, emulate the reference LP objective
@@ -354,10 +407,10 @@ def assemble_solve_inputs(workers, batches, rq_map, resource_map,
     pol_boosts = policy is not None and bool(policy.boosts)
 
     def _sort_key(b: Batch):
-        cached = key_cache.get(b.rq_id)
+        cached = sort_keys.get(b.rq_id)
         if cached is None:
             cached = (_scarcity(b), _objective_value(b.rq_id))
-            key_cache[b.rq_id] = cached
+            sort_keys[b.rq_id] = cached
         scarcity, per_variant = cached
         # the achievable objective depends on the batch SIZE, so the best
         # variant is chosen here, per batch, from the cached class values
@@ -382,45 +435,93 @@ def assemble_solve_inputs(workers, batches, rq_map, resource_map,
 
     batches.sort(key=_sort_key, reverse=True)
 
+    # per-tick sizes always refresh; the batch-shaped LAYOUT arrays
+    # (needs/min_time/all_mask) are pure in the sorted rq-id sequence and
+    # reusable across ticks through `key_cache` — steady state repeats the
+    # sequence exactly
     sizes = np.fromiter(
         (b.size if b.size < 2**30 else 2**30 for b in batches),
         dtype=np.int32, count=n_b,
     )
-    needs = np.zeros((n_b, n_v, n_r), dtype=np.int64)
-    min_time = np.zeros((n_b, n_v), dtype=np.int32)
-    min_time[:] = int(INF_TIME)  # absent variants never eligible
-    all_mask = np.zeros((n_b, n_v, n_r), dtype=np.int32) if has_all else None
-    # dense rows per request class are immutable — cache them on the rq_map
-    # (keyed by the resource-map width, which can grow) instead of
-    # re-walking every entry of every batch each tick
-    cache_key, dense_cache = getattr(rq_map, "_dense_cache", (None, None))
-    if cache_key != n_r:
-        dense_cache = {}
-        rq_map._dense_cache = (n_r, dense_cache)
-    for bi, batch in enumerate(batches):
-        row = dense_cache.get(batch.rq_id)
-        if row is None:
-            variants = rq_map.get_variants(batch.rq_id).variants
-            k = len(variants)
-            nd = np.zeros((k, n_r), dtype=np.int64)
-            am = np.zeros((k, n_r), dtype=np.int32)
-            mt = np.empty(k, dtype=np.int32)
-            for vi, variant in enumerate(variants):
-                mt[vi] = min(int(variant.min_time_secs), int(INF_TIME))
-                for entry in variant.entries:
-                    if entry.policy is AllocationPolicy.ALL:
-                        am[vi, entry.resource_id] = 1
-                    else:
-                        nd[vi, entry.resource_id] = entry.amount
-            row = (k, nd, am if am.any() else None, mt)
-            dense_cache[batch.rq_id] = row
-        k, nd, am, mt = row
-        needs[bi, :k] = nd
-        min_time[bi, :k] = mt
-        if am is not None and all_mask is not None:
-            all_mask[bi, :k] = am
+    layout = None
+    layout_sig = None
+    if key_cache is not None:
+        layout_sig = (
+            n_b, n_v, n_r, has_all, tuple(b.rq_id for b in batches)
+        )
+        if key_cache.batch_layout_sig == layout_sig:
+            layout = key_cache.batch_layout
+    if layout is not None:
+        needs = layout["needs64"]
+        min_time = layout["min_time"]
+        all_mask = layout["all_mask"]
+        needs_cache_owned = True
+    else:
+        needs = np.zeros((n_b, n_v, n_r), dtype=np.int64)
+        min_time = np.zeros((n_b, n_v), dtype=np.int32)
+        min_time[:] = int(INF_TIME)  # absent variants never eligible
+        all_mask = (
+            np.zeros((n_b, n_v, n_r), dtype=np.int32) if has_all else None
+        )
+        # dense rows per request class are immutable — cache them on the
+        # rq_map (keyed by the resource-map width, which can grow) instead
+        # of re-walking every entry of every batch each tick
+        cache_key, dense_cache = getattr(rq_map, "_dense_cache", (None, None))
+        if cache_key != n_r:
+            dense_cache = {}
+            rq_map._dense_cache = (n_r, dense_cache)
+        for bi, batch in enumerate(batches):
+            row = dense_cache.get(batch.rq_id)
+            if row is None:
+                variants = rq_map.get_variants(batch.rq_id).variants
+                k = len(variants)
+                nd = np.zeros((k, n_r), dtype=np.int64)
+                am = np.zeros((k, n_r), dtype=np.int32)
+                mt = np.empty(k, dtype=np.int32)
+                for vi, variant in enumerate(variants):
+                    mt[vi] = min(int(variant.min_time_secs), int(INF_TIME))
+                    for entry in variant.entries:
+                        if entry.policy is AllocationPolicy.ALL:
+                            am[vi, entry.resource_id] = 1
+                        else:
+                            nd[vi, entry.resource_id] = entry.amount
+                row = (k, nd, am if am.any() else None, mt)
+                dense_cache[batch.rq_id] = row
+            k, nd, am, mt = row
+            needs[bi, :k] = nd
+            min_time[bi, :k] = mt
+            if am is not None and all_mask is not None:
+                all_mask[bi, :k] = am
+        needs_cache_owned = False
+        if key_cache is not None:
+            key_cache.batch_layout_sig = layout_sig
+            key_cache.batch_layout = {
+                "needs64": needs,
+                "min_time": min_time,
+                "all_mask": all_mask,
+                "needs32": None,
+            }
+            needs_cache_owned = True  # stored: shifts must copy-on-write
 
-    _range_compress(needs, free, total)
+    shifts = _compress_shifts(needs, free, total)
+    any_shift = any(shifts)
+    if any_shift:
+        # a shift mutates arrays in place — never the cache-owned
+        # persistent ones (the common no-shift tick copies nothing)
+        if cache_owns_arrays:
+            free = free.copy()
+            if total is not None:
+                total = total.copy()
+        if needs_cache_owned:
+            needs = needs.copy()
+    _apply_compression(shifts, needs, free, total)
+    if not any_shift and needs_cache_owned:
+        needs32 = key_cache.batch_layout["needs32"]
+        if needs32 is None:
+            needs32 = needs.astype(np.int32)
+            key_cache.batch_layout["needs32"] = needs32
+    else:
+        needs32 = needs.astype(np.int32)
     extra = {}
     if all_mask is not None and all_mask.any():
         extra = {"total": total.astype(np.int32), "all_mask": all_mask}
@@ -460,7 +561,7 @@ def assemble_solve_inputs(workers, batches, rq_map, resource_map,
         "free": free.astype(np.int32),
         "nt_free": nt_free,
         "lifetime": lifetime,
-        "needs": needs.astype(np.int32),
+        "needs": needs32,
         "sizes": sizes,
         "min_time": min_time,
         **extra,
@@ -468,15 +569,68 @@ def assemble_solve_inputs(workers, batches, rq_map, resource_map,
 
 
 def _run_main_solve(queues, workers, rq_map, resource_map, model, batches,
-                    phases=None, gang_ok=None, group_ids=None, policy=None):
+                    dense=None, phases=None, key_cache=None, decision=None,
+                    pipeline=None, gang_ok=None, group_ids=None,
+                    policy=None):
     _t0 = _time.perf_counter()
     kwargs = assemble_solve_inputs(
-        workers, batches, rq_map, resource_map, gang_ok=gang_ok,
-        group_ids=group_ids, policy=policy,
+        workers, batches, rq_map, resource_map, dense=dense,
+        key_cache=key_cache, gang_ok=gang_ok, group_ids=group_ids,
+        policy=policy,
     )
     _t1 = _time.perf_counter()
+    if pipeline is not None and hasattr(model, "solve_async"):
+        # pipelined dispatch: enqueue the solve and return WITHOUT mapping
+        # — the caller maps this solve at the top of its next tick
+        # (pipeline.take_result), after the device had the whole inter-tick
+        # window to execute. Only reachable on the dense path (run_tick),
+        # where worker_ids come from the snapshot.
+        from hyperqueue_tpu_torch.scheduler.pipeline import PendingSolve
+
+        handle = model.solve_async(**kwargs)
+        if phases is not None:
+            phases["assemble"] = (
+                phases.get("assemble", 0.0) + (_t1 - _t0) * 1e3
+            )
+            phases["solve_dispatch"] = (
+                phases.get("solve_dispatch", 0.0)
+                + (_time.perf_counter() - _t1) * 1e3
+            )
+        if decision is not None:
+            decision.setdefault("solver", {
+                "status": "pipelined",
+                "backend": getattr(model, "last_backend", None),
+                "backend_reason": getattr(model, "last_backend_reason", ""),
+                "pipelined": True,
+            })
+        pipeline.put(PendingSolve(
+            handle=handle,
+            batches=batches,
+            worker_ids=list(dense.worker_ids),
+            queues=queues,
+            backend=getattr(model, "last_backend", None),
+            backend_reason=getattr(model, "last_backend_reason", ""),
+        ))
+        return []
     counts = model.solve(**kwargs)
     _t2 = _time.perf_counter()
+    if decision is not None:
+        # the solver's verdict for this tick: a watchdog-wrapped model
+        # reports whether THIS solve ran degraded/skipped; plain models are
+        # always "ok". The objective is how many tasks the solve placed.
+        if getattr(model, "last_solve_skipped", False):
+            status = "skipped"
+        elif getattr(model, "last_solve_degraded", False):
+            status = "fallback"
+        else:
+            status = "ok"
+        decision["solver"] = {
+            "status": status,
+            "backend": getattr(model, "last_backend", None),
+            "backend_reason": getattr(model, "last_backend_reason", ""),
+            "solve_ms": round((_t2 - _t1) * 1e3, 4),
+            "objective": int(np.asarray(counts).sum()),
+        }
     if phases is not None:
         phases["assemble"] = phases.get("assemble", 0.0) + (_t1 - _t0) * 1e3
         solve_ms = (_t2 - _t1) * 1e3
@@ -493,7 +647,10 @@ def _run_main_solve(queues, workers, rq_map, resource_map, model, batches,
         phases["solve_host_prep"] = phases.get("solve_host_prep", 0.0) + max(
             solve_ms - dispatch - sync, 0.0
         )
-    worker_ids = [w.worker_id for w in workers]
+    worker_ids = (
+        dense.worker_ids if dense is not None
+        else [w.worker_id for w in workers]
+    )
     return _map_counts(queues, batches, worker_ids, counts, phases=phases)
 
 
@@ -501,17 +658,32 @@ def _map_counts(queues, batches, worker_ids, counts,
                 phases=None) -> list[Assignment]:
     """Pop the solver's counts out of the queues as Assignment tuples.
 
+    The one mapping path for the synchronous tick AND the pipelined tick
+    (scheduler/pipeline.TickPipeline.take_result): `batches`/`worker_ids`
+    are the solve-time snapshot, `queues` is live — a cell whose tasks
+    were canceled while a pipelined solve was in flight simply pops fewer
+    ids than the count, which is safe.
+
     One global nonzero over (B, V, W): row-major order preserves the
-    per-batch FIFO take semantics of a nested (batch, variant, worker) loop.
+    per-batch FIFO take semantics of a nested (batch, variant, worker)
+    loop. Every backend hands over C-contiguous int32 counts, so the
+    native nonzero (utils/native.py) applies where the library is built.
     """
     _t2 = _time.perf_counter()
     assignments: list[Assignment] = []
     try:
         counts = np.asarray(counts)
-        bs, vs, ws = np.nonzero(counts)
-        if bs.size == 0:
-            return assignments
-        vals = counts[bs, vs, ws]
+        nz = native_nonzero(counts)
+        if nz is not None:
+            flat, vals = nz
+            if flat.size == 0:
+                return assignments
+            bs, vs, ws = np.unravel_index(flat, counts.shape)
+        else:
+            bs, vs, ws = np.nonzero(counts)
+            if bs.size == 0:
+                return assignments
+            vals = counts[bs, vs, ws]
         if any(b.gang_nodes for b in batches):
             # gang cells never touch the queues (the gang task is held by
             # the caller until its assignment is applied): one

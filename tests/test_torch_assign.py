@@ -499,3 +499,130 @@ def test_wrapper_checks_dtype_and_shape():
     bad = dict(t, lifetime=t["lifetime"][:-1])
     with pytest.raises(ValueError, match="lifetime"):
         port_assign.greedy_cut_scan(*(bad[k] for k in keys))
+
+
+# -- the host solve: the numpy twin and the native scan ---------------------
+
+def _host_case(kind, seed):
+    """Padded kernel inputs of the solver tests' generators."""
+    if kind == "solver":
+        return _visit_classes(_pad(**_solver_random(seed)))
+    if kind in ("hard", "hard_all"):
+        return _visit_classes(_pad(**_hard_random(seed, kind == "hard_all")))
+    if kind == "gang":
+        kernel, gang_nodes, gang_ok, gids = _gang_random(seed)
+        return _with_gangs(_visit_classes(_pad(**kernel)), gang_nodes,
+                           gang_ok, gids)
+    kernel, affinity = _weighted_random(seed)
+    aff = _padded_affinity(affinity)
+    case = _visit_classes(_pad(**kernel), affinity=aff)
+    case["policy_mask"] = (aff > 0).astype(np.int32)
+    return case
+
+
+HOST_KINDS = ["solver", "hard", "hard_all", "gang", "mask"]
+
+
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("kind", HOST_KINDS)
+def test_numpy_twin_matches_jax_twin_and_kernel(kind, seed):
+    """The port's numpy twin against the JAX package's numpy twin and its
+    jitted kernel: counts, free and nt_free after the solve, exactly."""
+    case = _host_case(kind, seed)
+    keys = ("free", "nt_free", "lifetime", "needs", "sizes", "min_time",
+            "class_m", "order_ids")
+    opt = {k: case.get(k) for k in OPTIONAL}
+    got = port_assign.greedy_cut_scan_numpy(*(case[k] for k in keys), **opt)
+    want = jax_assign.greedy_cut_scan_numpy(*(case[k] for k in keys), **opt)
+    jx = _JAX_SCAN(*(case[k] for k in keys), **opt)
+    for name, g, w, j in zip(("counts", "free", "nt_free"), got, want, jx):
+        assert g.dtype == w.dtype, name
+        np.testing.assert_array_equal(g, w, err_msg=f"{name}: vs jax twin")
+        np.testing.assert_array_equal(g, np.asarray(j),
+                                      err_msg=f"{name}: vs jax kernel")
+
+
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("kind", ["solver", "hard", "hard_all"])
+def test_native_scan_matches_jax_native_and_kernel(kind, seed):
+    """The port's native host scan (no gang rows, no mask: the model keeps
+    those on the numpy twin) against the JAX package's native scan and
+    its kernel. Where the library cannot be built, it answers None."""
+    from hyperqueue_tpu.utils import native as jax_native
+    from hyperqueue_tpu_torch.utils import native as port_native
+
+    case = _host_case(kind, seed)
+    keys = ("free", "nt_free", "lifetime", "needs", "sizes", "min_time",
+            "class_m", "order_ids")
+    opt = {k: case.get(k) for k in ("total", "all_mask")}
+    got = port_native.native_cut_scan(*(case[k] for k in keys), **opt)
+    if port_native.load_native() is None:
+        assert got is None
+        return
+    assert got.dtype == np.int32 and got.flags.c_contiguous
+    jx = np.asarray(_JAX_SCAN(*(case[k] for k in keys), **opt)[0])
+    np.testing.assert_array_equal(got, jx)
+    want = jax_native.native_cut_scan(*(case[k] for k in keys), **opt)
+    if want is not None:
+        np.testing.assert_array_equal(got, want)
+    # the mapping's nonzero pass
+    flat, vals = port_native.native_nonzero(got)
+    bs, vs, ws = np.nonzero(got)
+    np.testing.assert_array_equal(
+        flat, np.ravel_multi_index((bs, vs, ws), got.shape))
+    np.testing.assert_array_equal(vals, got[bs, vs, ws])
+
+
+def test_native_scan_refuses_all_mask_without_total():
+    from hyperqueue_tpu_torch.utils import native as port_native
+
+    case = _host_case("hard_all", 1)
+    if port_native.load_native() is None:
+        return
+    keys = ("free", "nt_free", "lifetime", "needs", "sizes", "min_time",
+            "class_m", "order_ids")
+    with pytest.raises(ValueError, match="total"):
+        port_native.native_cut_scan(*(case[k] for k in keys),
+                                    all_mask=case["all_mask"])
+
+
+# -- the sync probe (K5) -----------------------------------------------------
+
+# the JAX package's probe program (models/greedy.py, `_probe`)
+_JAX_PROBE = jax.jit(lambda v: (v * 2).sum())
+
+
+@pytest.mark.parametrize("n, kind", [(256, "arange"), (256, "random"),
+                                     (1000, "random"), (1, "random"),
+                                     (0, "random")])
+def test_sync_probe_plain_version_matches_jax_probe(n, kind):
+    """K5's plain version against the JAX probe program, on the probe's own
+    input and on seeded int32 that overflow the sum (both wrap modulo
+    2^32)."""
+    from hyperqueue_tpu_torch.ops import probe
+
+    if kind == "arange":
+        v = np.arange(n, dtype=np.int32)
+    else:
+        v = np.random.default_rng(n).integers(
+            -2**31, 2**31, size=n, dtype=np.int64).astype(np.int32)
+    got = probe.sync_probe(torch.from_numpy(v))
+    assert got.dtype == torch.int32 and got.dim() == 0
+    assert int(got) == int(np.asarray(_JAX_PROBE(v)))
+    exact = 2 * int(v.astype(np.int64).sum())
+    assert int(got) == (exact + 2**31) % 2**32 - 2**31
+    if kind == "arange":
+        assert int(got) == probe._PROBE_SUM
+
+
+def test_sync_probe_checks_its_input():
+    from hyperqueue_tpu_torch.ops import probe
+
+    with pytest.raises(TypeError, match="int32"):
+        probe.sync_probe(torch.arange(8, dtype=torch.int64))
+    with pytest.raises(ValueError, match="1-D"):
+        probe.sync_probe(torch.zeros((2, 4), dtype=torch.int32))
+    with pytest.raises(ValueError, match="contiguous"):
+        probe.sync_probe(torch.arange(16, dtype=torch.int32)[::2])
+    with pytest.raises(ValueError, match="CUDA"):
+        probe.sync_round_trip_ms("cpu")

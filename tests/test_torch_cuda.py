@@ -160,8 +160,8 @@ def test_kernel_rejects_too_many_workers(cuda):
 @pytest.mark.cuda
 def test_model_on_card_matches_model_on_cpu(cuda):
     rng = np.random.default_rng(9)
-    gpu = GreedyCutScanModel(device="cuda")
-    cpu = GreedyCutScanModel(device="cpu")
+    gpu = GreedyCutScanModel(device="cuda", backend="device")
+    cpu = GreedyCutScanModel(device="cpu", backend="device")
     for n_w, n_b, n_r, n_v in [(100, 9, 3, 2), (60, 4, 2, 1), (100, 9, 3, 2)]:
         case = random_case(int(rng.integers(1 << 30)), n_w, n_r, n_b, n_v,
                            False)
@@ -169,6 +169,26 @@ def test_model_on_card_matches_model_on_cpu(cuda):
         got = gpu.solve(**kw)
         np.testing.assert_array_equal(got, cpu.solve(**kw))
     assert gpu.last_backend == "device-cuda"
+
+
+@pytest.mark.cuda
+def test_device_solves_reuse_pinned_sets(cuda):
+    """A solve read before the next one is dispatched hands its pinned set
+    on; a solve still unread keeps it, and the next solve gets a set of its
+    own. The same sequence on the CPU gives the same counts."""
+    case = random_case(12, 100, 3, 9, 2, False)
+    kw = {k: case[k] for k in KEYS[:6]}
+    gpu = GreedyCutScanModel(device="cuda")
+    cpu = GreedyCutScanModel(device="cpu")
+    for _ in range(3):
+        np.testing.assert_array_equal(gpu.solve(**kw), cpu.solve(**kw))
+    assert gpu.pinned_sets == 1
+    handles = [(m.solve_async(**kw), m.solve_async(**kw)) for m in (gpu, cpu)]
+    assert gpu.pinned_sets == 2
+    for (g, c) in zip(*handles):
+        np.testing.assert_array_equal(g.result(), c.result())
+    np.testing.assert_array_equal(gpu.solve(**kw), cpu.solve(**kw))
+    assert gpu.pinned_sets == 2
 
 
 def _fused_state(seed):
@@ -202,7 +222,7 @@ def test_fused_run_tick_on_card_matches_cpu(cuda):
     out = []
     for device in ("cuda", "cpu"):
         resource_map, rq_map, queues, rows = _fused_state(5)
-        model = GreedyCutScanModel(device=device)
+        model = GreedyCutScanModel(device=device, backend="device")
         launches = assign.greedy_cut_scan.gang_launches
         out.append(run_tick(
             queues, rows, rq_map, resource_map, model,
@@ -214,3 +234,127 @@ def test_fused_run_tick_on_card_matches_cpu(cuda):
             assert assign.greedy_cut_scan.gang_launches == launches + 1
     assert out[0] == out[1]
     assert any(v < 0 for *_x, v in out[0])
+
+
+# -- the sync probe (K5) and the server's solve seam on the card -------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, kind", [(256, "arange"), (256, "random"),
+                                     (1000, "random"), (1, "random"),
+                                     (0, "random")])
+def test_sync_probe_kernel_matches_reference(cuda, n, kind):
+    from hyperqueue_tpu_torch.ops import probe
+
+    if kind == "arange":
+        v = np.arange(n, dtype=np.int32)
+    else:
+        v = np.random.default_rng(n).integers(
+            -2**31, 2**31, size=n, dtype=np.int64).astype(np.int32)
+    t = torch.from_numpy(v).to(cuda)
+    launches = probe.sync_probe.launches
+    got = probe.sync_probe(t)
+    torch.cuda.synchronize()
+    assert probe.sync_probe.launches == launches + 1
+    assert got.device.type == "cuda" and got.dtype == torch.int32
+    assert int(got) == int(probe.sync_probe_reference(t))
+    exact = 2 * int(v.astype(np.int64).sum())
+    assert int(got) == (exact + 2**31) % 2**32 - 2**31
+
+
+@pytest.mark.cuda
+def test_sync_round_trip_and_device_sync_ms(cuda):
+    from hyperqueue_tpu_torch.models import greedy
+    from hyperqueue_tpu_torch.ops import probe
+
+    launches = probe.sync_probe.launches
+    ms = probe.sync_round_trip_ms(cuda, reps=3)
+    assert 0 < ms < 1000
+    assert probe.sync_probe.launches == launches + 4  # warm-up + 3
+    greedy._reset_probe_for_tests()
+    try:
+        resolved = greedy.device_sync_ms(wait_s=30)
+        assert resolved is not None and 0 < resolved < float("inf")
+        assert greedy.probe_error() is None
+    finally:
+        greedy._reset_probe_for_tests()
+
+
+def _server_state(seed):
+    rng = np.random.default_rng(seed)
+    classes = [[{"entries": [("cpus", U, "compact")]}],
+               [{"entries": [("cpus", 2 * U, "compact"),
+                             ("gpus", U, "compact")]},
+                {"entries": [("cpus", 4 * U, "compact")]}]]
+    tasks = [(t, int(rng.integers(0, 2)), (int(rng.integers(0, 3)), 0))
+             for t in range(1, 3000)]
+    workers = [(w, [int(rng.choice([4, 8, 16])) * U,
+                    int(rng.choice([0, 0, 2])) * U], 16, INF, None)
+               for w in range(1, 129)]
+    return ["cpus", "gpus"], classes, tasks, workers
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pipelined", [False, True], ids=["sync", "pipe"])
+def test_server_ticks_on_card_match_cpu(cuda, pipelined):
+    """The server's seam on the card: a watchdog around an auto model,
+    paranoid resident checks every second solve, ticks over the core's
+    dense snapshot (pipelined in the server's order), against the same
+    ticks through the plain version on the CPU."""
+    from hyperqueue_tpu_torch.convert import core_from_plain
+    from hyperqueue_tpu_torch.models import greedy
+    from hyperqueue_tpu_torch.scheduler.pipeline import TickPipeline
+    from hyperqueue_tpu_torch.scheduler.watchdog import SolverWatchdog
+
+    greedy._reset_probe_for_tests()
+    assert 0 < greedy.device_sync_ms(wait_s=30) < float("inf")
+    results = []
+    for device in ("cuda", "cpu"):
+        core = core_from_plain(*_server_state(3))
+        model = GreedyCutScanModel(device=device,
+                                   backend="auto" if device == "cuda"
+                                   else "device")
+        model.paranoid_resident = 2
+        watchdog = SolverWatchdog(model)
+        pipeline = TickPipeline() if pipelined else None
+        rng = np.random.default_rng(4)
+        ticks, backends, running = [], [], []
+
+        def start(assignments):
+            for task, wid, rq_id, variant in assignments:
+                w = core.workers[wid]
+                w.assign(task, core.variant_amounts(rq_id, variant, w))
+                running.append((task, wid, rq_id, variant))
+
+        for _tick in range(6):
+            mapped = []
+            if pipeline is not None:
+                mapped = pipeline.take_result(model=watchdog)
+                start(mapped)
+            snap = core.tick_cache.sync(core)
+            out = run_tick(core.queues, None, core.rq_map, core.resource_map,
+                           watchdog, dense=snap, key_cache=core.tick_cache,
+                           pipeline=pipeline)
+            start(out)
+            backends.append((model.last_backend, model.last_backend_reason))
+            ticks.append(out if pipeline is None else mapped)
+            # a quarter of the running tasks finish before the next tick
+            for i in sorted(rng.choice(len(running), len(running) // 4,
+                                       replace=False), reverse=True):
+                task, wid, rq_id, variant = running.pop(i)
+                w = core.workers[wid]
+                w.unassign(task, core.variant_amounts(rq_id, variant, w))
+        results.append((ticks, len(running)))
+        stats = watchdog.stats()
+        assert (stats["failures"], stats["timeouts"],
+                stats["degraded_ticks"]) == (0, 0, 0)
+        assert model.paranoid_checks >= 2
+        assert model.resident_stats()["invalidations"] == 0
+        if device == "cuda":
+            assert all(b == "device-cuda" for b, _r in backends), backends
+            assert backends[0][1] == "sync-within-budget"
+            assert watchdog.fallback is None
+            # each solve is read before the next is dispatched: one pinned
+            # set per padded shape
+            assert model.pinned_sets == len(model._pinned)
+    assert results[0] == results[1]
+    greedy._reset_probe_for_tests()

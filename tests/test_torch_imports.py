@@ -34,9 +34,16 @@ def _imported_modules(path: Path) -> list[str]:
 
 def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
-    assert "hyperqueue_tpu_torch/ops/assign.py" in names
-    assert "hyperqueue_tpu_torch/scheduler/tick.py" in names
-    assert (ROOT / "hyperqueue_tpu_torch/csrc/cut_scan.cu").exists()
+    for module in ("ops/assign.py", "ops/probe.py", "scheduler/tick.py",
+                   "scheduler/tick_cache.py", "scheduler/pipeline.py",
+                   "scheduler/watchdog.py", "server/core.py",
+                   "server/worker.py", "resources/descriptor.py",
+                   "resources/worker_resources.py", "utils/clock.py",
+                   "utils/native.py", "models/greedy.py", "convert.py"):
+        assert f"hyperqueue_tpu_torch/{module}" in names, module
+    for source in ("csrc/cut_scan.cu", "csrc/sync_probe.cu",
+                   "native/hqcore.cpp"):
+        assert (ROOT / "hyperqueue_tpu_torch" / source).exists(), source
 
 
 @pytest.mark.parametrize(
@@ -60,3 +67,27 @@ def test_default_model_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         GreedyCutScanModel(device="cuda:0")
     assert GreedyCutScanModel(device="cpu").device.type == "cpu"
+
+
+def test_card_entry_points_default_to_the_card(monkeypatch):
+    """The probe and the model ask for the card unless told otherwise, and
+    the model solves there on every solve unless asked for "auto" or
+    "numpy". The watchdog's host fallback stands in only for a primary off
+    the card, or where the caller passes one."""
+    import inspect
+
+    from hyperqueue_tpu_torch.models.greedy import GreedyCutScanModel
+    from hyperqueue_tpu_torch.ops.probe import sync_round_trip_ms
+    from hyperqueue_tpu_torch.scheduler.watchdog import SolverWatchdog
+
+    for fn in (GreedyCutScanModel.__init__, sync_round_trip_ms):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert inspect.signature(GreedyCutScanModel.__init__) \
+        .parameters["backend"].default == "device"
+    card_primary = type("CardPrimary", (), {"device": torch.device("cuda")})
+    assert SolverWatchdog(card_primary()).fallback is None
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SolverWatchdog(GreedyCutScanModel())
+    fallback = SolverWatchdog(object()).fallback
+    assert (fallback.device.type, fallback.backend) == ("cpu", "numpy")

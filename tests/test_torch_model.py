@@ -53,7 +53,7 @@ SHAPES = [
 
 def test_model_matches_jax_and_numpy_across_bucket_changes():
     rng = np.random.default_rng(11)
-    port = GreedyCutScanModel(device="cpu")
+    port = GreedyCutScanModel(device="cpu", backend="device")
     jax_model = JaxModel(backend="jax")
     np_model = JaxModel(backend="numpy")
     for n_w, n_b, n_r, n_v, with_all in SHAPES:
@@ -77,7 +77,7 @@ def test_residency_soak_uploads_dirty_rows_only(seed):
     the rows that changed and stay bitwise equal to a fresh solve."""
     rng = np.random.default_rng(300 + seed)
     n_w, n_b, n_r, n_v = 24, 6, 3, 2
-    model = GreedyCutScanModel(device="cpu")
+    model = GreedyCutScanModel(device="cpu", backend="device")
     np_model = JaxModel(backend="numpy")
     base = _tick(rng, n_w, n_b, n_r, n_v)
     free = base["free"].astype(np.int64)
@@ -94,7 +94,7 @@ def test_residency_soak_uploads_dirty_rows_only(seed):
         elif expected_dirty <= 32 // 2:
             assert stats["dirty_rows_last"] == expected_dirty
             assert stats["full_uploads"] == 1
-        fresh = GreedyCutScanModel(device="cpu").solve(**kw)
+        fresh = GreedyCutScanModel(device="cpu", backend="device").solve(**kw)
         np.testing.assert_array_equal(counts, fresh)
         np.testing.assert_array_equal(counts, np_model.solve(**kw))
         # the host applies the assignments exactly as the kernel did
@@ -114,20 +114,20 @@ def test_residency_soak_uploads_dirty_rows_only(seed):
 
 def test_residency_full_upload_when_most_rows_change():
     rng = np.random.default_rng(5)
-    model = GreedyCutScanModel(device="cpu")
+    model = GreedyCutScanModel(device="cpu", backend="device")
     kw = _tick(rng, 16, 4, 3, 1)
     model.solve(**kw)
     kw2 = dict(kw, free=(kw["free"] + U).astype(np.int32))
     got = model.solve(**kw2)
     assert model.resident_stats()["full_uploads"] == 2
     np.testing.assert_array_equal(
-        got, GreedyCutScanModel(device="cpu").solve(**kw2)
+        got, GreedyCutScanModel(device="cpu", backend="device").solve(**kw2)
     )
 
 
 def test_place_cached_reuses_unchanged_inputs():
     rng = np.random.default_rng(6)
-    model = GreedyCutScanModel(device="cpu")
+    model = GreedyCutScanModel(device="cpu", backend="device")
     kw = _tick(rng, 16, 4, 3, 1)
     model.solve(**kw)
     hits = model.resident_stats()["rep_cache_hits"]
@@ -158,7 +158,7 @@ def test_fused_inputs_match_jax_and_numpy(seed):
     weights) through the port's model and the JAX package's, over ticks
     that change buckets."""
     rng = np.random.default_rng(700 + seed)
-    port = GreedyCutScanModel(device="cpu")
+    port = GreedyCutScanModel(device="cpu", backend="device")
     jax_model = JaxModel(backend="jax")
     np_model = JaxModel(backend="numpy")
     for n_w, n_b, n_g, with_zeros in [(12, 5, 2, True), (7, 3, 1, False),
@@ -178,7 +178,7 @@ def test_fused_inputs_match_jax_and_numpy(seed):
 
 def test_uniform_affinity_and_zero_gang_column_are_ordinary_solves():
     rng = np.random.default_rng(7)
-    model = GreedyCutScanModel(device="cpu")
+    model = GreedyCutScanModel(device="cpu", backend="device")
     kw = _tick(rng, 8, 3, 2, 1)
     plain = JaxModel(backend="numpy").solve(**kw)
     np.testing.assert_array_equal(

@@ -30,6 +30,7 @@ from hyperqueue_tpu.scheduler.predict import (
 from hyperqueue_tpu.scheduler.queues import TaskQueues, encode_sched_priority
 from hyperqueue_tpu.scheduler.tick_cache import DenseSnapshot
 from hyperqueue_tpu_torch.convert import (
+    core_from_plain,
     group_ids,
     policy_table_from_plain,
     tick_state_from_plain,
@@ -37,6 +38,7 @@ from hyperqueue_tpu_torch.convert import (
 from hyperqueue_tpu_torch.models.greedy import GreedyCutScanModel
 from hyperqueue_tpu_torch.scheduler import policy as port_policy
 from hyperqueue_tpu_torch.scheduler import tick as port_tick
+from hyperqueue_tpu_torch.scheduler.pipeline import TickPipeline
 from hyperqueue_tpu_torch.scheduler.predict import RuntimePredictor
 
 U = 10_000
@@ -110,7 +112,7 @@ def _run_both(jax_state, n_ticks, release=True):
     totals = [list(row.total or row.free) for row in rows]
     nt0 = [row.nt_free for row in rows]
     jax_model = JaxModel(backend="numpy")
-    port_model = GreedyCutScanModel(device="cpu")
+    port_model = GreedyCutScanModel(device="cpu", backend="device")
     out = []
     for t in range(n_ticks):
         phases = {}
@@ -263,22 +265,64 @@ def test_golden_cases_match(name):
         assert per_class == pinned
 
 
+SMALL_PLAIN = (
+    ["cpus"],
+    [[{"entries": [("cpus", U, "compact")]}]],
+    [(i, 0, (0, 0)) for i in range(4)],
+    [(1, [4 * U], 4, INF, None)],
+)
+
+
 def _small_state():
-    return tick_state_from_plain(
-        ["cpus"],
-        [[{"entries": [("cpus", U, "compact")]}]],
-        [(i, 0, (0, 0)) for i in range(4)],
-        [(1, [4 * U], 4, INF, None)],
-    )
+    return tick_state_from_plain(*SMALL_PLAIN)
 
 
 @pytest.mark.parametrize("option", ["dense", "pipeline"])
 def test_unported_tick_options_raise(option):
+    """Both options serve every tick but the one the port still refuses: a
+    core with a min-utilization worker. Its tick cache declines the
+    snapshot, as the server's does, and the worker-rows tick it falls back
+    to raises for the unported carve-out, with the pipeline too, before
+    anything is dispatched."""
+    core = core_from_plain(*SMALL_PLAIN)
+    for worker in core.workers.values():
+        worker.configuration.min_utilization = 0.5
+    core.bump_membership()
+    snap = core.tick_cache.sync(core)
+    assert snap is None
+    pipeline = TickPipeline()
+    kwargs = {"dense": snap} if option == "dense" else {"pipeline": pipeline}
+    with pytest.raises(NotImplementedError, match="min-utilization"):
+        port_tick.run_tick(core.queues, core.worker_rows(), core.rq_map,
+                           core.resource_map,
+                           GreedyCutScanModel(device="cpu"), **kwargs)
+    assert pipeline.depth == 0
+    assert core.queues.total_ready() == 4
+
+
+@pytest.mark.parametrize("option", ["dense", "pipeline"])
+def test_dense_and_pipeline_options_match_worker_rows(option):
+    """The tick over the core's dense snapshot (pipelined: dispatched, then
+    mapped by take_result) gives the worker-rows tick's assignments."""
     resource_map, rq_map, queues, rows = _small_state()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port_tick.run_tick(queues, rows, rq_map, resource_map,
-                           GreedyCutScanModel(device="cpu"),
-                           **{option: object()})
+    want = port_tick.run_tick(queues, rows, rq_map, resource_map,
+                              GreedyCutScanModel(device="cpu",
+                                                 backend="device"))
+    assert len(want) == 4
+    core = core_from_plain(*SMALL_PLAIN)
+    snap = core.tick_cache.sync(core)
+    model = GreedyCutScanModel(device="cpu", backend="device")
+    args = (core.queues, None, core.rq_map, core.resource_map, model)
+    if option == "dense":
+        got = port_tick.run_tick(*args, dense=snap,
+                                 key_cache=core.tick_cache)
+    else:
+        pipeline = TickPipeline()
+        assert port_tick.run_tick(*args, dense=snap,
+                                  pipeline=pipeline) == []
+        assert pipeline.depth == 1
+        got = pipeline.take_result(model=model)
+    assert got == want
 
 
 def test_min_utilization_workers_raise():
@@ -289,7 +333,7 @@ def test_min_utilization_workers_raise():
     for kwargs in ({}, {"policy": policy}):
         with pytest.raises(NotImplementedError, match="min-utilization"):
             port_tick.run_tick(queues, rows, rq_map, resource_map,
-                               GreedyCutScanModel(device="cpu"), **kwargs)
+                               GreedyCutScanModel(device="cpu", backend="device"), **kwargs)
     assert queues.total_ready() == 4
 
 
@@ -343,7 +387,7 @@ def _run_fused(jax_state, groups, n_ticks, gangs=(), table=None,
     nt0 = [row.nt_free for row in rows]
     gids = group_ids(p_rows)
     jax_model = JaxModel(backend="numpy")
-    port_model = GreedyCutScanModel(device="cpu")
+    port_model = GreedyCutScanModel(device="cpu", backend="device")
     states = None
     if table is not None:
         states = []
