@@ -3,13 +3,14 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels (the cut-scan and the sync probe) and its
-native host scan from the sources in this checkout, holds each kernel
-bit-exact against its plain PyTorch version, drives consecutive north-star
-scheduling ticks (1,024 workers, 1M ready tasks, 128 sampled request
-classes, 4 priority levels) through the port's run_tick, then the same
-north star in fused mode (gang rows, worker groups and a policy), then the
-server's own solve seam, and prints timings.
+Builds the port's CUDA kernels (the cut-scan, the sync probe and the
+sharded cut-scan) and its native host scan from the sources in this
+checkout, holds each kernel bit-exact against its plain PyTorch version,
+drives consecutive north-star scheduling ticks (1,024 workers, 1M ready
+tasks, 128 sampled request classes, 4 priority levels) through the port's
+run_tick, then the same north star in fused mode (gang rows, worker groups
+and a policy), then the server's own solve seam, single-block and sharded
+(`--scheduler multichip`), and prints timings.
 
 Phases:
   1. the card (nvidia-smi name and power limit) and the builds, all started
@@ -21,6 +22,12 @@ Phases:
      on the solver tests' gang and weighted generators at bench width, odd
      and wide worker counts, 1, 8 and W worker groups, infeasible gangs and
      gangs behind rows that touched every idle worker;
+  2b. the sharded kernel (K2) against its plain version and against K1 on
+     the same inputs, exact on counts, free and nt_free: the K1 cases over
+     2, 4 and 8 shards of the card, the K1g cases over 4, gang rows whose
+     chosen group straddles a shard boundary over 2, 4 and 8, and 32,768
+     workers (ALL-policy; gang rows and a mask) over 4, twice K1's width,
+     against the plain version only;
   3. the main path: ticks through run_tick with GreedyCutScanModel on the
      card; each tick's counts are checked against the plain version on the
      same padded inputs and its assignments against the workers' capacity,
@@ -64,7 +71,19 @@ Phases:
      the device's idle share over 3 profiled ticks, the cost model's
      EWMAs, and the host solves the cost model weighs against the kernel
      (the numpy twin and the native scan, timed at the same north-star
-     inputs and held equal to the kernel's counts).
+     inputs and held equal to the kernel's counts);
+  9. the multichip path: phase 8's seam around
+     SolverWatchdog(MultichipModel(devices=[cuda] * 4)), the north star in
+     4 shards of 256 workers, as `hq server start --scheduler multichip`
+     builds it: 8 synchronous and 8 pipelined ticks, every solve's counts
+     held against K2's plain version; it fails on a solve whose
+     backend_reason is not "multichip-mesh", a K1 launch, any watchdog
+     failure, timeout or degraded tick, or a residency invalidation; then
+     its medians and the device's idle share over 3 profiled ticks;
+ 10. K2's device time at the multichip path's last synchronous tick, K1's
+     at the same inputs, its plain version's, one block scan plus one grid
+     barrier over 4 blocks (grid_step_latency_ms) and the latency bound
+     (executed steps times that).
 
 Each server tick prints its backend and backend_reason: "device-cuda" with
 "sync-within-budget" (first solve: no measurement yet, the probe's round
@@ -72,7 +91,8 @@ trip fits DISPATCH_LATENCY_BUDGET_MS) or "cost-model" (the measured device
 time per shape beats the host's, or the host was never measured); a
 "host-*" backend fails the run.
 
-The third-to-last line is the kernels JSON, the second-to-last the card;
+The third-to-last line is the kernels JSON (K1, K1g, K5, K2), the
+second-to-last the card;
 the last line is {"ok": true, "device": {...}}. Exits non-zero, printing no
 result line, when there is no CUDA device or any phase fails.
 """
@@ -101,6 +121,10 @@ INF = 2**31 - 1
 # the server path: synchronous ticks, then pipelined ones
 N_SERVER_TICKS = 8
 N_SERVER_PIPELINED_TICKS = 16
+# the multichip path: the north star over shards of one card (256 workers
+# each), 8 synchronous ticks, then pipelined ones
+N_SHARDS = 4
+N_MULTICHIP_PIPELINED_TICKS = 8
 
 # the fused path: the JAX server's MAX_FUSED_GANG_ROWS gang rows per tick
 N_FUSED_TICKS = 8
@@ -437,6 +461,80 @@ def k1g_cases():
     return cases
 
 
+# -- the sharded solve's cases (K2) -------------------------------------------
+
+def pad_workers(case, n_shards):
+    """The case with inert workers appended up to a multiple of n_shards
+    (no free resources, no task slot, no lifetime, class 0, not idle, in no
+    group, masked), as the model pads W."""
+    extra = -case["free"].shape[0] % n_shards
+    if not extra:
+        return case
+    out = dict(case)
+    for key in ("free", "nt_free", "lifetime", "total", "gang_ok",
+                "group_onehot"):
+        if key in case:
+            out[key] = np.concatenate(
+                [case[key], np.zeros((extra,) + case[key].shape[1:],
+                                     np.int32)])
+    for key in ("class_m", "policy_mask"):
+        if key in case:
+            out[key] = np.concatenate(
+                [case[key], np.zeros((case[key].shape[0], extra), np.int32)],
+                axis=1)
+    return out
+
+
+def straddle_case(n_w=1024, n_shards=4):
+    """Gang rows whose chosen group crosses shard boundaries: group 0 holds
+    the workers around the first boundary, group 1 the middle half (less
+    group 0), group 2 the rest; all idle, with ordinary rows between the
+    gang rows (gangs of 50, 20, 300, 2,000 and 7 nodes)."""
+    from hyperqueue_tpu_torch.ops.assign import (
+        host_visit_classes,
+        scarcity_weights,
+    )
+
+    rng = np.random.default_rng(31)
+    size = n_w // n_shards
+    gids = np.full(n_w, 2)
+    gids[n_w // 4 + 24:3 * n_w // 4] = 1
+    gids[size - 40:size + 24] = 0
+    n_b = 12
+    free = rng.integers(1, 8, size=(n_w, 2)) * U
+    needs = rng.integers(0, 3, size=(n_b, 1, 2)) * (U // 2)
+    needs[:, 0, 0] = np.maximum(needs[:, 0, 0], U)
+    gang_nodes = np.zeros(n_b, np.int64)
+    gang_nodes[[0, 3, 5, 8, 11]] = [50, 20, 300, 2000, 7]
+    sizes = np.where(gang_nodes > 0, 1, rng.integers(0, 200, size=n_b))
+    case = {"free": free, "nt_free": rng.integers(1, 6, size=n_w),
+            "lifetime": np.full(n_w, INF), "needs": needs, "sizes": sizes,
+            "min_time": np.zeros((n_b, 1)), "gang_nodes": gang_nodes,
+            "gang_ok": np.ones(n_w), "group_onehot": _onehot(gids, 3)}
+    case["class_m"], case["order_ids"] = host_visit_classes(
+        free, needs, scarcity_weights(free.sum(axis=0)))
+    return {k: np.ascontiguousarray(v, dtype=np.int32)
+            for k, v in case.items()}
+
+
+def k2_cases(k1_cases, k1g):
+    """name -> (kernel inputs, shards) of every K2 case: the K1 cases over
+    2, 4 and 8 shards, the K1g cases over 4, the straddling gangs over 2, 4
+    and 8, and 32,768 workers (ALL-policy; gang rows and a mask) over 4."""
+    cases = {}
+    for name, case in k1_cases.items():
+        for n in (2, 4, 8):
+            cases[f"{name}_D{n}"] = (pad_workers(case, n), n)
+    for name, case in k1g.items():
+        cases[f"{name}_D4"] = (pad_workers(case, 4), 4)
+    for n in (2, 4, 8):
+        cases[f"gang_straddle_1024_D{n}"] = (straddle_case(n_shards=n), n)
+    cases["all_32768x3x8x2_D4"] = (random_case(76, 32768, 3, 8, 2, True), 4)
+    cases["gang_mask_32768x3x8x2_G8_D4"] = (
+        fused_random_case(77, 32768, 3, 8, 2, 8), 4)
+    return cases
+
+
 # -- checks ------------------------------------------------------------------
 
 KEYS = ("free", "nt_free", "lifetime", "needs", "sizes", "min_time",
@@ -484,6 +582,38 @@ def kernel_vs_plain(case, device) -> int:
     return err
 
 
+def sharded_vs_plain(case, device, n_shards) -> int:
+    """Run K2 over n_shards shards of the card, its plain version and, where
+    K1 takes the width, K1, on the same inputs; raises unless counts, free
+    and nt_free agree exactly. Returns the largest absolute difference
+    (0)."""
+    import torch
+
+    from hyperqueue_tpu_torch.ops.assign import (
+        MAX_KERNEL_WORKERS,
+        greedy_cut_scan,
+    )
+    from hyperqueue_tpu_torch.parallel import solve
+
+    mesh = solve.make_worker_mesh([device] * n_shards)
+    t = to_device(case, device)
+    args, opt = _args(t)
+    want = {"plain": solve.sharded_cut_scan_reference(mesh, *args, **opt)}
+    if case["free"].shape[0] <= MAX_KERNEL_WORKERS:
+        state = (t["free"].clone(), t["nt_free"].clone())
+        want["K1"] = (greedy_cut_scan(*state, *args[2:], **opt), *state)
+    counts = solve.sharded_cut_scan(mesh, *args, **opt)
+    torch.cuda.synchronize()
+    for other, ref in want.items():
+        for name, got, w in zip(("counts", "free", "nt_free"),
+                                (counts, t["free"], t["nt_free"]), ref):
+            diff = int((got.to(torch.int64) - w.to(torch.int64)).abs().max())
+            if diff != 0:
+                raise AssertionError(f"K2 and {other} differ on {name} "
+                                     f"(max abs diff {diff})")
+    return 0
+
+
 class RecordingModel:
     """Passes every solve to the model and keeps its inputs and counts, so
     each tick can be checked after it ran."""
@@ -519,15 +649,17 @@ def padded_inputs(model, kwargs):
             if v is not None}, prep["extents"]
 
 
-def check_tick_against_plain(model, kwargs, counts, device, tick):
-    """The same padded inputs through the plain version on the card; raises
-    unless the counts agree. Returns the padded case with the plain
-    counts under "_counts"."""
+def check_tick_against_plain(model, kwargs, counts, device, tick,
+                             plain=None):
+    """The same padded inputs through the plain version on the card (K1's
+    unless `plain` is given); raises unless the counts agree. Returns the
+    padded case with the plain counts under "_counts"."""
     from hyperqueue_tpu_torch.ops.assign import greedy_cut_scan_reference
 
     case, (n_b, n_v, n_w) = padded_inputs(model, kwargs)
     args, opt = _args(to_device(case, device))
-    ref = greedy_cut_scan_reference(*args, **opt)[0].cpu().numpy()
+    plain = plain or greedy_cut_scan_reference
+    ref = plain(*args, **opt)[0].cpu().numpy()
     if not np.array_equal(ref[:n_b, :n_v, :n_w], counts):
         raise AssertionError(f"tick {tick}: counts differ from the plain "
                              "version")
@@ -584,73 +716,79 @@ def bounds(case, steps, step_latency_ms):
     }
 
 
-def time_kernel(case, device, reps=50) -> float:
-    """Mean ms of one call of the kernel's wrapper at these inputs, by CUDA
-    events over `reps` back-to-back calls (each on its own copy of the
-    state it updates in place). With gang rows this includes the wrapper's
-    group one-hot check, which reads a flag back."""
+def time_kernel(case, device, reps=50, solve=None) -> float:
+    """Mean ms of one call of the kernel's wrapper (K1's unless `solve` is
+    given) at these inputs, by CUDA events over `reps` back-to-back calls
+    (each on its own copy of the state it updates in place). With gang rows
+    this includes the wrapper's group one-hot check, which reads a flag
+    back."""
     import torch
 
     from hyperqueue_tpu_torch.ops.assign import greedy_cut_scan
 
+    solve = solve or greedy_cut_scan
     t = to_device(case, device)
     states = [(t["free"].clone(), t["nt_free"].clone())
               for _ in range(reps + 5)]
     args, opt = _args(t)
     rest = args[2:]
     for f, n in states[:5]:
-        greedy_cut_scan(f, n, *rest, **opt)
+        solve(f, n, *rest, **opt)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for f, n in states[5:]:
-        greedy_cut_scan(f, n, *rest, **opt)
+        solve(f, n, *rest, **opt)
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
 
 
-def kernel_device_ms(case, device, reps=20) -> float:
-    """Mean device ms of cut_scan_kernel alone at these inputs: the
-    profiler's (CUPTI) kernel time over `reps` launches."""
+def kernel_device_ms(case, device, reps=20, solve=None,
+                     kernel="cut_scan_kernel") -> float:
+    """Mean device ms of the kernel `kernel` alone at these inputs, launched
+    by `solve` (K1's wrapper by default): the profiler's (CUPTI) kernel time
+    over `reps` launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from hyperqueue_tpu_torch.ops.assign import greedy_cut_scan
 
+    solve = solve or greedy_cut_scan
     t = to_device(case, device)
     states = [(t["free"].clone(), t["nt_free"].clone())
               for _ in range(reps + 2)]
     args, opt = _args(t)
     for f, n in states[:2]:
-        greedy_cut_scan(f, n, *args[2:], **opt)
+        solve(f, n, *args[2:], **opt)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for f, n in states[2:]:
-            greedy_cut_scan(f, n, *args[2:], **opt)
+            solve(f, n, *args[2:], **opt)
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if "cut_scan_kernel" in e.key]
+    events = [e for e in prof.key_averages() if kernel in e.key]
     total_us = sum(e.self_device_time_total for e in events)
     if total_us <= 0:
-        raise AssertionError("the profiler saw no cut_scan_kernel time")
+        raise AssertionError(f"the profiler saw no {kernel} time")
     return total_us / 1e3 / reps
 
 
-def time_plain(case, device, reps=3) -> float:
+def time_plain(case, device, reps=3, plain=None) -> float:
     import torch
 
     from hyperqueue_tpu_torch.ops.assign import greedy_cut_scan_reference
 
+    plain = plain or greedy_cut_scan_reference
     args, opt = _args(to_device(case, device))
-    greedy_cut_scan_reference(*args, **opt)
+    plain(*args, **opt)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
-        greedy_cut_scan_reference(*args, **opt)
+        plain(*args, **opt)
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
@@ -675,6 +813,37 @@ def kernel_timing(case, device, step_lat):
         "prologue_ms": prologue_ms(class_m),
         "shape": list(case["_counts"].shape),
         **bounds(case, steps, step_lat),
+    }
+
+
+def k2_timing(case, device, n_shards, grid_lat, step_lat):
+    """K2's times and bounds at one tick's padded inputs over n_shards
+    shards, beside K1's device time at the same inputs. The bytes and
+    operations are K1's (the same function); the latency bound is the
+    executed steps times one block scan plus one grid barrier."""
+    from functools import partial
+
+    from hyperqueue_tpu_torch.parallel import solve
+
+    mesh = solve.make_worker_mesh([device] * n_shards)
+    kernel_case = {k: v for k, v in case.items() if not k.startswith("_")}
+    steps = executed_steps(case)
+    k2 = partial(solve.sharded_cut_scan, mesh)
+    b = bounds(case, steps, grid_lat)
+    return {
+        "ms": kernel_device_ms(kernel_case, device, solve=k2,
+                               kernel="sharded_scan_kernel"),
+        "k1_ms": kernel_device_ms(kernel_case, device),
+        "wrapper_ms": time_kernel(kernel_case, device, solve=k2),
+        "plain_ms": time_plain(
+            kernel_case, device, reps=1,
+            plain=partial(solve.sharded_cut_scan_reference, mesh)),
+        "steps": steps, "shards": n_shards,
+        "M": int(case["class_m"].shape[0]),
+        "shape": list(case["_counts"].shape),
+        "grid_step_latency_ms": grid_lat,
+        "k1_latency_bound_ms": steps * step_lat,
+        **b,
     }
 
 
@@ -760,7 +929,7 @@ def advance(assignments, rows, rq_map, totals, nt0, rng) -> None:
         rows[i].nt_free = nt0[i]
 
 
-def profiled_window(one_tick, n_ticks=3):
+def profiled_window(one_tick, n_ticks=3, kernel="cut_scan_kernel"):
     """A short steady window of `n_ticks` calls of one_tick() (each runs,
     checks and applies a tick, as the path does) under torch.profiler: the
     window's wall ms and the device's busy ms and the kernel's ms in it."""
@@ -778,9 +947,9 @@ def profiled_window(one_tick, n_ticks=3):
     events = prof.key_averages()
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     kernel_ms = sum(e.self_device_time_total for e in events
-                    if "cut_scan_kernel" in e.key) / 1e3
+                    if kernel in e.key) / 1e3
     if kernel_ms <= 0:
-        raise AssertionError("the profiler saw no cut_scan_kernel time")
+        raise AssertionError(f"the profiler saw no {kernel} time")
     return wall_ms, busy_ms, kernel_ms
 
 
@@ -1009,25 +1178,39 @@ class RecordingSeam:
         return Handle()
 
 
-def server_path(card, device):
-    """Phase 8: the server's solve seam at the north star. Returns the
-    launches of K1 and K5 in its ticks, the per-tick summaries, the last
-    synchronous tick's padded case and a closure that runs one more
+def server_path(card, device, model, tag="server", n_sync=N_SERVER_TICKS,
+                n_pipelined=N_SERVER_PIPELINED_TICKS):
+    """Phases 8 and 9: the server's solve seam at the north star, around
+    `model`: GreedyCutScanModel(backend="auto") (K1, tag "server") or a
+    MultichipModel over shards of the card (K2, tag "multichip", every
+    solve "multichip-mesh", held against K2's plain version). Returns the
+    launches of the kernels in its ticks, the per-tick summaries, the last
+    synchronous tick's inputs and counts, and a closure that runs one more
     synchronous tick."""
+    from functools import partial
+
     from hyperqueue_tpu_torch.convert import core_from_plain
     from hyperqueue_tpu_torch.models import greedy
+    from hyperqueue_tpu_torch.models.multichip import MultichipModel
     from hyperqueue_tpu_torch.ops import assign, probe
+    from hyperqueue_tpu_torch.parallel import solve
     from hyperqueue_tpu_torch.scheduler.pipeline import TickPipeline
     from hyperqueue_tpu_torch.scheduler.tick import create_batches, run_tick
     from hyperqueue_tpu_torch.scheduler.tick_cache import paranoid_check
     from hyperqueue_tpu_torch.scheduler.watchdog import SolverWatchdog
 
+    mesh = isinstance(model, MultichipModel) and model._get_mesh()
+    if mesh:
+        kernel, reason = "sharded_scan", "multichip-mesh"
+        plain = partial(solve.sharded_cut_scan_reference, mesh)
+    else:
+        kernel, reason, plain = "cut_scan", None, None
     t0 = time.perf_counter()
     core = core_from_plain(*north_star_state())
-    log("server_state", workers=len(core.workers),
+    log(f"{tag}_state", workers=len(core.workers),
         ready_tasks=core.queues.total_ready(), classes=len(core.rq_map),
+        shards=len(mesh) if mesh else 1,
         seconds=round(time.perf_counter() - t0, 3))
-    model = greedy.GreedyCutScanModel(device="cuda", backend="auto")
     model.paranoid_resident = 4
     core.paranoid_tick = 4
     watchdog = SolverWatchdog(model)
@@ -1070,7 +1253,8 @@ def server_path(card, device):
 
     def check_solves(first_call, tick):
         for kwargs, counts in seam.calls[first_call:]:
-            check_tick_against_plain(model, kwargs, counts, device, tick)
+            check_tick_against_plain(model, kwargs, counts, device, tick,
+                                     plain)
         return len(seam.calls)
 
     def one_tick(pipeline=None, record=True):
@@ -1121,8 +1305,9 @@ def server_path(card, device):
             decisions.append(decision["solver"])
             solve_phases.append(dict(model.last_phases))
         for d in decisions:
-            if d["backend"] != "device-cuda" or d["status"] != "ok":
-                raise AssertionError(f"server tick {core.tick_counter} "
+            if (d["backend"] != "device-cuda" or d["status"] != "ok"
+                    or reason not in (None, d["backend_reason"])):
+                raise AssertionError(f"{tag} tick {core.tick_counter} "
                                      f"solved on {d['backend']} "
                                      f"({d['backend_reason']}), status "
                                      f"{d['status']}")
@@ -1140,7 +1325,7 @@ def server_path(card, device):
                         for d in decisions],
                 dispatched=(model.last_backend, model.last_backend_reason)
                 if this_pipeline is not None else None))
-            log("server_tick", **result["ticks"][-1],
+            log(f"{tag}_tick", **result["ticks"][-1],
                 resident=model.resident_stats(),
                 tick_cache=core.tick_cache.counters(), card=card)
         finish_quarter()
@@ -1150,19 +1335,20 @@ def server_path(card, device):
     # server's first solve would start it
     assign.greedy_cut_scan.launches = 0
     assign.greedy_cut_scan.gang_launches = 0
+    solve.sharded_cut_scan.launches = 0
     probe.sync_probe.launches = 0
     sync_ms = greedy.device_sync_ms(wait_s=30)
     if greedy.probe_error() is not None:
         raise AssertionError(f"sync probe failed: {greedy.probe_error()!r}")
     if sync_ms is None or not np.isfinite(sync_ms):
         raise AssertionError(f"sync probe did not resolve: {sync_ms}")
-    log("server_probe", device_sync_ms=sync_ms, card=card)
-    for _ in range(N_SERVER_TICKS):
+    log(f"{tag}_probe", device_sync_ms=sync_ms, card=card)
+    for _ in range(n_sync):
         one_tick()
     sync_calls = len(seam.calls)
     pipeline = TickPipeline()
     core.tick_pipeline = pipeline
-    for _ in range(N_SERVER_PIPELINED_TICKS):
+    for _ in range(n_pipelined):
         one_tick(pipeline)
     if pipeline.pending is not None:  # the last dispatch, mapped here
         first_call = len(seam.calls)
@@ -1170,6 +1356,7 @@ def server_path(card, device):
         check_solves(first_call, core.tick_counter)
     launches = {"cut_scan": assign.greedy_cut_scan.launches,
                 "cut_scan_gang": assign.greedy_cut_scan.gang_launches,
+                "sharded_scan": solve.sharded_cut_scan.launches,
                 "sync_probe": probe.sync_probe.launches}
     gc.callbacks.remove(on_gc)
     # checks of the whole path
@@ -1185,12 +1372,14 @@ def server_path(card, device):
     if model.paranoid_checks < 2 or result["paranoid_ticks"] < 2:
         raise AssertionError("paranoid checks did not run")
     n_solves = len(seam.calls)
-    if launches["cut_scan"] != n_solves + model.paranoid_checks:
-        raise AssertionError(f"K1 launched {launches['cut_scan']} times for "
-                             f"{n_solves} solves and "
+    if launches[kernel] != n_solves + model.paranoid_checks:
+        raise AssertionError(f"{kernel} launched {launches[kernel]} times "
+                             f"for {n_solves} solves and "
                              f"{model.paranoid_checks} paranoid checks")
-    if launches["sync_probe"] < 1 or launches["cut_scan_gang"]:
-        raise AssertionError(f"server path launches {launches}")
+    other = "cut_scan" if mesh else "sharded_scan"
+    if ((not mesh and launches["sync_probe"] < 1)
+            or launches["cut_scan_gang"] or launches[other]):
+        raise AssertionError(f"{tag} path launches {launches}")
     result.update(
         launches=launches, solves=n_solves, sync_solves=sync_calls,
         paranoid_checks=model.paranoid_checks, watchdog=stats,
@@ -1200,7 +1389,7 @@ def server_path(card, device):
                            for key, ms in table.items()]
                     for kind, table in model._cost.items()},
     )
-    log("server_checks", **{k: v for k, v in result.items()
+    log(f"{tag}_checks", **{k: v for k, v in result.items()
                             if k != "ticks"}, card=card)
     last_kwargs, last_counts = seam.calls[sync_calls - 1]
 
@@ -1213,6 +1402,34 @@ def server_path(card, device):
         one_tick(pipeline if pipelined else None, record=False)
 
     return result, model, (last_kwargs, last_counts), steady_tick
+
+
+def path_summary(result):
+    """Per-phase medians of a server_path run's steady ticks (all but the
+    first of each run), synchronous and pipelined."""
+    summary = {}
+    for label in ("sync", "pipelined"):
+        group = [t for t in result["ticks"] if t["run"] == label]
+        steady = group[1:]
+        names = sorted({k for t in steady for k in t["phases"]})
+        summary[label] = dict(
+            ticks=len(group), wall_ms=[t["wall_ms"] for t in group],
+            steady_median_ms=float(np.median([t["wall_ms"]
+                                              for t in steady])),
+            # a paranoid tick drains the pipeline and solves synchronously
+            steady_non_paranoid_median_ms=float(np.median(
+                [t["wall_ms"] for t in steady if not t["paranoid"]])),
+            phases_median_ms={
+                k: float(np.median([t["phases"].get(k, 0.0)
+                                    for t in steady])) for k in names})
+    # the pipeline's own cycle: ticks that mapped the pending solve and
+    # dispatched the next (not a paranoid tick, nor the one after its
+    # drain, which has nothing to map)
+    cycle = [t["wall_ms"] for t in result["ticks"]
+             if t["dispatched_async"] and t["solves"]]
+    summary["pipelined"].update(
+        cycle_ticks=len(cycle), steady_cycle_median_ms=float(np.median(cycle)))
+    return summary
 
 
 def host_op_profile(one_tick, n_ticks=3, top=10):
@@ -1462,8 +1679,13 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from functools import partial
+
+    from hyperqueue_tpu_torch.models.greedy import GreedyCutScanModel
+    from hyperqueue_tpu_torch.models.multichip import MultichipModel
     from hyperqueue_tpu_torch.ops import assign
     from hyperqueue_tpu_torch.ops.build import load_library
+    from hyperqueue_tpu_torch.parallel import solve
     from hyperqueue_tpu_torch.utils.native import load_native
 
     device = torch.device("cuda")
@@ -1476,9 +1698,9 @@ def main() -> int:
     log("card", card=card, kind=kind, torch=torch.__version__,
         cuda=torch.version.cuda)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:
+    with ThreadPoolExecutor(max_workers=4) as pool:
         builds = {name: pool.submit(load_library, name)
-                  for name in ("cut_scan", "sync_probe")}
+                  for name in ("cut_scan", "sync_probe", "sharded_scan")}
         native = pool.submit(load_native)
         records = {name: f.result()[1] for name, f in builds.items()}
         if native.result() is None:
@@ -1506,12 +1728,26 @@ def main() -> int:
     log("kernel_vs_plain", cases=sorted(cases), max_abs_err=max_err,
         card=card)
     max_err_g = 0
-    for name, case in k1g_cases().items():
+    k1g_inputs = k1g_cases()
+    for name, case in k1g_inputs.items():
         max_err_g = max(max_err_g, kernel_vs_plain(case, device))
         gang = case.get("gang_nodes")
         log("kernel_vs_plain_k1g", case=name, M=int(case["class_m"].shape[0]),
             gang_rows=0 if gang is None else int((gang > 0).sum()),
             max_abs_err=max_err_g, card=card)
+
+    # phase 2b: the sharded kernel against its plain version and K1
+    max_err_k2 = 0
+    t0 = time.perf_counter()
+    sharded = k2_cases(cases, k1g_inputs)
+    for name, (case, n_shards) in sharded.items():
+        try:
+            max_err_k2 = max(max_err_k2,
+                             sharded_vs_plain(case, device, n_shards))
+        except AssertionError as e:
+            raise AssertionError(f"K2 case {name}: {e}") from e
+    log("sharded_vs_plain", cases=sorted(sharded), max_abs_err=max_err_k2,
+        seconds=round(time.perf_counter() - t0, 3), card=card)
 
     # phase 3: the main path, ticks through run_tick on the card
     seen: set = set()
@@ -1552,29 +1788,9 @@ def main() -> int:
     max_err_p, k5 = k5_phase(device, card)
 
     # phase 8: the server path, its profiled window and host solves
-    server, s_model, (s_kwargs, s_counts), s_tick = server_path(card, device)
-    server_summary = {}
-    for label in ("sync", "pipelined"):
-        group = [t for t in server["ticks"] if t["run"] == label]
-        steady = group[1:]
-        names = sorted({k for t in steady for k in t["phases"]})
-        server_summary[label] = dict(
-            ticks=len(group), wall_ms=[t["wall_ms"] for t in group],
-            steady_median_ms=float(np.median([t["wall_ms"]
-                                              for t in steady])),
-            # a paranoid tick drains the pipeline and solves synchronously
-            steady_non_paranoid_median_ms=float(np.median(
-                [t["wall_ms"] for t in steady if not t["paranoid"]])),
-            phases_median_ms={
-                k: float(np.median([t["phases"].get(k, 0.0)
-                                    for t in steady])) for k in names})
-    # the pipeline's own cycle: ticks that mapped the pending solve and
-    # dispatched the next (not a paranoid tick, nor the one after its
-    # drain, which has nothing to map)
-    cycle = [t["wall_ms"] for t in server["ticks"]
-             if t["dispatched_async"] and t["solves"]]
-    server_summary["pipelined"].update(
-        cycle_ticks=len(cycle), steady_cycle_median_ms=float(np.median(cycle)))
+    server, s_model, (s_kwargs, s_counts), s_tick = server_path(
+        card, device, GreedyCutScanModel(device="cuda", backend="auto"))
+    server_summary = path_summary(server)
     log("server_ticks", **server_summary, card=card)
     log("server_host_ops", run="pipelined",
         **host_op_profile(lambda: s_tick(True)), card=card)
@@ -1588,6 +1804,30 @@ def main() -> int:
     log("server_cost_model", cost_model=server["cost_model"],
         host_numpy_ms=hosts["host_numpy"]["ms"],
         host_native_ms=hosts["host_native"]["ms"], card=card)
+
+    # phase 9: the multichip path, the server's seam around MultichipModel
+    # over N_SHARDS shards of the card
+    m_model = MultichipModel(devices=[device] * N_SHARDS)
+    multi, m_model, (m_kwargs, m_counts), m_tick = server_path(
+        card, device, m_model, tag="multichip",
+        n_pipelined=N_MULTICHIP_PIPELINED_TICKS)
+    m_summary = path_summary(multi)
+    log("multichip_ticks", shards=N_SHARDS, **m_summary, card=card)
+    m_tick()  # maps the last pipelined solve, outside the window
+    log("multichip_profiled_window", **window_summary(
+        *profiled_window(m_tick, n_window, kernel="sharded_scan_kernel"),
+        n_window, m_summary["sync"]["steady_median_ms"], card))
+
+    # phase 10: K2's timings at the multichip path's shapes (its last
+    # synchronous tick), beside K1's at the same inputs
+    mesh = m_model._get_mesh()
+    m_case = check_tick_against_plain(
+        m_model, m_kwargs, m_counts, device, "timing",
+        partial(solve.sharded_cut_scan_reference, mesh))
+    grid_lat = solve.grid_step_latency_ms(4096, N_SHARDS, device)
+    k2 = k2_timing(m_case, device, N_SHARDS, grid_lat, step_lat)
+    log("timing", kernel="sharded_scan", step_scan_latency_ms=step_lat,
+        **k2, card=card)
 
     kernels = []
     for name, replaces, launch_count, err, timing in (
@@ -1629,6 +1869,24 @@ def main() -> int:
         "library_ms": k5["library_ms"],
         "wrapper_ms": k5["wrapper_ms"],
         "round_trip_ms": k5["round_trip_min_ms"],
+    })
+    kernels.append({
+        "name": "sharded_scan",
+        "route": "cuda",
+        "source": "hyperqueue_tpu_torch/csrc/sharded_scan.cu",
+        "replaces": "hyperqueue_tpu/parallel/solve.py:231",
+        "launches": multi["launches"]["sharded_scan"],
+        "max_abs_err": max_err_k2,
+        "ms": k2["ms"],
+        "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"],
+        "bound_by": k2["bound_by"],
+        "library_ms": None,
+        "latency_bound_ms": k2["latency_bound_ms"],
+        "latency_bound_all_steps_ms": k2["latency_bound_all_steps_ms"],
+        "wrapper_ms": k2["wrapper_ms"],
+        "k1_ms": k2["k1_ms"],
+        "shards": N_SHARDS,
     })
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -9,8 +9,9 @@ Layout (mirrors the JAX package's):
   scheduler/        — queues -> batches -> dense inputs -> solve -> mapping
   ops/              — the cut-scan: host visit classes, CUDA kernel, plain
                       PyTorch version, kernel build
-  parallel/         — device-resident solver state
-  models/           — the greedy cut-scan model (padding, residency)
+  parallel/         — device-resident solver state, the sharded solve
+  models/           — the greedy cut-scan model (padding, residency) and
+                      its sharded form (multichip)
   convert           — tick state from plain data
   csrc/             — CUDA C++ sources, built at first use into _build/
 """

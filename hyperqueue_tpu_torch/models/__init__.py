@@ -2,5 +2,6 @@
 per-(batch, variant, worker) task counts."""
 
 from hyperqueue_tpu_torch.models.greedy import GreedyCutScanModel
+from hyperqueue_tpu_torch.models.multichip import MultichipModel
 
-__all__ = ["GreedyCutScanModel"]
+__all__ = ["GreedyCutScanModel", "MultichipModel"]

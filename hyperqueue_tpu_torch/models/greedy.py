@@ -476,7 +476,7 @@ class GreedyCutScanModel:
         n_w, n_r = free.shape
         n_b, n_v, _ = needs.shape
 
-        pw = _bucket(n_w, _WORKER_FLOOR)
+        pw = self._worker_bucket(n_w)
         pb = _bucket(max(n_b, 1), _BATCH_FLOOR)
         pr = _bucket(max(n_r, 1), _RESOURCE_FLOOR)
         pv = _bucket(max(n_v, 1), _VARIANT_FLOOR)
@@ -675,15 +675,21 @@ class GreedyCutScanModel:
             policy_mask=place("policy_mask", prep["pmask_p"]),
         )
 
+    def _kernel_dispatch(self, free_d, nt_d, life_d, total_d, inputs):
+        """Launch the solve's kernel on device tensors (free_d/nt_d updated
+        in place) and return its padded counts; the resident and the fresh
+        solve both come here, and a subclass swaps the kernel here."""
+        return greedy_cut_scan(free_d, nt_d, life_d, total=total_d, **inputs)
+
     def _device_solve(self, prep) -> _DeviceCounts:
         _t0 = time.perf_counter()
         res = self._res
         free_d, nt_d, life_d, total_d = res.sync(
             prep["free_p"], prep["nt_p"], prep["life_p"], prep["total_p"]
         )
-        counts = greedy_cut_scan(
-            free_d, nt_d, life_d, total=total_d,
-            **self._kernel_inputs(prep, res.place_cached),
+        counts = self._kernel_dispatch(
+            free_d, nt_d, life_d, total_d,
+            self._kernel_inputs(prep, res.place_cached),
         )
         # the kernel updated free_d/nt_d in place: they are the state after
         # the tick and stay resident for the next one
@@ -764,14 +770,18 @@ class GreedyCutScanModel:
                 np.array(arr, dtype=np.int32, copy=True)
             ).to(self.device)
 
-        counts = greedy_cut_scan(
+        counts = self._kernel_dispatch(
             put("free", prep["free_p"]), put("nt", prep["nt_p"]),
-            put("life", prep["life_p"]), total=put("total", prep["total_p"]),
-            **self._kernel_inputs(prep, put),
+            put("life", prep["life_p"]), put("total", prep["total_p"]),
+            self._kernel_inputs(prep, put),
         )
         return counts.cpu().numpy()
 
     # -- padded-buffer management -----------------------------------------
+    def _worker_bucket(self, n_w: int) -> int:
+        """Padded W of a solve over n_w workers."""
+        return _bucket(n_w, _WORKER_FLOOR)
+
     def _get_buffers(self, pw: int, pb: int, pr: int, pv: int,
                      has_all: bool) -> dict:
         """Persistent padded host buffers for one bucket shape (a new key

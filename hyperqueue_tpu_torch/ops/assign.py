@@ -428,28 +428,12 @@ def _group_ids(group_onehot):
     return torch.where(member, ids, torch.full_like(ids, -1)).contiguous()
 
 
-def greedy_cut_scan(
-    free, nt_free, lifetime, needs, sizes, min_time, class_m, order_ids,
-    total=None, all_mask=None,
-    gang_nodes=None, gang_ok=None, group_onehot=None, policy_mask=None,
-):
-    """The cut-scan; returns counts (B, V, W) int32 and updates `free` and
-    `nt_free` IN PLACE to the state after the solve (the counterpart of the
-    JAX kernel's donated free/nt_free buffers).
-
-    Optional inputs, all int32: `total` (W, R) with `all_mask` (B, V, R)
-    for ALL-policy requests; `gang_nodes` (B,), `gang_ok` (W,) and
-    `group_onehot` (W, G), together, for all-or-nothing gang rows;
-    `policy_mask` (B, W) 0/1 for the policy's hard exclusions. See
-    greedy_cut_scan_reference for their semantics.
-
-    On CUDA tensors it launches the CUDA kernel (csrc/cut_scan.cu) on the
-    current stream and counts the launch in `greedy_cut_scan.launches`
-    (and, when gang rows or a policy mask ride it, in
-    `greedy_cut_scan.gang_launches` too); a refused launch raises. On CPU
-    tensors it runs `greedy_cut_scan_reference`. The launch does not
-    synchronize, except to validate a group one-hot (see _group_ids).
-    """
+def _validate(free, nt_free, lifetime, needs, sizes, min_time, class_m,
+              order_ids, total, all_mask, gang_nodes, gang_ok, group_onehot,
+              policy_mask):
+    """Raises unless the cut-scan's inputs are int32, contiguous, on one
+    device and of consistent shapes (see greedy_cut_scan); returns
+    (W, R, B, V, M, G), G = 0 without gang rows."""
     if (total is None) != (all_mask is None):
         raise ValueError("total and all_mask come together")
     gang = (gang_nodes, gang_ok, group_onehot)
@@ -486,7 +470,36 @@ def greedy_cut_scan(
             f"need R >= 1, V >= 1 and M >= 1 (got R={n_r}, V={n_v}, "
             f"M={n_m})"
         )
+    return n_w, n_r, n_b, n_v, n_m, n_g
 
+
+def greedy_cut_scan(
+    free, nt_free, lifetime, needs, sizes, min_time, class_m, order_ids,
+    total=None, all_mask=None,
+    gang_nodes=None, gang_ok=None, group_onehot=None, policy_mask=None,
+):
+    """The cut-scan; returns counts (B, V, W) int32 and updates `free` and
+    `nt_free` IN PLACE to the state after the solve (the counterpart of the
+    JAX kernel's donated free/nt_free buffers).
+
+    Optional inputs, all int32: `total` (W, R) with `all_mask` (B, V, R)
+    for ALL-policy requests; `gang_nodes` (B,), `gang_ok` (W,) and
+    `group_onehot` (W, G), together, for all-or-nothing gang rows;
+    `policy_mask` (B, W) 0/1 for the policy's hard exclusions. See
+    greedy_cut_scan_reference for their semantics.
+
+    On CUDA tensors it launches the CUDA kernel (csrc/cut_scan.cu) on the
+    current stream and counts the launch in `greedy_cut_scan.launches`
+    (and, when gang rows or a policy mask ride it, in
+    `greedy_cut_scan.gang_launches` too); a refused launch raises. On CPU
+    tensors it runs `greedy_cut_scan_reference`. The launch does not
+    synchronize, except to validate a group one-hot (see _group_ids).
+    """
+    n_w, n_r, n_b, n_v, n_m, n_g = _validate(
+        free, nt_free, lifetime, needs, sizes, min_time, class_m, order_ids,
+        total, all_mask, gang_nodes, gang_ok, group_onehot, policy_mask,
+    )
+    device = free.device
     if device.type == "cpu":
         if gang_nodes is not None:
             _group_ids(group_onehot)  # the kernel's contract, checked alike

@@ -4,8 +4,10 @@ Each kernel source `csrc/<name>.cu` has a plain C interface and is compiled
 with nvcc for Hopper (sm_90a) into a shared library, loaded with ctypes. The
 build runs at first use, from the package's own sources only, into
 `_build/` beside the package (ignored by git): the library's file name
-carries a hash of the source and the compiler flags, so an edited source
-builds anew, and a file lock lets concurrent processes share one build.
+carries a hash of the source, of every header of `csrc/` that it includes
+(directly or through another header) and of the compiler flags, so an
+edited source or header builds anew, and a file lock lets concurrent
+processes share one build.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -28,6 +31,10 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+
+# `#include "name"` lines: the headers a source takes from csrc/
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"',
+                      re.MULTILINE)
 
 # name -> (ctypes library, build record); one load per process
 _LOADED: dict[str, tuple[ctypes.CDLL, dict]] = {}
@@ -52,6 +59,26 @@ def find_nvcc() -> str:
     )
 
 
+def source_digest(name: str) -> str:
+    """16 hex digits of a hash over `csrc/<name>.cu`, the `csrc/` headers
+    it includes, directly or through another header, and NVCC_FLAGS."""
+    digest = hashlib.sha256()
+    seen: set[Path] = set()
+
+    def add(path: Path) -> None:
+        seen.add(path)
+        text = path.read_bytes()
+        digest.update(text)
+        for include in _INCLUDE.findall(text):
+            header = CSRC_DIR / include.decode()
+            if header not in seen and header.is_file():
+                add(header)
+
+    add(CSRC_DIR / f"{name}.cu")
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return digest.hexdigest()[:16]
+
+
 def load_library(name: str) -> tuple[ctypes.CDLL, dict]:
     """Compile `csrc/<name>.cu` if needed and load it.
 
@@ -64,9 +91,7 @@ def load_library(name: str) -> tuple[ctypes.CDLL, dict]:
     if loaded is not None:
         return loaded
     source = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    digest = source_digest(name)
     BUILD_DIR.mkdir(exist_ok=True)
     lib_path = BUILD_DIR / f"lib{name}-{digest}.so"
     log_path = BUILD_DIR / f"lib{name}-{digest}.log"

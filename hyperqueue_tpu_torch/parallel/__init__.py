@@ -1,1 +1,1 @@
-"""Device-resident solver state."""
+"""Device-resident solver state and the sharded solve."""

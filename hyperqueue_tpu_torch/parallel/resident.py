@@ -22,6 +22,10 @@ ticks and makes each solve pay only for what changed:
   are placement-cached by content: a steady-state tick that repeats the
   same batch layout re-uses the device tensors outright.
 
+The sharded solve (parallel/solve.py) runs its D shards on one card as
+row ranges of the same resident tensors, so this class serves it
+unchanged; per-card resident tensors come with the exchange across cards.
+
 Correctness contract: the resident path is BIT-IDENTICAL to a fresh
 full-upload solve of the same padded inputs. Anything this module cannot
 track exactly calls `invalidate()` and the next tick does one full upload.

@@ -358,3 +358,189 @@ def test_server_ticks_on_card_match_cpu(cuda, pipelined):
             assert model.pinned_sets == len(model._pinned)
     assert results[0] == results[1]
     greedy._reset_probe_for_tests()
+
+
+# -- the sharded solve (K2) --------------------------------------------------
+
+def pad_workers(case, n_shards):
+    """The case with inert workers appended up to a multiple of n_shards
+    (no free resources, no task slot, no lifetime, class 0, not idle, in no
+    group, masked), as the model pads W."""
+    n_w = case["free"].shape[0]
+    extra = -n_w % n_shards
+    if not extra:
+        return case
+    out = dict(case)
+    for key in ("free", "nt_free", "lifetime", "total", "gang_ok",
+                "group_onehot"):
+        if key in case:
+            out[key] = np.concatenate(
+                [case[key], np.zeros((extra,) + case[key].shape[1:],
+                                     np.int32)])
+    for key in ("class_m", "policy_mask"):
+        if key in case:
+            out[key] = np.concatenate(
+                [case[key], np.zeros((case[key].shape[0], extra), np.int32)],
+                axis=1)
+    return out
+
+
+def straddle_case(n_w=1024, n_shards=4):
+    """Gang rows whose chosen group crosses shard boundaries: group 0 holds
+    the workers around the first boundary, group 1 the middle half (less
+    group 0), group 2 the rest; all idle, with ordinary rows between the
+    gang rows."""
+    from hyperqueue_tpu_torch.ops.assign import (
+        host_visit_classes,
+        scarcity_weights,
+    )
+
+    rng = np.random.default_rng(31)
+    size = n_w // n_shards
+    gids = np.full(n_w, 2)
+    gids[n_w // 4 + 24:3 * n_w // 4] = 1
+    gids[size - 40:size + 24] = 0
+    n_b = 12
+    free = rng.integers(1, 8, size=(n_w, 2)) * U
+    needs = rng.integers(0, 3, size=(n_b, 1, 2)) * (U // 2)
+    needs[:, 0, 0] = np.maximum(needs[:, 0, 0], U)
+    gang_nodes = np.zeros(n_b, np.int64)
+    gang_nodes[[0, 3, 5, 8, 11]] = [50, 20, 300, 2000, 7]
+    sizes = np.where(gang_nodes > 0, 1, rng.integers(0, 200, size=n_b))
+    onehot = np.zeros((n_w, 3), np.int32)
+    onehot[np.arange(n_w), gids] = 1
+    case = {"free": free, "nt_free": rng.integers(1, 6, size=n_w),
+            "lifetime": np.full(n_w, INF), "needs": needs, "sizes": sizes,
+            "min_time": np.zeros((n_b, 1)), "gang_nodes": gang_nodes,
+            "gang_ok": np.ones(n_w), "group_onehot": onehot}
+    case["class_m"], case["order_ids"] = host_visit_classes(
+        free, needs, scarcity_weights(free.sum(axis=0)))
+    return {k: np.ascontiguousarray(v, dtype=np.int32)
+            for k, v in case.items()}
+
+
+def sharded_vs_reference(case, device, n_shards):
+    """K2 against its plain version and, where K1 takes the width, against
+    K1, on the same inputs: counts, free and nt_free all exact."""
+    from hyperqueue_tpu_torch.parallel import solve
+
+    mesh = solve.make_worker_mesh([device] * n_shards)
+    t = {k: torch.from_numpy(v).to(device) for k, v in case.items()}
+    opt = {k: t.get(k) for k in OPTIONAL}
+    args = [t[k] for k in KEYS]
+    want = [solve.sharded_cut_scan_reference(mesh, *args, **opt)]
+    if case["free"].shape[0] <= assign.MAX_KERNEL_WORKERS:
+        state = (t["free"].clone(), t["nt_free"].clone())
+        counts = assign.greedy_cut_scan(*state, *args[2:], **opt)
+        want.append((counts, *state))
+    launches = solve.sharded_cut_scan.launches
+    counts = solve.sharded_cut_scan(mesh, *args, **opt)
+    torch.cuda.synchronize()
+    assert solve.sharded_cut_scan.launches == launches + 1
+    for ref in want:
+        for name, got, w in zip(("counts", "free", "nt_free"),
+                                (counts, t["free"], t["nt_free"]), ref):
+            assert torch.equal(got, w), name
+    return counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_shards", [1, 2, 4, 8])
+@pytest.mark.parametrize("with_all", [False, True], ids=["plain", "all"])
+@pytest.mark.parametrize("shape", [
+    (8, 4, 8, 2), (13, 3, 5, 3), (1000, 4, 40, 2), (1500, 2, 17, 1),
+    (4096, 4, 24, 2), (16384, 3, 6, 2),
+], ids=lambda s: "x".join(map(str, s)))
+def test_sharded_kernel_matches_reference(cuda, shape, with_all, n_shards):
+    case = pad_workers(random_case(sum(shape) + with_all, *shape, with_all),
+                       n_shards)
+    counts = sharded_vs_reference(case, cuda, n_shards)
+    assert int(counts.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["gang", "mask", "gang_mask"])
+@pytest.mark.parametrize("shape", [
+    (8, 2, 6, 2, 2), (1021, 3, 37, 2, 5), (1024, 8, 256, 2, 8),
+    (1024, 4, 64, 2, 1024), (4096, 4, 64, 2, 8), (16384, 3, 24, 2, 1),
+], ids=lambda s: "x".join(map(str, s)))
+def test_sharded_gang_and_mask_kernel_matches_reference(cuda, shape, mode):
+    case = fused_case(sum(shape), *shape, gang="gang" in mode,
+                      mask="mask" in mode)
+    counts = sharded_vs_reference(pad_workers(case, 4), cuda, 4)
+    assert int(counts.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_shards", [2, 4, 8])
+def test_sharded_gang_straddles_shards(cuda, n_shards):
+    case = straddle_case(n_shards=n_shards)
+    counts = sharded_vs_reference(case, cuda, n_shards).cpu().numpy()
+    size = 1024 // n_shards
+    first = np.flatnonzero(counts[0, 0])
+    assert len(first) == 50 and first.min() < size <= first.max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True], ids=["all", "gang_mask"])
+def test_sharded_kernel_beyond_one_block(cuda, fused):
+    """32,768 workers over 4 shards, twice K1's width: against the plain
+    version only."""
+    case = fused_case(77, 32768, 3, 8, 2, 8) if fused \
+        else random_case(76, 32768, 3, 8, 2, True)
+    assert int(sharded_vs_reference(case, cuda, 4).sum()) > 0
+
+
+@pytest.mark.cuda
+def test_sharded_kernel_rejects_what_it_cannot_hold(cuda):
+    from hyperqueue_tpu_torch.parallel import solve
+
+    case = random_case(5, 1024, 2, 4, 1, False)
+    t = {k: torch.from_numpy(v).to(cuda) for k, v in case.items()}
+    # more shards than the card holds blocks of 1024 threads at once
+    mesh = solve.make_worker_mesh([cuda] * 1024)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        solve.sharded_cut_scan(mesh, *(t[k] for k in KEYS))
+    mesh = solve.make_worker_mesh([cuda] * 3)
+    with pytest.raises(ValueError, match="equal shards"):
+        solve.sharded_cut_scan(mesh, *(t[k] for k in KEYS))
+    wide = random_case(6, 32768, 1, 1, 1, False)
+    t = {k: torch.from_numpy(v).to(cuda) for k, v in wide.items()}
+    with pytest.raises(ValueError, match="per shard"):
+        solve.sharded_cut_scan(solve.make_worker_mesh([cuda]),
+                               *(t[k] for k in KEYS))
+
+
+@pytest.mark.cuda
+def test_grid_step_latency(cuda):
+    from hyperqueue_tpu_torch.parallel import solve
+
+    for n_shards in (1, 4):
+        ms = solve.grid_step_latency_ms(256, n_shards, cuda)
+        assert 0 < ms < 1
+
+
+@pytest.mark.cuda
+def test_multichip_model_on_card_matches_cpu(cuda):
+    """Four shards of the card through the model (resident, with the
+    paranoid fresh solve every second solve) against four CPU shards and
+    against the single-block model on the card."""
+    from hyperqueue_tpu_torch.models.multichip import MultichipModel
+    from hyperqueue_tpu_torch.parallel import solve
+
+    rng = np.random.default_rng(19)
+    gpu = MultichipModel(devices=[cuda] * 4)
+    gpu.paranoid_resident = 2
+    cpu = MultichipModel(devices=["cpu"] * 4)
+    single = GreedyCutScanModel(device="cuda")
+    launches = solve.sharded_cut_scan.launches
+    for n_w, n_b, n_r, n_v in [(100, 9, 3, 2), (61, 4, 2, 1), (100, 9, 3, 2)]:
+        case = random_case(int(rng.integers(1 << 30)), n_w, n_r, n_b, n_v,
+                           False)
+        kw = {k: case[k] for k in KEYS[:6]}
+        got = gpu.solve(**kw)
+        np.testing.assert_array_equal(got, cpu.solve(**kw))
+        np.testing.assert_array_equal(got, single.solve(**kw))
+        assert gpu.last_backend_reason == "multichip-mesh"
+    assert gpu.paranoid_checks == 1
+    assert solve.sharded_cut_scan.launches == launches + 4

@@ -39,9 +39,11 @@ def test_port_files_exist():
                    "scheduler/watchdog.py", "server/core.py",
                    "server/worker.py", "resources/descriptor.py",
                    "resources/worker_resources.py", "utils/clock.py",
-                   "utils/native.py", "models/greedy.py", "convert.py"):
+                   "utils/native.py", "models/greedy.py",
+                   "models/multichip.py", "parallel/solve.py", "convert.py"):
         assert f"hyperqueue_tpu_torch/{module}" in names, module
-    for source in ("csrc/cut_scan.cu", "csrc/sync_probe.cu",
+    for source in ("csrc/cut_scan.cu", "csrc/cut_scan_step.cuh",
+                   "csrc/sharded_scan.cu", "csrc/sync_probe.cu",
                    "native/hqcore.cpp"):
         assert (ROOT / "hyperqueue_tpu_torch" / source).exists(), source
 
@@ -70,17 +72,19 @@ def test_default_model_raises_without_cuda(monkeypatch):
 
 
 def test_card_entry_points_default_to_the_card(monkeypatch):
-    """The probe and the model ask for the card unless told otherwise, and
+    """The probe and the models ask for the card unless told otherwise, and
     the model solves there on every solve unless asked for "auto" or
     "numpy". The watchdog's host fallback stands in only for a primary off
     the card, or where the caller passes one."""
     import inspect
 
     from hyperqueue_tpu_torch.models.greedy import GreedyCutScanModel
+    from hyperqueue_tpu_torch.models.multichip import MultichipModel
     from hyperqueue_tpu_torch.ops.probe import sync_round_trip_ms
     from hyperqueue_tpu_torch.scheduler.watchdog import SolverWatchdog
 
-    for fn in (GreedyCutScanModel.__init__, sync_round_trip_ms):
+    for fn in (GreedyCutScanModel.__init__, MultichipModel.__init__,
+               sync_round_trip_ms):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     assert inspect.signature(GreedyCutScanModel.__init__) \
         .parameters["backend"].default == "device"
