@@ -21,7 +21,14 @@ Phases:
      per thread) cases, then the gang-row and policy-mask branches (K1g)
      on the solver tests' gang and weighted generators at bench width, odd
      and wide worker counts, 1, 8 and W worker groups, infeasible gangs and
-     gangs behind rows that touched every idle worker;
+     gangs behind rows that touched every idle worker; then the edge cases
+     of the redesign (the widest resident shape and one worker more, caps
+     summing past 2^31, negative free rows, needs at both ends of
+     [1, 2^31), R = 8 with padding, M = 16, runs of one visit-class row
+     with and without gang rows, a mask row that changes every batch).
+     Each case runs in the instantiation the layout picks (the wrapper
+     must count it there) and, where that is the resident one, in the
+     global one too; both must have been held;
   2b. the sharded kernel (K2) against its plain version and against K1 on
      the same inputs, exact on counts, free and nt_free: the K1 cases over
      2, 4 and 8 shards of the card, the K1g cases over 4, gang rows whose
@@ -35,7 +42,10 @@ Phases:
   4. timings: per-tick wall time and phases, the kernel's time from CUDA
      events, its plain version's time, its bounds, and the device's busy
      time and idle share over a steady window of three more ticks under
-     torch.profiler;
+     torch.profiler; the per-step floor (one scan and its barriers, the
+     int64 three-barrier scan's beside the redesign's) and where a step's
+     time goes (k1_step_split: each instantiation, and the step with the
+     worker state in registers);
   5. the fused path: the north-star tasks over 8 jobs, the workers in 8
      groups of 128, 16 gang rows of 2-16 nodes per tick, gang_ok from
      idleness and a policy table (weights 2.0 on some groups, 0.0 on some
@@ -44,8 +54,9 @@ Phases:
      is checked as in phase 3, and every gang row must be all-or-nothing
      on idle members of one group, no excluded pair may receive a task and
      the kernel must launch once, with its gang and mask inputs;
-  6. fused timings as in phase 4, the kernel's prologue alone (the visit
-     order of every visit-class row), and the two glue steps of the solve
+  6. fused timings as in phase 4 (with k1g_step_split), the kernel's
+     prologue alone (the visit order of every visit-class row), and the
+     two glue steps of the solve
      timed alone: the dirty-row index_copy_ (K3) and the counts slice and
      pinned copy to the host (K4);
   7. the sync probe (K5): the kernel against its plain version on
@@ -91,6 +102,10 @@ trip fits DISPATCH_LATENCY_BUDGET_MS) or "cost-model" (the measured device
 time per shape beats the host's, or the host was never measured); a
 "host-*" backend fails the run.
 
+Each kernel's registers, spills and shared memory (nvcc -Xptxas -v) are on
+a "ptxas" line per source. The main paths (default, fused, server) must run
+every cut-scan solve in the resident instantiation.
+
 The third-to-last line is the kernels JSON (K1, K1g, K5, K2), the
 second-to-last the card;
 the last line is {"ok": true, "device": {...}}. Exits non-zero, printing no
@@ -117,6 +132,9 @@ N_TICKS = 8
 SEED = 42
 U = 10_000
 INF = 2**31 - 1
+
+# threads of the cut-scan's block, as the kernel library reports it
+THREADS = None
 
 # the server path: synchronous ticks, then pipelined ones
 N_SERVER_TICKS = 8
@@ -461,6 +479,148 @@ def k1g_cases():
     return cases
 
 
+# -- the redesign's edge cases (K1 and K1g) ---------------------------------
+# (tests/test_torch_cuda.py holds the kernel to the same cases)
+
+def with_classes(case, n_m, seed, runs=False):
+    """The case with M random visit-class rows (every class of [0, 16) in
+    use) and random rows per step; with `runs`, in runs of 8 equal rows."""
+    rng = np.random.default_rng(seed)
+    n_w = case["free"].shape[0]
+    n_b, n_v = case["min_time"].shape
+    case["class_m"] = rng.integers(0, 16, size=(n_m, n_w)).astype(np.int32)
+    oid = rng.integers(0, n_m, size=n_b * n_v)
+    if runs:
+        oid = np.repeat(oid[::8], 8)[:n_b * n_v]
+    case["order_ids"] = oid.reshape(n_b, n_v).astype(np.int32)
+    return case
+
+
+# The K1 edge cases: the widest resident shape and one worker more
+# (global), with and without ALL-policy; caps that sum past 2^31 with sizes
+# near 2^31 - 1; negative free and nt_free rows; needs at both ends of
+# [1, 2^31) against free across the int32 range; R = 8 with padded
+# resources; M = 16 rows; runs of one visit-class row (no closing barrier)
+# over three workers a thread; R = 64 at W = 16,384, whose global layout
+# fits only with a shorter step ring.
+K1_EDGE_CASES = ("limit", "limit_plus_1", "limit_all", "limit_all_plus_1",
+                 "caps_past_2_31", "negative_free_rows", "need_range_ends",
+                 "r8_padded", "m16", "m_runs", "r64_w16384")
+
+
+def k1_edge_case(name):
+    """Kernel inputs of the K1 edge case `name` (see K1_EDGE_CASES)."""
+    from hyperqueue_tpu_torch.ops.assign import largest_resident_w
+
+    top = 2**31 - 1
+    if name in ("limit", "limit_plus_1", "limit_all", "limit_all_plus_1"):
+        all_policy = "all" in name
+        w = largest_resident_w(4, 2, 3, 0, all_policy)
+        w += name.endswith("plus_1")
+        return with_classes(random_case(w, w, 4, 24, 2, all_policy), 3, w)
+    if name == "caps_past_2_31":
+        case = random_case(5, 64, 2, 12, 2, False)
+        rng = np.random.default_rng(5)
+        case["free"][:, 0] = top - rng.integers(0, 1000, size=64)
+        case["free"][::7] = -rng.integers(1, 1000, size=(10, 2))
+        case["nt_free"][:] = top - rng.integers(0, 3, size=64)
+        case["needs"][:] = rng.integers(1, 4, size=case["needs"].shape)
+        case["needs"][:, :, 1] = 0
+        case["min_time"][:] = 0
+        case["sizes"][:] = top - rng.integers(0, 1000, size=12)
+        return with_classes(case, 3, 5)
+    if name == "negative_free_rows":
+        case = random_case(6, 1000, 3, 40, 2, False)
+        rng = np.random.default_rng(6)
+        rows = rng.random(1000) < 0.3
+        case["free"][rows] = -rng.integers(0, top, size=(rows.sum(), 3))
+        case["nt_free"][rng.random(1000) < 0.1] = -5
+        return case
+    if name == "need_range_ends":
+        case = random_case(7, 1024, 4, 64, 2, False)
+        rng = np.random.default_rng(7)
+        ends = np.array([1, 2, 3, 5, 7, 2**15, 2**16 + 1, 2**30 - 1, 2**30,
+                         2**30 + 1, top - 2, top - 1, top], np.int64)
+        needs = rng.choice(ends, size=case["needs"].shape)
+        needs[rng.random(needs.shape) < 0.3] = 0
+        case["needs"] = needs.astype(np.int32)
+        case["free"] = rng.integers(-top, top, size=(1024, 4),
+                                    endpoint=True).astype(np.int32)
+        case["free"][rng.random((1024, 4)) < 0.3] = top
+        case["nt_free"][:] = 1 << 20
+        case["sizes"][:] = rng.integers(1, 1 << 24, size=64)
+        case["min_time"][:] = 0
+        return with_classes(case, 4, 7)
+    if name == "r8_padded":
+        case = random_case(8, 1000, 8, 48, 2, True)
+        for key in ("free", "total"):
+            case[key][:, 3:] = 0
+        for key in ("needs", "all_mask"):
+            case[key][:, :, 3:] = 0
+        return case
+    if name == "m16":
+        return with_classes(random_case(9, 2000, 4, 64, 2, False), 16, 9)
+    if name == "m_runs":
+        return with_classes(random_case(10, 3000, 4, 128, 2, False), 2, 10,
+                            runs=True)
+    if name == "r64_w16384":
+        # each variant requests a few of the 64 resources, so tasks fit
+        case = random_case(11, 16384, 64, 40, 2, False)
+        rng = np.random.default_rng(11)
+        case["needs"][rng.random(case["needs"].shape) < 0.9] = 0
+        return with_classes(case, 3, 11)
+    raise KeyError(name)
+
+
+# The K1g edge cases: the widest resident fused shape (gang rows, 8 groups,
+# a mask, M = 7) and one worker more, a policy-mask row that changes every
+# batch, runs of one visit-class row broken by gang rows, and R = 32 at
+# W = 16,384 with ALL-policy, gang rows over 16,384 groups and a mask,
+# whose global layout fits only with a shorter step ring.
+K1G_EDGE_CASES = ("limit", "limit_plus_1", "mask_every_batch",
+                  "m_runs_broken_by_gangs", "r32_all_w16384_G16384")
+
+
+def k1g_edge_case(name):
+    """Kernel inputs of the K1g edge case `name` (see K1G_EDGE_CASES)."""
+    from hyperqueue_tpu_torch.ops.assign import largest_resident_w
+
+    if name in ("limit", "limit_plus_1"):
+        w = largest_resident_w(4, 2, 7, 8, False, True, True)
+        w += name == "limit_plus_1"
+        return with_classes(fused_random_case(w, w, 4, 32, 2, 8), 7, w)
+    if name == "mask_every_batch":
+        case = random_case(21, 1024, 4, 96, 2, False)
+        rng = np.random.default_rng(21)
+        case["policy_mask"] = (rng.random((96, 1024)) < 0.7).astype(np.int32)
+        return with_classes(case, 3, 21)
+    if name == "m_runs_broken_by_gangs":
+        case = fused_random_case(22, 2048, 4, 120, 2, 8)
+        del case["policy_mask"]
+        case = with_classes(case, 2, 22, runs=True)
+        gang = np.zeros(120, np.int32)
+        gang[5::9] = np.arange(1, 15)[: len(gang[5::9])]
+        case["gang_nodes"] = gang
+        return case
+    if name == "r32_all_w16384_G16384":
+        n_w, n_g = 16384, 16384
+        case = random_case(23, n_w, 32, 24, 2, True)
+        rng = np.random.default_rng(23)
+        case["needs"][rng.random(case["needs"].shape) < 0.85] = 0
+        gids = np.where(rng.random(n_w) < 0.95,
+                        rng.integers(0, n_g, size=n_w), -1)
+        case.update(
+            policy_mask=(rng.random((24, n_w)) < 0.8).astype(np.int32),
+            gang_nodes=np.where(rng.random(24) < 0.25,
+                                rng.integers(1, 3, size=24), 0
+                                ).astype(np.int32),
+            gang_ok=(rng.random(n_w) < 0.6).astype(np.int32),
+            group_onehot=_onehot(gids, n_g),
+        )
+        return case
+    raise KeyError(name)
+
+
 # -- the sharded solve's cases (K2) -------------------------------------------
 
 def pad_workers(case, n_shards):
@@ -555,30 +715,55 @@ def _args(t):
     return [t[k] for k in KEYS], {k: t.get(k) for k in OPTIONAL}
 
 
-def kernel_vs_plain(case, device) -> int:
-    """Run the kernel and its plain version on the same inputs on the card;
-    raises unless counts, free and nt_free agree exactly. Returns the
-    largest absolute difference (0)."""
+def kernel_vs_plain(case, device, checked=None) -> int:
+    """Run the kernel (through its wrapper, in the instantiation the layout
+    picks) and its plain version on the same inputs on the card, then the
+    other instantiation too where it fits (cut_scan_forced, uncounted);
+    raises unless counts, free and nt_free agree exactly, or unless the
+    wrapper counted exactly one launch of the instantiation it picked.
+    Adds the instantiations checked to `checked` (name -> cases). Returns
+    the largest absolute difference (0)."""
     import torch
 
-    from hyperqueue_tpu_torch.ops.assign import (
-        greedy_cut_scan,
-        greedy_cut_scan_reference,
-    )
+    from hyperqueue_tpu_torch.ops import assign
 
     t = to_device(case, device)
     args, opt = _args(t)
-    ref = greedy_cut_scan_reference(*args, **opt)
-    counts = greedy_cut_scan(*args, **opt)
+    ref = assign.greedy_cut_scan_reference(*args, **opt)
+    n_w, n_r = case["free"].shape
+    n_g = case["group_onehot"].shape[1] if "group_onehot" in case else 0
+    layout = assign.cut_scan_layout(
+        n_w, n_r, case["min_time"].shape[1], case["class_m"].shape[0], n_g,
+        "total" in case, "gang_nodes" in case, "policy_mask" in case)
+    picked = layout["instantiation"]
+    f = assign.greedy_cut_scan
+    before = (f.resident_launches, f.global_launches)
+    state = (t["free"].clone(), t["nt_free"].clone())
+    runs = {picked: (assign.greedy_cut_scan(*args, **opt), t["free"],
+                     t["nt_free"])}
+    resident = picked == "resident"
+    want = (before[0] + resident, before[1] + (not resident))
+    if (f.resident_launches, f.global_launches) != want:
+        raise AssertionError(f"the wrapper picked {picked} but counted "
+                             f"{(f.resident_launches, f.global_launches)} "
+                             f"after {before}")
+    if resident:
+        runs["global"] = (assign.cut_scan_forced(*state, *args[2:], **opt,
+                                                 resident=False), *state)
     torch.cuda.synchronize()
     err = 0
-    for name, got, want in zip(("counts", "free", "nt_free"),
-                               (counts, t["free"], t["nt_free"]), ref):
-        diff = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-        if diff != 0:
-            raise AssertionError(f"kernel and plain version differ on {name}"
-                                 f" (max abs diff {diff})")
-        err = max(err, diff)
+    for kind, got_all in runs.items():
+        for name, got, want in zip(("counts", "free", "nt_free"), got_all,
+                                   ref):
+            diff = int((got.to(torch.int64) - want.to(torch.int64))
+                       .abs().max())
+            if diff != 0:
+                raise AssertionError(
+                    f"kernel ({kind}) and plain version differ on {name} "
+                    f"(max abs diff {diff})")
+            err = max(err, diff)
+        if checked is not None:
+            checked[kind] = checked.get(kind, 0) + 1
     return err
 
 
@@ -810,10 +995,76 @@ def kernel_timing(case, device, step_lat):
         "plain_ms": time_plain(kernel_case, device),
         "steps": steps,
         "M": int(case["class_m"].shape[0]),
-        "prologue_ms": prologue_ms(class_m),
+        "prologue_ms": prologue_ms(class_m, resident=True),
         "shape": list(case["_counts"].shape),
         **bounds(case, steps, step_lat),
     }
+
+
+def step_split(case, device, timing, registers=True):
+    """Where a step's time goes, in us per executed step at these inputs:
+    the solve's own kernel (the profiler's time) and every instantiation
+    that fits (cut_scan_variant_ms, CUDA events) over the executed steps;
+    with `registers`, also the step with the worker state in registers
+    (ops/assign.step_split_ms, per (threads, arithmetic, scan) variant;
+    R = 4 and W <= 1024 only)."""
+    from hyperqueue_tpu_torch.ops import assign
+
+    t = to_device({k: v for k, v in case.items() if not k.startswith("_")},
+                  device)
+    args, opt = _args(t)
+    steps = timing["steps"]
+    out = {"steps": steps, "threads": THREADS,
+           "solve_step_us": timing["ms"] / steps * 1e3}
+    fits = assign.cut_scan_layout(
+        *case["free"].shape, case["min_time"].shape[1],
+        case["class_m"].shape[0],
+        case["group_onehot"].shape[1] if "group_onehot" in case else 0,
+        "total" in case, "gang_nodes" in case,
+        "policy_mask" in case)["instantiation"] == "resident"
+    out["full_step_us"] = {
+        kind: assign.cut_scan_variant_ms(
+            *args, **opt, resident=kind == "resident") / steps * 1e3
+        for kind in (("resident", "global") if fits else ("global",))
+    }
+    if registers:
+        ms = assign.step_split_ms(t["free"], t["nt_free"], t["lifetime"],
+                                  t["needs"], t["sizes"], t["min_time"])
+        out["register_step_us"] = {"x".join(map(str, k)): v / steps * 1e3
+                                   for k, v in ms.items()}
+    return out
+
+
+def ptxas_usage(log_text):
+    """Per compiled kernel in an nvcc -Xptxas -v log: registers, spill
+    bytes and shared memory, keyed by the kernel's name and template
+    arguments."""
+    import re
+
+    usage, name = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            core = re.search(r"([a-z_]+_kernel)((?:I(?:L[ib]\d+E)+E)?)",
+                             m.group(1))
+            name = core.group(1) if core else m.group(1)
+            args = re.findall(r"L[ib](\d+)E", core.group(2)) if core else []
+            if args:
+                name += "<" + ",".join(args) + ">"
+            usage[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and "spill_stores" not in usage[name]:
+            usage[name].update(spill_stores=int(m.group(1)),
+                               spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m:
+            usage[name].update(registers=int(m.group(1)),
+                               static_smem=int(m.group(2) or 0))
+    return usage
 
 
 def k2_timing(case, device, n_shards, grid_lat, step_lat):
@@ -1333,8 +1584,7 @@ def server_path(card, device, model, tag="server", n_sync=N_SERVER_TICKS,
 
     # counts to 0 just before the path; the probe starts here, as the
     # server's first solve would start it
-    assign.greedy_cut_scan.launches = 0
-    assign.greedy_cut_scan.gang_launches = 0
+    assign.reset_launch_counts()
     solve.sharded_cut_scan.launches = 0
     probe.sync_probe.launches = 0
     sync_ms = greedy.device_sync_ms(wait_s=30)
@@ -1355,6 +1605,8 @@ def server_path(card, device, model, tag="server", n_sync=N_SERVER_TICKS,
         start(pipeline.drain(model=seam))
         check_solves(first_call, core.tick_counter)
     launches = {"cut_scan": assign.greedy_cut_scan.launches,
+                "cut_scan_resident": assign.greedy_cut_scan.resident_launches,
+                "cut_scan_global": assign.greedy_cut_scan.global_launches,
                 "cut_scan_gang": assign.greedy_cut_scan.gang_launches,
                 "sharded_scan": solve.sharded_cut_scan.launches,
                 "sync_probe": probe.sync_probe.launches}
@@ -1378,7 +1630,10 @@ def server_path(card, device, model, tag="server", n_sync=N_SERVER_TICKS,
                              f"{model.paranoid_checks} paranoid checks")
     other = "cut_scan" if mesh else "sharded_scan"
     if ((not mesh and launches["sync_probe"] < 1)
-            or launches["cut_scan_gang"] or launches[other]):
+            or launches["cut_scan_gang"] or launches[other]
+            or launches["cut_scan_global"]
+            or launches["cut_scan_resident"] != launches["cut_scan"]):
+        # at the north star every K1 solve runs the resident instantiation
         raise AssertionError(f"{tag} path launches {launches}")
     result.update(
         launches=launches, solves=n_solves, sync_solves=sync_calls,
@@ -1513,8 +1768,7 @@ def main_path(card, device, seen):
     recorder = RecordingModel(model)
     rng = np.random.default_rng(SEED + 1)
     tick_ms, tick_phases, last_case = [], [], None
-    assign.greedy_cut_scan.launches = 0
-    assign.greedy_cut_scan.gang_launches = 0
+    assign.reset_launch_counts()
     for tick in range(N_TICKS):
         before = assign.greedy_cut_scan.launches
         phases: dict = {}
@@ -1538,9 +1792,12 @@ def main_path(card, device, seen):
             resident=model.resident_stats(), card=card)
         advance(assignments, rows, rq_map, totals, nt0, rng)
     launches = assign.greedy_cut_scan.launches
-    if launches != N_TICKS or assign.greedy_cut_scan.gang_launches:
-        raise AssertionError(f"main path launched the kernel {launches} "
-                             f"times in {N_TICKS} ticks")
+    if (launches != N_TICKS or assign.greedy_cut_scan.gang_launches
+            or assign.greedy_cut_scan.resident_launches != N_TICKS):
+        raise AssertionError(
+            f"main path launched the kernel {launches} times "
+            f"({assign.greedy_cut_scan.resident_launches} resident) in "
+            f"{N_TICKS} ticks")
 
     def one_tick():
         a = run_tick(queues, rows, rq_map, resource_map, model)
@@ -1624,8 +1881,7 @@ def fused_path(card, device, seen):
         return placed
 
     tick_ms, tick_phases, m_rows, last_case = [], [], [], None
-    assign.greedy_cut_scan.launches = 0
-    assign.greedy_cut_scan.gang_launches = 0
+    assign.reset_launch_counts()
     for tick in range(N_FUSED_TICKS):
         idle, gang_batches, batches, ctx = tick_inputs()
         before = (assign.greedy_cut_scan.launches,
@@ -1657,9 +1913,12 @@ def fused_path(card, device, seen):
             wall_ms=tick_ms[-1], phases=phases,
             resident=model.resident_stats(), card=card)
     launches = assign.greedy_cut_scan.gang_launches
-    if launches != N_FUSED_TICKS:
-        raise AssertionError(f"fused path launched the kernel {launches} "
-                             f"times in {N_FUSED_TICKS} ticks")
+    if (launches != N_FUSED_TICKS
+            or assign.greedy_cut_scan.resident_launches != N_FUSED_TICKS):
+        raise AssertionError(
+            f"fused path launched the kernel {launches} times "
+            f"({assign.greedy_cut_scan.resident_launches} resident) in "
+            f"{N_FUSED_TICKS} ticks")
 
     def one_tick():
         idle, gang_batches, batches, ctx = tick_inputs()
@@ -1711,10 +1970,16 @@ def main() -> int:
                  if "registers" in ln or "spill" in ln or "Compiling" in ln]
         log("build", kernel=name, seconds=round(record["seconds"], 3),
             compiled=record["compiled"], ptxas=ptxas, card=card)
+        log("ptxas", source=name, kernels=ptxas_usage(record["ptxas"]),
+            card=card)
+    global THREADS
+    THREADS = int(load_library("cut_scan")[0].hq_cut_scan_block_threads())
     log("builds", wall_seconds=round(build_s, 3), native="hqcore",
         card=card)
 
-    # phase 2: the kernel against its plain version, K1 then K1g cases
+    # phase 2: the kernel against its plain version, K1 then K1g cases,
+    # each in the instantiation its layout picks and, where the resident
+    # one is picked, in the global one too
     max_err = 0
     cases = {"bench_1024x8x256x2": bench_instance()}
     shapes = [(8, 4, 8, 2), (13, 3, 5, 3), (100, 2, 9, 1), (1000, 4, 40, 2),
@@ -1723,18 +1988,36 @@ def main() -> int:
         for with_all in (False, True):
             name = "x".join(map(str, shape)) + ("_all" if with_all else "")
             cases[name] = random_case(100 + i, *shape, with_all)
-    for name, case in cases.items():
-        max_err = max(max_err, kernel_vs_plain(case, device))
-    log("kernel_vs_plain", cases=sorted(cases), max_abs_err=max_err,
-        card=card)
+    edges = {name: k1_edge_case(name) for name in K1_EDGE_CASES}
+    checked: dict = {}
+    for name, case in {**cases, **edges}.items():
+        try:
+            max_err = max(max_err, kernel_vs_plain(case, device, checked))
+        except AssertionError as e:
+            raise AssertionError(f"K1 case {name}: {e}") from e
+    log("kernel_vs_plain", cases=sorted(cases), edge_cases=sorted(edges),
+        instantiations_checked=checked, max_abs_err=max_err, card=card)
     max_err_g = 0
     k1g_inputs = k1g_cases()
-    for name, case in k1g_inputs.items():
-        max_err_g = max(max_err_g, kernel_vs_plain(case, device))
+    checked_g: dict = {}
+    k1g_edges = {name: k1g_edge_case(name) for name in K1G_EDGE_CASES}
+    for name, case in {**k1g_inputs, **k1g_edges}.items():
+        try:
+            max_err_g = max(max_err_g,
+                            kernel_vs_plain(case, device, checked_g))
+        except AssertionError as e:
+            raise AssertionError(f"K1g case {name}: {e}") from e
         gang = case.get("gang_nodes")
         log("kernel_vs_plain_k1g", case=name, M=int(case["class_m"].shape[0]),
             gang_rows=0 if gang is None else int((gang > 0).sum()),
             max_abs_err=max_err_g, card=card)
+    for inst in ("resident", "global"):
+        if not checked.get(inst) or not checked_g.get(inst):
+            raise AssertionError(f"the {inst} instantiation was not held "
+                                 f"against the plain version: {checked}, "
+                                 f"{checked_g}")
+    log("kernel_vs_plain_k1g_summary", instantiations_checked=checked_g,
+        max_abs_err=max_err_g, card=card)
 
     # phase 2b: the sharded kernel against its plain version and K1
     max_err_k2 = 0
@@ -1756,9 +2039,13 @@ def main() -> int:
 
     # phase 4: timings at the main path's shapes (the last tick's inputs)
     step_lat = assign.scan_step_latency_ms(4096, device)
+    legacy_lat = assign.scan_step_latency_ms(4096, device, legacy=True)
+    log("step_floor", scan_us=step_lat * 1e3, int64_scan_us=legacy_lat * 1e3,
+        threads=THREADS, card=card)
     k1 = kernel_timing(last_case, device, step_lat)
     log("timing", kernel="cut_scan", step_scan_latency_ms=step_lat, **k1,
         card=card)
+    log("k1_step_split", **step_split(last_case, device, k1), card=card)
     ticks = tick_summary(tick_ms, tick_phases, card)
     log("ticks", **ticks)
     n_window = 3
@@ -1778,6 +2065,8 @@ def main() -> int:
     k1g = kernel_timing(f_case, device, step_lat)
     log("timing", kernel="cut_scan_gang", step_scan_latency_ms=step_lat,
         **k1g, card=card)
+    log("k1g_step_split", **step_split(f_case, device, k1g, registers=False),
+        card=card)
     f_ticks = tick_summary(f_ms, f_phases, card)
     log("fused_ticks", M=m_rows, **f_ticks)
     log("fused_profiled_window", **window_summary(
@@ -1830,11 +2119,11 @@ def main() -> int:
         **k2, card=card)
 
     kernels = []
-    for name, replaces, launch_count, err, timing in (
+    for name, replaces, launch_count, err, timing, held in (
         ("cut_scan", "hyperqueue_tpu/ops/assign.py:398", launches, max_err,
-         k1),
+         k1, checked),
         ("cut_scan_gang", "hyperqueue_tpu/ops/assign.py:246", f_launches,
-         max_err_g, k1g),
+         max_err_g, k1g, checked_g),
     ):
         kernels.append({
             "name": name,
@@ -1854,6 +2143,14 @@ def main() -> int:
             "wrapper_ms": timing["wrapper_ms"],
             "server_launches": server["launches"]["cut_scan"]
             if name == "cut_scan" else 0,
+            # every launch of the path ran this instantiation (checked)
+            "instantiation": "resident",
+            "launches_by_instantiation": {"resident": launch_count,
+                                          "global": 0},
+            "cases_held_by_instantiation": held,
+            "threads": THREADS,
+            "step_floor_us": step_lat * 1e3,
+            "int64_step_floor_us": legacy_lat * 1e3,
         })
     kernels.append({
         "name": "sync_probe",
@@ -1891,7 +2188,8 @@ def main() -> int:
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
     }}))
     return 0
 

@@ -79,10 +79,18 @@ _AFF_STRIDE = _WASTE_Q * 2
 # which only relaxes the preference order among the most-wasteful workers)
 N_VISIT_CLASSES = 16
 
-# one kernel block of 1024 threads, at most 16 workers per thread
+# one kernel block, at most 16384 workers
 MAX_KERNEL_WORKERS = 16384
 # per-group eligible counts live in the block's shared memory
 MAX_KERNEL_GROUPS = 16384
+
+# The kernel's shared-memory layout (csrc/cut_scan.cu make_layout), as the
+# CPU tests' oracle: the dynamic shared memory an sm_90 block may opt into,
+# the most steps of one ring chunk and the fixed header (mbarriers, scan
+# buffers, gang choice). The wrapper asks the kernel library itself.
+SMEM_LIMIT = 232448
+_CHUNK_STEPS = 64
+_HEADER_BYTES = 1360
 
 # per-resource capacity of a resource the variant does not request
 _UNNEEDED = 2**30
@@ -155,6 +163,96 @@ def host_visit_classes(free0, needs, scarcity, all_mask=None, affinity=None):
     np.clip(class_m, 0, N_VISIT_CLASSES - 1, out=class_m)
     order_ids = inverse.reshape(n_b, n_v).astype(np.int32)
     return class_m, order_ids
+
+
+def _al16(n):
+    return (n + 15) // 16 * 16
+
+
+def _tma16(n):
+    # a bulk-copy destination: the copy starts at the source's 16-byte
+    # boundary below the data
+    return _al16(n) + 16
+
+
+def _layout_bytes(cb, n_w, n_r, n_v, n_m, n_g, all_policy, gang, masked,
+                  resident):
+    # the layout with cb whole batches per ring chunk
+    cs = cb * n_v
+    slot = (_tma16(cs * n_r * 4) * (2 if all_policy else 1)
+            + 2 * _tma16(cs * 4) + _tma16(cb * 4) * (2 if gang else 1)
+            + cs * 16 + cs * n_r * 16)
+    n = _HEADER_BYTES + 2 * slot + _tma16(n_w * 4)
+    if gang:
+        n += _al16(n_g * 4) + _al16(n_w)
+    if resident:
+        n += (_tma16(n_w * n_r * 4) * (2 if all_policy else 1)
+              + _tma16(n_w * 4) * (3 if gang else 2)
+              + _al16(n_m * n_w * 2)
+              + (2 * _tma16(n_w * 4) if masked else 0))
+    return n
+
+
+def cut_scan_smem_bytes(n_w, n_r, n_v, n_m, n_g, all_policy, gang, masked,
+                        resident) -> int:
+    """Dynamic shared memory of a cut-scan launch at these shapes, as the
+    kernel lays it out (csrc/cut_scan.cu make_layout; a card test holds the
+    two equal): the header, a two-slot ring of step-input chunks, the
+    capacity buffer, the gang carry and per-group counts and, on the
+    resident instantiation, the worker state (free, nt_free, lifetime,
+    total with ALL-policy, group ids with gang rows), the visit orders as
+    16-bit indices and two policy-mask rows. The ring's chunk is the most
+    whole batches, up to _CHUNK_STEPS steps (at least one batch), with
+    which the layout fits SMEM_LIMIT; where one batch a chunk does not fit,
+    this is that layout's bytes, over the limit."""
+    shape = (n_w, n_r, n_v, n_m, n_g if gang else 0, all_policy, gang,
+             masked, resident)
+    cb = max(1, _CHUNK_STEPS // n_v)
+    n = _layout_bytes(cb, *shape)
+    while n > SMEM_LIMIT and cb > 1:
+        cb -= 1
+        n = _layout_bytes(cb, *shape)
+    return n
+
+
+def cut_scan_layout(n_w, n_r, n_v, n_m, n_g=0, all_policy=False, gang=False,
+                    masked=False, native=False) -> dict:
+    """Which instantiation of the cut-scan kernel a launch at these shapes
+    runs, chosen before the launch: "resident" (the worker state in shared
+    memory) where its layout fits, else "global" (the state in device
+    memory). With `native` the kernel library's own layout decides
+    (native_smem_bytes, hq_cut_scan_smem_limit; builds the kernel), else
+    its mirror here (cut_scan_smem_bytes, SMEM_LIMIT). Returns
+    {"instantiation", "resident_bytes", "global_bytes"}; raises where
+    neither fits."""
+    nbytes = native_smem_bytes if native else cut_scan_smem_bytes
+    shape = (n_w, n_r, n_v, n_m, n_g, all_policy, gang, masked)
+    res, glob = nbytes(*shape, True), nbytes(*shape, False)
+    limit = (int(_cut_scan_lib()[0].hq_cut_scan_smem_limit()) if native
+             else SMEM_LIMIT)
+    if glob > limit:
+        raise ValueError(
+            f"the cut-scan kernel's shared memory ({glob} bytes at W={n_w}, "
+            f"R={n_r}, V={n_v}, G={n_g}) exceeds {limit}: one batch's step "
+            f"inputs do not fit beside the worker buffers"
+        )
+    return {"instantiation": "resident" if res <= limit else "global",
+            "resident_bytes": res, "global_bytes": glob}
+
+
+def largest_resident_w(n_r, n_v, n_m, n_g=0, all_policy=False, gang=False,
+                       masked=False) -> int:
+    """The widest W (at most MAX_KERNEL_WORKERS) whose resident layout
+    fits SMEM_LIMIT at these shapes (the bytes grow with W)."""
+    lo, hi = 1, MAX_KERNEL_WORKERS
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if cut_scan_smem_bytes(mid, n_r, n_v, n_m, n_g, all_policy, gang,
+                               masked, True) <= SMEM_LIMIT:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
 
 
 def greedy_cut_scan_reference(
@@ -392,10 +490,21 @@ def _cut_scan_lib():
     lib, record = load_library("cut_scan")
     if not getattr(lib, "_hq_prototypes", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.hq_cut_scan.argtypes = [vp] * 16 + [ci] * 6 + [vp]
-        lib.hq_cut_scan.restype = ci
-        lib.hq_scan_latency.argtypes = [ci, vp, vp]
-        lib.hq_scan_latency.restype = ci
+        ll = ctypes.c_longlong
+        for entry in (lib.hq_cut_scan, lib.hq_cut_scan_resident):
+            entry.argtypes = [vp] * 16 + [ci] * 6 + [vp]
+            entry.restype = ci
+        lib.hq_cut_scan_smem_bytes.argtypes = [ci] * 9
+        lib.hq_cut_scan_smem_bytes.restype = ll
+        lib.hq_cut_scan_smem_limit.restype = ll
+        lib.hq_cut_scan_block_threads.restype = ci
+        lib.hq_recip_check.argtypes = [ll, ll, vp, vp]
+        lib.hq_recip_check.restype = ci
+        for entry in (lib.hq_scan_latency, lib.hq_scan_latency_legacy):
+            entry.argtypes = [ci, vp, vp]
+            entry.restype = ci
+        lib.hq_step_split.argtypes = [ci] + [vp] * 6 + [ci] * 4 + [vp, vp]
+        lib.hq_step_split.restype = ci
         lib._hq_prototypes = True
     return lib, record
 
@@ -489,11 +598,14 @@ def greedy_cut_scan(
     greedy_cut_scan_reference for their semantics.
 
     On CUDA tensors it launches the CUDA kernel (csrc/cut_scan.cu) on the
-    current stream and counts the launch in `greedy_cut_scan.launches`
-    (and, when gang rows or a policy mask ride it, in
-    `greedy_cut_scan.gang_launches` too); a refused launch raises. On CPU
-    tensors it runs `greedy_cut_scan_reference`. The launch does not
-    synchronize, except to validate a group one-hot (see _group_ids).
+    current stream, in the instantiation `cut_scan_layout` picks by shape
+    before the launch (the worker state in shared memory where it fits,
+    else in device memory), and counts the launch in
+    `greedy_cut_scan.launches` and in `.resident_launches` or
+    `.global_launches` (and, when gang rows or a policy mask ride it, in
+    `.gang_launches` too); a refused launch raises. On CPU tensors it runs
+    `greedy_cut_scan_reference`. The launch does not synchronize, except to
+    validate a group one-hot (see _group_ids).
     """
     n_w, n_r, n_b, n_v, n_m, n_g = _validate(
         free, nt_free, lifetime, needs, sizes, min_time, class_m, order_ids,
@@ -527,41 +639,98 @@ def greedy_cut_scan(
     counts = torch.empty((n_b, n_v, n_w), dtype=torch.int32, device=device)
     if n_b == 0:
         return counts
-    group_ids = None if gang_nodes is None else _group_ids(group_onehot)
     lib, _record = _cut_scan_lib()
-    order = torch.empty((n_m, n_w), dtype=torch.int32, device=device)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.hq_cut_scan(
-            free.data_ptr(), nt_free.data_ptr(), lifetime.data_ptr(),
-            needs.data_ptr(), sizes.data_ptr(), min_time.data_ptr(),
-            class_m.data_ptr(), order_ids.data_ptr(), ptr(total),
-            ptr(all_mask), ptr(gang_nodes), ptr(gang_ok), ptr(group_ids),
-            ptr(policy_mask), counts.data_ptr(), order.data_ptr(),
-            n_w, n_r, n_b, n_v, n_m, n_g, stream,
-        )
+    layout = cut_scan_layout(
+        n_w, n_r, n_v, n_m, n_g, total is not None, gang_nodes is not None,
+        policy_mask is not None, native=True,
+    )
+    resident = layout["instantiation"] == "resident"
+    group_ids = None if gang_nodes is None else _group_ids(group_onehot)
+    rc = _launch(
+        lib.hq_cut_scan_resident if resident else lib.hq_cut_scan,
+        free, nt_free, lifetime, needs, sizes, min_time, class_m, order_ids,
+        total, all_mask, gang_nodes, gang_ok, group_ids, policy_mask, counts,
+        n_g, order=None if resident else torch.empty(
+            (n_m, n_w), dtype=torch.int32, device=device),
+    )
     if rc != 0:
-        raise RuntimeError(f"cut-scan kernel launch failed: cudaError {rc}")
+        raise RuntimeError(
+            f"cut-scan kernel launch ({layout['instantiation']}) failed: "
+            f"cudaError {rc}"
+        )
     greedy_cut_scan.launches += 1
+    if resident:
+        greedy_cut_scan.resident_launches += 1
+    else:
+        greedy_cut_scan.global_launches += 1
     if gang_nodes is not None or policy_mask is not None:
         greedy_cut_scan.gang_launches += 1
     return counts
 
 
 greedy_cut_scan.launches = 0
+greedy_cut_scan.resident_launches = 0
+greedy_cut_scan.global_launches = 0
 greedy_cut_scan.gang_launches = 0
 
 
-def prologue_ms(class_m, reps=20) -> float:
+def reset_launch_counts() -> None:
+    """Sets every launch count of greedy_cut_scan to 0."""
+    for name in ("launches", "resident_launches", "global_launches",
+                 "gang_launches"):
+        setattr(greedy_cut_scan, name, 0)
+
+
+def _launch(entry, free, nt_free, lifetime, needs, sizes, min_time, class_m,
+            order_ids, total, all_mask, gang_nodes, gang_ok, group_ids,
+            policy_mask, counts, n_g, order=None):
+    """Calls one of the kernel's C entries with the tensors' pointers and
+    shapes (n_g worker groups) on the current stream of their device;
+    returns its cudaError."""
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    n_w, n_r = free.shape
+    n_b, n_v = min_time.shape
+    device = free.device
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        return entry(
+            free.data_ptr(), nt_free.data_ptr(), lifetime.data_ptr(),
+            needs.data_ptr(), sizes.data_ptr(), min_time.data_ptr(),
+            class_m.data_ptr(), order_ids.data_ptr(), ptr(total),
+            ptr(all_mask), ptr(gang_nodes), ptr(gang_ok), ptr(group_ids),
+            ptr(policy_mask), counts.data_ptr(), ptr(order),
+            n_w, n_r, n_b, n_v, class_m.shape[0], n_g, stream,
+        )
+
+
+def _events_ms(device, launch, reps, warm=1) -> float:
+    """Mean device ms of `launch()` (which returns a cudaError) over `reps`
+    calls on the current stream, by CUDA events after `warm` calls; raises
+    on a refused launch."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device)
+        for n in (warm, reps):  # the first round warms up
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            for _ in range(n):
+                rc = launch()
+                if rc != 0:
+                    raise RuntimeError(f"measurement launch failed: {rc}")
+            end.record(stream)
+        end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def prologue_ms(class_m, reps=20, resident=False) -> float:
     """Device ms of the kernel's prologue alone (the counting sort of every
-    visit-class row into visit order) at this (M, W) table: a launch with
-    no batches runs nothing else. CUDA events over `reps` launches after
-    one warm-up. Measurement only: the tick never calls it, and it does
-    not count as a launch of the solve."""
+    visit-class row into visit order; resident: also the state's copy in
+    and out, at R = 1) at this (M, W) table: a launch with no batches runs
+    nothing else. CUDA events over `reps` launches after one warm-up.
+    Measurement only: the tick never calls it, and it does not count as a
+    launch of the solve."""
     lib, _record = _cut_scan_lib()
     device = class_m.device
     n_m, n_w = class_m.shape
@@ -569,41 +738,133 @@ def prologue_ms(class_m, reps=20) -> float:
     dummy = torch.zeros(max(n_w, 1), dtype=torch.int32, device=device)
     order = torch.empty((n_m, n_w), dtype=torch.int32, device=device)
     p = dummy.data_ptr()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device)
-        for n in (1, reps):  # the first round warms up
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record(stream)
-            for _ in range(n):
-                rc = lib.hq_cut_scan(
-                    p, p, p, p, p, p, class_m.data_ptr(), p, None, None,
-                    None, None, None, None, p, order.data_ptr(),
-                    n_w, 1, 0, 1, n_m, 0, stream.cuda_stream,
-                )
-                if rc != 0:
-                    raise RuntimeError(f"prologue launch failed: {rc}")
-            end.record(stream)
-        end.synchronize()
-    return start.elapsed_time(end) / reps
+    entry = lib.hq_cut_scan_resident if resident else lib.hq_cut_scan
+    stream = torch.cuda.current_stream(device).cuda_stream
+    return _events_ms(device, lambda: entry(
+        p, p, p, p, p, p, class_m.data_ptr(), p, None, None, None, None,
+        None, None, p, order.data_ptr(), n_w, 1, 0, 1, n_m, 0, stream,
+    ), reps)
 
 
-def scan_step_latency_ms(steps: int, device="cuda") -> float:
-    """Device time of one block-wide scan plus barrier (the kernel's
-    per-step floor), from `steps` of them in one launch timed with CUDA
-    events. Measurement only: the tick never calls it."""
+def scan_step_latency_ms(steps: int, device="cuda", legacy=False) -> float:
+    """Device time of one block-wide scan with its barrier (the kernel's
+    per-step floor: the one-barrier saturating scan; with `legacy`, the
+    int64 scan and closing barrier), from `steps` of them in one launch
+    timed with CUDA events. Measurement only: the tick never calls it."""
     lib, _record = _cut_scan_lib()
     device = torch.device(device)
     out = torch.empty(1, dtype=torch.int64, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    entry = lib.hq_scan_latency_legacy if legacy else lib.hq_scan_latency
+    return _events_ms(device, lambda: entry(
+        steps, out.data_ptr(), stream), 1) / steps
+
+
+def cut_scan_forced(free, nt_free, lifetime, needs, sizes, min_time,
+                    class_m, order_ids, total=None, all_mask=None,
+                    gang_nodes=None, gang_ok=None, group_onehot=None,
+                    policy_mask=None, resident=True):
+    """One launch of the named instantiation on these CUDA tensors,
+    whatever the layout would pick: counts, with free/nt_free updated in
+    place as by greedy_cut_scan. For checks and measurements only: not counted as a
+    launch of the solve. Raises where the kernel refuses the launch (a
+    resident layout past SMEM_LIMIT is refused, never switched)."""
+    n_w, n_r, n_b, n_v, n_m, n_g = _validate(
+        free, nt_free, lifetime, needs, sizes, min_time, class_m, order_ids,
+        total, all_mask, gang_nodes, gang_ok, group_onehot, policy_mask,
+    )
+    lib, _record = _cut_scan_lib()
+    device = free.device
+    group_ids = None if gang_nodes is None else _group_ids(group_onehot)
+    counts = torch.empty((n_b, n_v, n_w), dtype=torch.int32, device=device)
+    order = torch.empty((n_m, n_w), dtype=torch.int32, device=device)
+    rc = _launch(
+        lib.hq_cut_scan_resident if resident else lib.hq_cut_scan, free,
+        nt_free, lifetime, needs, sizes, min_time, class_m, order_ids, total,
+        all_mask, gang_nodes, gang_ok, group_ids, policy_mask, counts, n_g,
+        order=order,
+    )
+    if rc != 0:
+        kind = "resident" if resident else "global"
+        raise RuntimeError(
+            f"cut-scan kernel launch ({kind}) failed: cudaError {rc}")
+    return counts
+
+
+def cut_scan_variant_ms(free, nt_free, *args, reps=20, **kwargs) -> float:
+    """Device ms of one cut_scan_forced launch (same arguments) at these
+    inputs, by CUDA events over `reps` launches after one warm-up, each on
+    a copy of free/nt_free made before the timing. Measurement only."""
+    states = iter([(free.clone(), nt_free.clone()) for _ in range(reps + 1)])
+
+    def launch():
+        cut_scan_forced(*next(states), *args, **kwargs)
+        return 0
+
+    return _events_ms(free.device, launch, reps)
+
+
+def native_smem_bytes(n_w, n_r, n_v, n_m, n_g, all_policy, gang, masked,
+                      resident) -> int:
+    """The kernel's own layout bytes at these shapes (hq_cut_scan_smem_bytes;
+    builds the kernel). cut_scan_smem_bytes must give the same number."""
+    lib, _record = _cut_scan_lib()
+    return int(lib.hq_cut_scan_smem_bytes(
+        n_w, n_r, n_v, n_m, n_g if gang else 0, int(all_policy), int(gang),
+        int(masked), int(resident)))
+
+
+def recip_check(d0: int, d1: int, device="cuda") -> int:
+    """Divisors in [d0, d1) whose per-step reciprocal (csrc/cut_scan.cu
+    make_recip, recip_div) disagrees with the card's division at the
+    dividends where a wrong multiplier or shift shows first; 0 when all
+    agree. One launch covers any range of [1, 2^31)."""
+    lib, _record = _cut_scan_lib()
+    device = torch.device(device)
+    out = torch.zeros(1, dtype=torch.int64, device=device)
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device)
-        for n in (steps, steps):  # the first launch warms up
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record(stream)
-            rc = lib.hq_scan_latency(n, out.data_ptr(), stream.cuda_stream)
-            end.record(stream)
-            if rc != 0:
-                raise RuntimeError(f"scan latency launch failed: {rc}")
-        end.synchronize()
-    return start.elapsed_time(end) / steps
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.hq_recip_check(d0, d1, out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"reciprocal check launch failed: {rc}")
+    return int(out.item())
+
+
+def recip_numpy(d):
+    """The per-step reciprocal of divisors d in [1, 2^31) as the kernel
+    computes it (make_recip): (magic, shift) with
+    floor(n / d) == (magic * n) >> shift for every n in [0, 2^31)."""
+    d = np.asarray(d, dtype=np.uint64)
+    ceil_log2 = np.array([int(x - 1).bit_length() for x in d.tolist()],
+                         dtype=np.uint64)
+    num = np.left_shift(np.uint64(1), np.uint64(31) + ceil_log2)
+    return (num + d - np.uint64(1)) // d, (np.uint64(31) + ceil_log2)
+
+
+# hq_step_split's variants: (threads, arithmetic, scan); arithmetic 0 none,
+# 1 the int64 capacity, 2 the reciprocal; scan 0 the int64 scan and
+# closing barrier, 1 the one-barrier saturating scan
+STEP_SPLIT_VARIANTS = (
+    (1024, 0, 0), (1024, 1, 0), (1024, 2, 0), (1024, 1, 1),
+    (1024, 0, 1), (1024, 2, 1), (256, 0, 1), (256, 2, 1),
+)
+
+
+def step_split_ms(free, nt_free, lifetime, needs, sizes, min_time,
+                  reps=20) -> dict:
+    """Device ms of the solve's steps with the worker state in registers
+    (the arithmetic and the scan, no loads or stores; csrc/cut_scan.cu
+    step_split_kernel), per variant of STEP_SPLIT_VARIANTS, at these
+    inputs (R = 4, W <= 1024): CUDA events over `reps` launches after one
+    warm-up. Measurement only: the tick never calls it."""
+    lib, _record = _cut_scan_lib()
+    device = free.device
+    n_w, n_r = free.shape
+    n_b, n_v = min_time.shape
+    out = torch.zeros(2, dtype=torch.int64, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    return {key: _events_ms(device, lambda variant=variant: lib.hq_step_split(
+        variant, free.data_ptr(), nt_free.data_ptr(), lifetime.data_ptr(),
+        needs.data_ptr(), sizes.data_ptr(), min_time.data_ptr(), n_w, n_r,
+        n_b, n_v, out.data_ptr(), stream), reps)
+        for variant, key in enumerate(STEP_SPLIT_VARIANTS)}

@@ -12,6 +12,12 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import (
+    K1_EDGE_CASES,
+    K1G_EDGE_CASES,
+    k1_edge_case,
+    k1g_edge_case,
+)
 from hyperqueue_tpu_torch.convert import group_ids, tick_state_from_plain
 from hyperqueue_tpu_torch.models.greedy import GreedyCutScanModel
 from hyperqueue_tpu_torch.ops import assign
@@ -97,17 +103,49 @@ def fused_case(seed, n_w, n_r, n_b, n_v, n_g, gang=True, mask=True):
             for k, v in case.items()}
 
 
+def instantiation_of(case):
+    """The instantiation the wrapper picks for this case (by shape)."""
+    n_w, n_r = case["free"].shape
+    n_g = case["group_onehot"].shape[1] if "group_onehot" in case else 0
+    return assign.cut_scan_layout(
+        n_w, n_r, case["min_time"].shape[1], case["class_m"].shape[0], n_g,
+        "total" in case, "gang_nodes" in case, "policy_mask" in case,
+    )["instantiation"]
+
+
+def forced_launch(t, opt, resident):
+    """One launch of the given instantiation (not the wrapper's choice, not
+    counted) on copies of free/nt_free: (counts, free, nt_free) after it."""
+    free, nt = t["free"].clone(), t["nt_free"].clone()
+    counts = assign.cut_scan_forced(free, nt, *(t[k] for k in KEYS[2:]),
+                                    **opt, resident=resident)
+    return counts, free, nt
+
+
 def kernel_vs_reference(case, device):
+    """The wrapper's launch against the plain version (counting one launch
+    of the instantiation the layout picks, none of the other), then the
+    other instantiation too where it fits, all exact."""
     t = {k: torch.from_numpy(v).to(device) for k, v in case.items()}
     opt = {k: t.get(k) for k in OPTIONAL}
     ref = assign.greedy_cut_scan_reference(*(t[k] for k in KEYS), **opt)
-    launches = assign.greedy_cut_scan.launches
+    picked = instantiation_of(case)
+    f = assign.greedy_cut_scan
+    before = (f.launches, f.resident_launches, f.global_launches)
+    state = {k: t[k].clone() for k in ("free", "nt_free")}
     counts = assign.greedy_cut_scan(*(t[k] for k in KEYS), **opt)
     torch.cuda.synchronize()
-    assert assign.greedy_cut_scan.launches == launches + 1
+    resident = picked == "resident"
+    assert (f.launches, f.resident_launches, f.global_launches) == (
+        before[0] + 1, before[1] + resident, before[2] + (not resident))
     for name, got, want in zip(("counts", "free", "nt_free"),
                                (counts, t["free"], t["nt_free"]), ref):
         assert torch.equal(got, want), name
+    if resident:
+        got = forced_launch({**t, **state}, opt, resident=False)
+        torch.cuda.synchronize()
+        for name, g, want in zip(("counts", "free", "nt_free"), got, ref):
+            assert torch.equal(g, want), f"global instantiation: {name}"
     return counts
 
 
@@ -137,6 +175,76 @@ def test_gang_and_mask_kernel_matches_reference(cuda, shape, mode):
                    mask="mask" in mode), cuda)
     assert assign.greedy_cut_scan.gang_launches == gang_launches + 1
     assert int(counts.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", K1_EDGE_CASES)
+def test_kernel_edge_cases_match_reference(cuda, name):
+    """chip_smoke.py's K1 edge cases (see K1_EDGE_CASES there)."""
+    case = k1_edge_case(name)
+    if name.startswith("limit") or name.startswith("r64"):
+        want = "resident" if name in ("limit", "limit_all") else "global"
+        assert instantiation_of(case) == want
+    kernel_vs_reference(case, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", K1G_EDGE_CASES)
+def test_gang_edge_cases_match_reference(cuda, name):
+    """chip_smoke.py's K1g edge cases (see K1G_EDGE_CASES there)."""
+    case = k1g_edge_case(name)
+    if name.startswith("limit") or name.startswith("r32"):
+        want = "resident" if name == "limit" else "global"
+        assert instantiation_of(case) == want
+    gang_launches = assign.greedy_cut_scan.gang_launches
+    kernel_vs_reference(case, cuda)
+    assert assign.greedy_cut_scan.gang_launches == gang_launches + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("resident", [False, True], ids=["global",
+                                                          "resident"])
+def test_layout_bytes_match_the_kernels(cuda, resident):
+    rng = np.random.default_rng(int(resident))
+    shapes = [(1024, 4, 2, 3, 0, 0, 0, 0), (1024, 4, 2, 7, 8, 0, 1, 1),
+              (16384, 8, 2, 16, 16384, 1, 1, 1), (1, 1, 1, 1, 1, 0, 0, 0),
+              (16384, 64, 2, 3, 0, 0, 0, 0), (16384, 32, 2, 3, 16384, 1, 1, 1),
+              (16384, 64, 64, 16, 16384, 1, 1, 1)]
+    shapes += [tuple(int(x) for x in (
+        rng.integers(1, 16385), rng.integers(1, 65), rng.integers(1, 9),
+        rng.integers(1, 17), rng.integers(1, 16385), rng.integers(0, 2),
+        rng.integers(0, 2), rng.integers(0, 2))) for _ in range(200)]
+    for n_w, n_r, n_v, n_m, n_g, all_p, gang, masked in shapes:
+        args = (n_w, n_r, n_v, n_m, n_g if gang else 0, bool(all_p),
+                bool(gang), bool(masked), resident)
+        assert assign.cut_scan_smem_bytes(*args) == \
+            assign.native_smem_bytes(*args), args
+    lib, _record = assign._cut_scan_lib()
+    assert int(lib.hq_cut_scan_smem_limit()) == assign.SMEM_LIMIT
+
+
+@pytest.mark.cuda
+def test_reciprocal_of_every_divisor(cuda):
+    assert assign.recip_check(1, 2**31, cuda) == 0
+
+
+@pytest.mark.cuda
+def test_resident_launch_that_does_not_fit_is_refused(cuda, monkeypatch):
+    """The C entry refuses a resident launch one worker past the limit, and
+    the wrapper raises instead of switching to the other instantiation."""
+    case = k1_edge_case("limit_plus_1")
+    t = {k: torch.from_numpy(v).to(cuda) for k, v in case.items()}
+    opt = {k: t.get(k) for k in OPTIONAL}
+    with pytest.raises(RuntimeError, match="cudaError 1$"):
+        forced_launch(t, opt, resident=True)  # cudaErrorInvalidValue
+    layout = assign.cut_scan_layout
+    monkeypatch.setattr(assign, "cut_scan_layout", lambda *a, **k: {
+        **layout(*a, **k), "instantiation": "resident"})
+    f = assign.greedy_cut_scan
+    before = (f.launches, f.resident_launches, f.global_launches)
+    with pytest.raises(RuntimeError, match=r"\(resident\) failed"):
+        assign.greedy_cut_scan(*(t[k] for k in KEYS), **opt)
+    assert (f.launches, f.resident_launches, f.global_launches) == before
 
 
 @pytest.mark.cuda
