@@ -25,16 +25,25 @@ Phases:
      of the redesign (the widest resident shape and one worker more, caps
      summing past 2^31, negative free rows, needs at both ends of
      [1, 2^31), R = 8 with padding, M = 16, runs of one visit-class row
-     with and without gang rows, a mask row that changes every batch).
+     with and without gang rows, a mask row that changes every batch, and
+     batches whose V x R step inputs a ring of whole batches could not
+     hold: V = 2,048 at W = R = 64, R = 2,066 and R = 867 with every option
+     at W = 16,384 (one step a ring chunk), and R = 4,200 and R = 2,048 with
+     every option (the direct layout)).
      Each case runs in the instantiation the layout picks (the wrapper
      must count it there) and, where that is the resident one, in the
      global one too; both must have been held;
   2b. the sharded kernel (K2) against its plain version and against K1 on
      the same inputs, exact on counts, free and nt_free: the K1 cases over
      2, 4 and 8 shards of the card, the K1g cases over 4, gang rows whose
-     chosen group straddles a shard boundary over 2, 4 and 8, and 32,768
+     chosen group straddles a shard boundary over 2, 4 and 8, 32,768
      workers (ALL-policy; gang rows and a mask) over 4, twice K1's width,
-     against the plain version only;
+     against the plain version only, the bench instance and a K1g case over
+     16 and 32 shards (32: past any cluster) and the V x R edge cases over
+     4. Each case runs in the exchange (cluster or grid) and instantiation
+     the wrapper picks (it must count that launch) and in every other one
+     that fits, through the forced entry; every variant and both exchanges
+     through the wrapper must have been held;
   3. the main path: ticks through run_tick with GreedyCutScanModel on the
      card; each tick's counts are checked against the plain version on the
      same padded inputs and its assignments against the workers' capacity,
@@ -88,13 +97,22 @@ Phases:
      4 shards of 256 workers, as `hq server start --scheduler multichip`
      builds it: 8 synchronous and 8 pipelined ticks, every solve's counts
      held against K2's plain version; it fails on a solve whose
-     backend_reason is not "multichip-mesh", a K1 launch, any watchdog
-     failure, timeout or degraded tick, or a residency invalidation; then
-     its medians and the device's idle share over 3 profiled ticks;
+     backend_reason is not "multichip-mesh", a K1 launch, a K2 launch that
+     did not run the cluster exchange, any watchdog failure, timeout or
+     degraded tick, or a residency invalidation; then its medians and the
+     device's idle share over 3 profiled ticks;
  10. K2's device time at the multichip path's last synchronous tick, K1's
-     at the same inputs, its plain version's, one block scan plus one grid
-     barrier over 4 blocks (grid_step_latency_ms) and the latency bound
-     (executed steps times that).
+     at the same inputs, its plain version's, the exchanges' floors (one
+     block scan plus one cluster or grid barrier over 4 blocks: the
+     cluster_step_latency line) and the latency bound (executed steps times
+     the floor of the picked exchange); then k2_step_split, us per step of
+     every K2 variant at those inputs.
+
+Every profiled kernel time comes from a window whose every launch is held
+against the plain version's outputs, exact; a window in which the profiler
+records no time for the kernel is logged (profiler_empty_window, with what
+it did record) and profiled again, at most twice; the profiler_windows line
+counts both.
 
 Each server tick prints its backend and backend_reason: "device-cuda" with
 "sync-within-budget" (first solve: no measurement yet, the probe's round
@@ -502,10 +520,37 @@ def with_classes(case, n_m, seed, runs=False):
 # [1, 2^31) against free across the int32 range; R = 8 with padded
 # resources; M = 16 rows; runs of one visit-class row (no closing barrier)
 # over three workers a thread; R = 64 at W = 16,384, whose global layout
-# fits only with a shorter step ring.
+# fits only with a shorter step ring; and batches whose V x R step inputs a
+# ring of whole batches could not hold: V = 2,048 at W = R = 64 (chunks end
+# inside batches), R = 2,066 at W = 16,384 (one step a chunk) and R = 4,200
+# (not even one step fits: the direct layout).
 K1_EDGE_CASES = ("limit", "limit_plus_1", "limit_all", "limit_all_plus_1",
                  "caps_past_2_31", "negative_free_rows", "need_range_ends",
-                 "r8_padded", "m16", "m_runs", "r64_w16384")
+                 "r8_padded", "m16", "m_runs", "r64_w16384",
+                 "vr_w64_r64_v2048", "vr_w16384_r2066",
+                 "vr_direct_w16384_r4200")
+
+
+def wide_inputs_case(seed, n_w, n_r, n_b, n_v, with_all, n_m=16):
+    """A case with many resources or variants: each variant requests the
+    first resource and about four others, one task's worth each, and every
+    worker has 1-8 tasks' worth of every resource, so tasks fit; M
+    visit-class rows."""
+    rng = np.random.default_rng(seed)
+    free = rng.integers(1, 9, size=(n_w, n_r)).astype(np.int32) * 100
+    needs = (rng.random((n_b, n_v, n_r)) < min(0.05, 4 / n_r)).astype(
+        np.int32) * 100
+    needs[:, :, 0] = 100
+    case = {"free": free,
+            "nt_free": rng.integers(0, 6, size=n_w).astype(np.int32),
+            "lifetime": np.full(n_w, INF, np.int32), "needs": needs,
+            "sizes": rng.integers(1, 2000, size=n_b).astype(np.int32),
+            "min_time": np.zeros((n_b, n_v), np.int32)}
+    if with_all:
+        case["total"] = free.copy()
+        case["all_mask"] = (rng.random((n_b, n_v, n_r)) < 0.01).astype(
+            np.int32)
+    return with_classes(case, n_m, seed)
 
 
 def k1_edge_case(name):
@@ -569,6 +614,12 @@ def k1_edge_case(name):
         rng = np.random.default_rng(11)
         case["needs"][rng.random(case["needs"].shape) < 0.9] = 0
         return with_classes(case, 3, 11)
+    if name == "vr_w64_r64_v2048":
+        return wide_inputs_case(12, 64, 64, 3, 2048, False, n_m=1)
+    if name == "vr_w16384_r2066":
+        return wide_inputs_case(13, 16384, 2066, 3, 2, False)
+    if name == "vr_direct_w16384_r4200":
+        return wide_inputs_case(14, 16384, 4200, 3, 2, False)
     raise KeyError(name)
 
 
@@ -576,9 +627,14 @@ def k1_edge_case(name):
 # a mask, M = 7) and one worker more, a policy-mask row that changes every
 # batch, runs of one visit-class row broken by gang rows, and R = 32 at
 # W = 16,384 with ALL-policy, gang rows over 16,384 groups and a mask,
-# whose global layout fits only with a shorter step ring.
+# whose global layout fits only with a shorter step ring; R = 867 at
+# W = 16,384 with ALL-policy, 16,384 groups, gang rows, a mask and M = 16,
+# past a ring of whole batches (one step a chunk), and R = 2,048 with the
+# same options (the direct layout).
 K1G_EDGE_CASES = ("limit", "limit_plus_1", "mask_every_batch",
-                  "m_runs_broken_by_gangs", "r32_all_w16384_G16384")
+                  "m_runs_broken_by_gangs", "r32_all_w16384_G16384",
+                  "vr_w16384_r867_all_G16384",
+                  "vr_direct_w16384_r2048_all_G16384")
 
 
 def k1g_edge_case(name):
@@ -614,6 +670,22 @@ def k1g_edge_case(name):
             gang_nodes=np.where(rng.random(24) < 0.25,
                                 rng.integers(1, 3, size=24), 0
                                 ).astype(np.int32),
+            gang_ok=(rng.random(n_w) < 0.6).astype(np.int32),
+            group_onehot=_onehot(gids, n_g),
+        )
+        return case
+    if name in ("vr_w16384_r867_all_G16384",
+                "vr_direct_w16384_r2048_all_G16384"):
+        n_w = n_g = 16384
+        n_r, seed = (867, 24) if "r867" in name else (2048, 25)
+        n_b = 6
+        case = wide_inputs_case(seed, n_w, n_r, n_b, 2, True)
+        rng = np.random.default_rng(seed)
+        gids = np.where(rng.random(n_w) < 0.95,
+                        rng.integers(0, n_g, size=n_w), -1)
+        case.update(
+            policy_mask=(rng.random((n_b, n_w)) < 0.8).astype(np.int32),
+            gang_nodes=np.array([0, 2, 0, 0, 3, 0], np.int32),
             gang_ok=(rng.random(n_w) < 0.6).astype(np.int32),
             group_onehot=_onehot(gids, n_g),
         )
@@ -677,10 +749,18 @@ def straddle_case(n_w=1024, n_shards=4):
             for k, v in case.items()}
 
 
+# the V x R edge cases that K2 runs too, over 4 shards
+K2_VR_CASES = ("vr_w64_r64_v2048", "vr_w16384_r2066", "vr_direct_w16384_r4200")
+K2G_VR_CASES = ("vr_w16384_r867_all_G16384",
+                "vr_direct_w16384_r2048_all_G16384")
+
+
 def k2_cases(k1_cases, k1g):
     """name -> (kernel inputs, shards) of every K2 case: the K1 cases over
     2, 4 and 8 shards, the K1g cases over 4, the straddling gangs over 2, 4
-    and 8, and 32,768 workers (ALL-policy; gang rows and a mask) over 4."""
+    and 8, 32,768 workers (ALL-policy; gang rows and a mask) over 4, the
+    bench instance and the first K1g case over 16 and 32 shards (32 is past
+    any cluster: the grid exchange), and the V x R edge cases over 4."""
     cases = {}
     for name, case in k1_cases.items():
         for n in (2, 4, 8):
@@ -692,6 +772,14 @@ def k2_cases(k1_cases, k1g):
     cases["all_32768x3x8x2_D4"] = (random_case(76, 32768, 3, 8, 2, True), 4)
     cases["gang_mask_32768x3x8x2_G8_D4"] = (
         fused_random_case(77, 32768, 3, 8, 2, 8), 4)
+    first_k1g = next(iter(k1g))
+    for n in (16, 32):
+        cases[f"bench_1024x8x256x2_D{n}"] = (bench_instance(), n)
+        cases[f"{first_k1g}_D{n}"] = (pad_workers(k1g[first_k1g], n), n)
+    for name in K2_VR_CASES:
+        cases[f"{name}_D4"] = (k1_edge_case(name), 4)
+    for name in K2G_VR_CASES:
+        cases[f"{name}_D4"] = (k1g_edge_case(name), 4)
     return cases
 
 
@@ -767,11 +855,60 @@ def kernel_vs_plain(case, device, checked=None) -> int:
     return err
 
 
-def sharded_vs_plain(case, device, n_shards) -> int:
-    """Run K2 over n_shards shards of the card, its plain version and, where
-    K1 takes the width, K1, on the same inputs; raises unless counts, free
-    and nt_free agree exactly. Returns the largest absolute difference
-    (0)."""
+K2_VARIANTS = [(ex, res) for ex in ("cluster", "grid")
+               for res in (True, False)]
+
+
+def case_shape(case):
+    """(W, R, V, M, G, ALL-policy, gang rows, mask) of a case's inputs, in
+    the layouts' argument order."""
+    n_w, n_r = case["free"].shape
+    n_g = case["group_onehot"].shape[1] if "group_onehot" in case else 0
+    return (n_w, n_r, case["min_time"].shape[1], case["class_m"].shape[0],
+            n_g, "total" in case, "gang_nodes" in case,
+            "policy_mask" in case)
+
+
+def k2_layout(case, n_shards):
+    """The exchange and instantiation the sharded wrapper picks for these
+    inputs (the kernel library's own layout and occupancy query)."""
+    from hyperqueue_tpu_torch.parallel import solve
+
+    n_w, *rest = case_shape(case)
+    return solve.sharded_layout(n_w, n_shards, *rest, native=True)
+
+
+def k2_variant_fits(case, n_shards, exchange, resident) -> bool:
+    """Whether the sharded kernel takes these inputs in this variant: a
+    resident layout within the shared-memory limit, a cluster of
+    n_shards blocks that the card fits (the library's occupancy query); a
+    grid the blocks of which the card holds at once (all our cases)."""
+    from hyperqueue_tpu_torch.parallel import solve
+
+    lib, _record = solve._sharded_scan_lib()
+    n_w, *rest = case_shape(case)
+    shape = [n_w // n_shards] + [int(x) for x in rest]
+    if resident and lib.hq_sharded_smem_bytes(*shape, 1) > \
+            lib.hq_sharded_smem_limit():
+        return False
+    if exchange == "cluster":
+        return n_shards <= lib.hq_sharded_max_cluster(*shape, int(resident))
+    return True
+
+
+def k2_name(exchange, resident) -> str:
+    return f"{exchange}/{'resident' if resident else 'global'}"
+
+
+def sharded_vs_plain(case, device, n_shards, checked=None) -> int:
+    """Run K2 over n_shards shards of the card through its wrapper (the
+    exchange and instantiation its layout picks; it must count exactly that
+    launch), then through the forced entry (uncounted) in
+    every other variant that fits, beside its plain version and, where K1
+    takes the width, K1, on the same inputs; raises unless counts, free and
+    nt_free agree exactly. Adds the variants held to `checked` (name ->
+    cases; "wrapper/<exchange>" for the wrapper's picks). Returns the
+    largest absolute difference (0)."""
     import torch
 
     from hyperqueue_tpu_torch.ops.assign import (
@@ -783,19 +920,54 @@ def sharded_vs_plain(case, device, n_shards) -> int:
     mesh = solve.make_worker_mesh([device] * n_shards)
     t = to_device(case, device)
     args, opt = _args(t)
+    pristine = (t["free"].clone(), t["nt_free"].clone())
     want = {"plain": solve.sharded_cut_scan_reference(mesh, *args, **opt)}
-    if case["free"].shape[0] <= MAX_KERNEL_WORKERS:
+    n_w, n_r = case["free"].shape
+    if n_w <= MAX_KERNEL_WORKERS:
         state = (t["free"].clone(), t["nt_free"].clone())
         want["K1"] = (greedy_cut_scan(*state, *args[2:], **opt), *state)
+    layout = k2_layout(case, n_shards)
+    f = solve.sharded_cut_scan
+    before = {k: getattr(f, k) for k in solve.LAUNCH_COUNTS}
     counts = solve.sharded_cut_scan(mesh, *args, **opt)
+    got = {k: getattr(f, k) - before[k] for k in solve.LAUNCH_COUNTS}
+    resident = layout["instantiation"] == "resident"
+    expect = {"launches": 1,
+              "cluster_launches": int(layout["exchange"] == "cluster"),
+              "grid_launches": int(layout["exchange"] == "grid"),
+              "resident_launches": int(resident),
+              "global_launches": int(not resident)}
+    if got != expect:
+        raise AssertionError(f"the wrapper picked {layout} but counted {got}")
+    picked = (layout["exchange"], resident)
+    runs = {"wrapper/" + k2_name(*picked): (counts, t["free"], t["nt_free"])}
+    for variant in K2_VARIANTS:
+        if variant == picked or not k2_variant_fits(case, n_shards,
+                                                    *variant):
+            continue
+        state = (pristine[0].clone(), pristine[1].clone())
+        ex, res = variant
+        runs[k2_name(*variant)] = (solve.sharded_cut_scan_forced(
+            mesh, *state, *args[2:], **opt, exchange=ex, resident=res),
+            *state)
     torch.cuda.synchronize()
-    for other, ref in want.items():
-        for name, got, w in zip(("counts", "free", "nt_free"),
-                                (counts, t["free"], t["nt_free"]), ref):
-            diff = int((got.to(torch.int64) - w.to(torch.int64)).abs().max())
-            if diff != 0:
-                raise AssertionError(f"K2 and {other} differ on {name} "
-                                     f"(max abs diff {diff})")
+    for kind, got_all in runs.items():
+        for other, ref in want.items():
+            for name, g, w in zip(("counts", "free", "nt_free"), got_all,
+                                  ref):
+                diff = int((g.to(torch.int64) - w.to(torch.int64))
+                           .abs().max())
+                if diff != 0:
+                    raise AssertionError(
+                        f"K2 ({kind}) and {other} differ on {name} (max "
+                        f"abs diff {diff})")
+        if checked is not None:
+            key = kind.replace("wrapper/", "") if kind.startswith(
+                "wrapper/") else kind
+            checked[key] = checked.get(key, 0) + 1
+            if kind.startswith("wrapper/"):
+                wk = "wrapper/" + layout["exchange"]
+                checked[wk] = checked.get(wk, 0) + 1
     return 0
 
 
@@ -901,12 +1073,13 @@ def bounds(case, steps, step_latency_ms):
     }
 
 
-def time_kernel(case, device, reps=50, solve=None) -> float:
+def time_kernel(case, device, reps=50, solve=None):
     """Mean ms of one call of the kernel's wrapper (K1's unless `solve` is
     given) at these inputs, by CUDA events over `reps` back-to-back calls
-    (each on its own copy of the state it updates in place). With gang rows
-    this includes the wrapper's group one-hot check, which reads a flag
-    back."""
+    (each on its own copy of the state it updates in place), and the host's
+    mean ms to issue one of those calls (perf_counter, no wait): where the
+    two are about equal, the host sets the pace. With gang rows this
+    includes the wrapper's group one-hot check, which reads a flag back."""
     import torch
 
     from hyperqueue_tpu_torch.ops.assign import greedy_cut_scan
@@ -923,41 +1096,85 @@ def time_kernel(case, device, reps=50, solve=None) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
+    t0 = time.perf_counter()
     for f, n in states[5:]:
         solve(f, n, *rest, **opt)
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / reps, host_ms
+
+
+# profiled kernel windows in this run, and those in which the profiler
+# recorded no time for the kernel
+PROFILED = {"windows": 0, "empty": 0}
+# a case's plain outputs, by the id of its free array (kept alive beside)
+_PLAIN: dict = {}
+
+
+def plain_outputs(case, device):
+    """The plain version's (counts, free, nt_free) at a case's inputs on the
+    card, computed once per case. K1's, which K2's plain version equals on
+    every case (phase 2b)."""
+    from hyperqueue_tpu_torch.ops.assign import greedy_cut_scan_reference
+
+    hit = _PLAIN.get(id(case["free"]))
+    if hit is None or hit[0] is not case["free"]:
+        args, opt = _args(to_device(case, device))
+        hit = (case["free"], greedy_cut_scan_reference(*args, **opt))
+        _PLAIN[id(case["free"])] = hit
+    return hit[1]
 
 
 def kernel_device_ms(case, device, reps=20, solve=None,
                      kernel="cut_scan_kernel") -> float:
     """Mean device ms of the kernel `kernel` alone at these inputs, launched
     by `solve` (K1's wrapper by default): the profiler's (CUPTI) kernel time
-    over `reps` launches."""
+    over `reps` launches, each of which must equal the plain version exactly
+    (counts, free, nt_free). A window in which the profiler records no time
+    for the kernel is logged with what it did record and profiled again, at
+    most twice, before the measurement fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from hyperqueue_tpu_torch.ops.assign import greedy_cut_scan
 
     solve = solve or greedy_cut_scan
+    want = plain_outputs(case, device)
     t = to_device(case, device)
-    states = [(t["free"].clone(), t["nt_free"].clone())
-              for _ in range(reps + 2)]
     args, opt = _args(t)
-    for f, n in states[:2]:
-        solve(f, n, *args[2:], **opt)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for f, n in states[2:]:
+    for attempt in range(3):
+        states = [(t["free"].clone(), t["nt_free"].clone())
+                  for _ in range(reps + 2)]
+        for f, n in states[:2]:
             solve(f, n, *args[2:], **opt)
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if kernel in e.key]
-    total_us = sum(e.self_device_time_total for e in events)
-    if total_us <= 0:
-        raise AssertionError(f"the profiler saw no {kernel} time")
-    return total_us / 1e3 / reps
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            outs = [(solve(f, n, *args[2:], **opt), f, n)
+                    for f, n in states[2:]]
+            torch.cuda.synchronize()
+        for out in outs:
+            for name, got, ref in zip(("counts", "free", "nt_free"), out,
+                                      want):
+                if not torch.equal(got, ref):
+                    raise AssertionError(
+                        f"a profiled {kernel} launch differs from the "
+                        f"plain version on {name}")
+        PROFILED["windows"] += 1
+        averages = prof.key_averages()
+        events = [e for e in averages if kernel in e.key]
+        total_us = sum(e.self_device_time_total for e in events)
+        if total_us > 0:
+            return total_us / 1e3 / reps
+        PROFILED["empty"] += 1
+        timed = sorted(averages, key=lambda e: -e.device_time_total)[:6]
+        log("profiler_empty_window", kernel=kernel, attempt=attempt,
+            kernel_events=[(e.key, e.count) for e in events],
+            device_events=[(e.key, e.count, e.device_time_total)
+                           for e in timed if e.device_time_total > 0],
+            events=len(prof.events()))
+    raise AssertionError(f"the profiler saw no {kernel} time")
 
 
 def time_plain(case, device, reps=3, plain=None) -> float:
@@ -989,9 +1206,10 @@ def kernel_timing(case, device, step_lat):
     kernel_case = {k: v for k, v in case.items() if not k.startswith("_")}
     steps = executed_steps(case)
     class_m = torch.from_numpy(case["class_m"]).to(device)
+    wrapper_ms, host_ms = time_kernel(kernel_case, device)
     return {
         "ms": kernel_device_ms(kernel_case, device),
-        "wrapper_ms": time_kernel(kernel_case, device),
+        "wrapper_ms": wrapper_ms, "wrapper_host_ms": host_ms,
         "plain_ms": time_plain(kernel_case, device),
         "steps": steps,
         "M": int(case["class_m"].shape[0]),
@@ -1067,11 +1285,23 @@ def ptxas_usage(log_text):
     return usage
 
 
-def k2_timing(case, device, n_shards, grid_lat, step_lat):
+def k2_floors(device, n_shards, steps=4096):
+    """us per step of one saturating block scan plus one exchange barrier
+    over n_shards shard blocks, per exchange (cluster_step_latency_ms,
+    grid_step_latency_ms)."""
+    from hyperqueue_tpu_torch.parallel import solve
+
+    return {kind: fn(steps, n_shards, device) * 1e3
+            for kind, fn in (("cluster", solve.cluster_step_latency_ms),
+                             ("grid", solve.grid_step_latency_ms))}
+
+
+def k2_timing(case, device, n_shards, floors, step_lat):
     """K2's times and bounds at one tick's padded inputs over n_shards
     shards, beside K1's device time at the same inputs. The bytes and
     operations are K1's (the same function); the latency bound is the
-    executed steps times one block scan plus one grid barrier."""
+    executed steps times the floor of the exchange the wrapper picks (one
+    block scan plus one exchange barrier)."""
     from functools import partial
 
     from hyperqueue_tpu_torch.parallel import solve
@@ -1079,23 +1309,54 @@ def k2_timing(case, device, n_shards, grid_lat, step_lat):
     mesh = solve.make_worker_mesh([device] * n_shards)
     kernel_case = {k: v for k, v in case.items() if not k.startswith("_")}
     steps = executed_steps(case)
+    layout = k2_layout(kernel_case, n_shards)
+    floor_ms = floors[layout["exchange"]] / 1e3
     k2 = partial(solve.sharded_cut_scan, mesh)
-    b = bounds(case, steps, grid_lat)
+    b = bounds(case, steps, floor_ms)
+    wrapper_ms, host_ms = time_kernel(kernel_case, device, solve=k2)
     return {
         "ms": kernel_device_ms(kernel_case, device, solve=k2,
                                kernel="sharded_scan_kernel"),
         "k1_ms": kernel_device_ms(kernel_case, device),
-        "wrapper_ms": time_kernel(kernel_case, device, solve=k2),
+        "wrapper_ms": wrapper_ms, "wrapper_host_ms": host_ms,
         "plain_ms": time_plain(
             kernel_case, device, reps=1,
             plain=partial(solve.sharded_cut_scan_reference, mesh)),
         "steps": steps, "shards": n_shards,
         "M": int(case["class_m"].shape[0]),
         "shape": list(case["_counts"].shape),
-        "grid_step_latency_ms": grid_lat,
+        "exchange": layout["exchange"],
+        "instantiation": layout["instantiation"],
+        "threads": int(solve._sharded_scan_lib()[0]
+                       .hq_sharded_block_threads()),
+        "step_floor_us": floor_ms * 1e3,
         "k1_latency_bound_ms": steps * step_lat,
         **b,
     }
+
+
+def k2_step_split(case, device, n_shards, timing, reps=20):
+    """us per executed step of every K2 variant that fits at these inputs
+    (forced launches, the profiler's kernel time over `reps` launches),
+    beside the wrapper's."""
+    from functools import partial
+
+    from hyperqueue_tpu_torch.parallel import solve
+
+    kernel_case = {k: v for k, v in case.items() if not k.startswith("_")}
+    steps = timing["steps"]
+    mesh = solve.make_worker_mesh([device] * n_shards)
+    out = {"steps": steps, "shards": n_shards,
+           "solve_step_us": timing["ms"] / steps * 1e3, "step_us": {}}
+    for ex, res in K2_VARIANTS:
+        if not k2_variant_fits(kernel_case, n_shards, ex, res):
+            continue
+        forced = partial(solve.sharded_cut_scan_forced, mesh, exchange=ex,
+                         resident=res)
+        out["step_us"][k2_name(ex, res)] = kernel_device_ms(
+            kernel_case, device, reps=reps, solve=forced,
+            kernel="sharded_scan_kernel") / steps * 1e3
+    return out
 
 
 def check_assignments(assignments, rows, rq_map, seen):
@@ -1585,7 +1846,7 @@ def server_path(card, device, model, tag="server", n_sync=N_SERVER_TICKS,
     # counts to 0 just before the path; the probe starts here, as the
     # server's first solve would start it
     assign.reset_launch_counts()
-    solve.sharded_cut_scan.launches = 0
+    solve.reset_launch_counts()
     probe.sync_probe.launches = 0
     sync_ms = greedy.device_sync_ms(wait_s=30)
     if greedy.probe_error() is not None:
@@ -1609,6 +1870,11 @@ def server_path(card, device, model, tag="server", n_sync=N_SERVER_TICKS,
                 "cut_scan_global": assign.greedy_cut_scan.global_launches,
                 "cut_scan_gang": assign.greedy_cut_scan.gang_launches,
                 "sharded_scan": solve.sharded_cut_scan.launches,
+                "sharded_scan_cluster":
+                    solve.sharded_cut_scan.cluster_launches,
+                "sharded_scan_grid": solve.sharded_cut_scan.grid_launches,
+                "sharded_scan_resident":
+                    solve.sharded_cut_scan.resident_launches,
                 "sync_probe": probe.sync_probe.launches}
     gc.callbacks.remove(on_gc)
     # checks of the whole path
@@ -1628,6 +1894,11 @@ def server_path(card, device, model, tag="server", n_sync=N_SERVER_TICKS,
         raise AssertionError(f"{kernel} launched {launches[kernel]} times "
                              f"for {n_solves} solves and "
                              f"{model.paranoid_checks} paranoid checks")
+    if mesh and (launches["sharded_scan_cluster"] != launches["sharded_scan"]
+                 or launches["sharded_scan_grid"]):
+        # 4 shards of 256 are one cluster: every solve runs that exchange
+        raise AssertionError(f"{tag} path: not every K2 launch ran the "
+                             f"cluster exchange: {launches}")
     other = "cut_scan" if mesh else "sharded_scan"
     if ((not mesh and launches["sync_probe"] < 1)
             or launches["cut_scan_gang"] or launches[other]
@@ -2019,17 +2290,27 @@ def main() -> int:
     log("kernel_vs_plain_k1g_summary", instantiations_checked=checked_g,
         max_abs_err=max_err_g, card=card)
 
-    # phase 2b: the sharded kernel against its plain version and K1
+    # phase 2b: the sharded kernel against its plain version and K1, each
+    # case in the variant the wrapper picks and in every other that fits
     max_err_k2 = 0
     t0 = time.perf_counter()
     sharded = k2_cases(cases, k1g_inputs)
+    checked_k2: dict = {}
     for name, (case, n_shards) in sharded.items():
         try:
-            max_err_k2 = max(max_err_k2,
-                             sharded_vs_plain(case, device, n_shards))
+            max_err_k2 = max(max_err_k2, sharded_vs_plain(
+                case, device, n_shards, checked_k2))
         except AssertionError as e:
             raise AssertionError(f"K2 case {name}: {e}") from e
-    log("sharded_vs_plain", cases=sorted(sharded), max_abs_err=max_err_k2,
+    missing = [k2_name(*v) for v in K2_VARIANTS
+               if not checked_k2.get(k2_name(*v))]
+    missing += [f"wrapper/{ex}" for ex in ("cluster", "grid")
+                if not checked_k2.get(f"wrapper/{ex}")]
+    if missing:
+        raise AssertionError(f"K2 variants never held: {missing}; "
+                             f"{checked_k2}")
+    log("sharded_vs_plain", cases=sorted(sharded),
+        variants_checked=checked_k2, max_abs_err=max_err_k2,
         seconds=round(time.perf_counter() - t0, 3), card=card)
 
     # phase 3: the main path, ticks through run_tick on the card
@@ -2113,10 +2394,14 @@ def main() -> int:
     m_case = check_tick_against_plain(
         m_model, m_kwargs, m_counts, device, "timing",
         partial(solve.sharded_cut_scan_reference, mesh))
-    grid_lat = solve.grid_step_latency_ms(4096, N_SHARDS, device)
-    k2 = k2_timing(m_case, device, N_SHARDS, grid_lat, step_lat)
+    floors = k2_floors(device, N_SHARDS)
+    log("cluster_step_latency", shards=N_SHARDS, floor_us=floors,
+        scan_us=step_lat * 1e3, card=card)
+    k2 = k2_timing(m_case, device, N_SHARDS, floors, step_lat)
     log("timing", kernel="sharded_scan", step_scan_latency_ms=step_lat,
         **k2, card=card)
+    log("k2_step_split", **k2_step_split(m_case, device, N_SHARDS, k2),
+        card=card)
 
     kernels = []
     for name, replaces, launch_count, err, timing, held in (
@@ -2184,7 +2469,22 @@ def main() -> int:
         "wrapper_ms": k2["wrapper_ms"],
         "k1_ms": k2["k1_ms"],
         "shards": N_SHARDS,
+        "exchange": k2["exchange"],
+        "instantiation": k2["instantiation"],
+        "threads": k2["threads"],
+        "step_floor_us": k2["step_floor_us"],
+        # every launch of the path ran the cluster exchange (checked)
+        "launches_by_exchange": {
+            "cluster": multi["launches"]["sharded_scan_cluster"],
+            "grid": multi["launches"]["sharded_scan_grid"]},
+        "launches_by_instantiation": {
+            "resident": multi["launches"]["sharded_scan_resident"],
+            "global": multi["launches"]["sharded_scan"]
+            - multi["launches"]["sharded_scan_resident"]},
+        "cases_held_by_variant": checked_k2,
+        "floor_us": floors,
     })
+    log("profiler_windows", **PROFILED, card=card)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

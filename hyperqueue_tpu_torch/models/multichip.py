@@ -9,11 +9,11 @@ W / D.
 
 Shards: the mesh is built lazily, at the first solve, from `devices` when
 the caller passes them (a device may repeat: repeats are shards of one
-card, D blocks of one cooperative launch), else from the visible cards of
-the model's device type, the first `n_devices` of them when given. With a
-single shard the model is exactly GreedyCutScanModel (K1). A mesh over
-several cards raises NotImplementedError: the exchange across cards is not
-ported yet (ROADMAP, Queue 1 item 1).
+card, D blocks of one launch of the sharded kernel), else from the visible
+cards of the model's device type, the first `n_devices` of them when given.
+With a single shard the model is exactly GreedyCutScanModel (K1). A mesh
+over several cards raises NotImplementedError: the exchange across cards is
+not ported yet (ROADMAP, Queue 1 item 1).
 
 With a mesh, the adaptive host-vs-device cost model is bypassed: selecting
 multichip means "shard my solve", so every solve runs the sharded kernel

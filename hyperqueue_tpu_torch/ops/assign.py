@@ -84,13 +84,20 @@ MAX_KERNEL_WORKERS = 16384
 # per-group eligible counts live in the block's shared memory
 MAX_KERNEL_GROUPS = 16384
 
-# The kernel's shared-memory layout (csrc/cut_scan.cu make_layout), as the
-# CPU tests' oracle: the dynamic shared memory an sm_90 block may opt into,
-# the most steps of one ring chunk and the fixed header (mbarriers, scan
-# buffers, gang choice). The wrapper asks the kernel library itself.
+# The kernel's shared-memory layout (csrc/cut_scan_core.cuh make_layout), as
+# the CPU tests' oracle: the dynamic shared memory an sm_90 block may opt
+# into, the most steps of one ring chunk (and of a direct layout's chunk),
+# and the fixed header (mbarriers, scan buffers, gang choice; a sharded
+# block's also holds its class sums, the cluster mailbox and the warps'
+# class offsets). The wrappers ask the kernel libraries themselves.
 SMEM_LIMIT = 232448
 _CHUNK_STEPS = 64
+_DIRECT_CHUNK_STEPS = 8
 _HEADER_BYTES = 1360
+_SHARD_HEADER_BYTES = 5712
+# bytes of one step entry (resource, need, reciprocal multiplier, kind and
+# shift) in the ring or, for a direct layout, in device memory
+ENTRY_BYTES = 16
 
 # per-resource capacity of a resource the variant does not request
 _UNNEEDED = 2**30
@@ -175,44 +182,80 @@ def _tma16(n):
     return _al16(n) + 16
 
 
-def _layout_bytes(cb, n_w, n_r, n_v, n_m, n_g, all_policy, gang, masked,
-                  resident):
-    # the layout with cb whole batches per ring chunk
-    cs = cb * n_v
-    slot = (_tma16(cs * n_r * 4) * (2 if all_policy else 1)
-            + 2 * _tma16(cs * 4) + _tma16(cb * 4) * (2 if gang else 1)
-            + cs * 16 + cs * n_r * 16)
-    n = _HEADER_BYTES + 2 * slot + _tma16(n_w * 4)
+def _layout_bytes(cs, n_w, n_r, n_v, n_m, n_g, all_policy, gang, masked,
+                  resident, direct=False, sharded=False):
+    # the layout with cs steps per ring chunk (layout_with)
+    nb = (cs + n_v - 2) // n_v + 1  # most batches one chunk touches
+    slot = (2 * _tma16(cs * 4) + _tma16(nb * 4) * (2 if gang else 1)
+            + cs * 16)
+    if not direct:
+        slot += (_tma16(cs * n_r * 4) * (2 if all_policy else 1)
+                 + cs * n_r * ENTRY_BYTES)
+    n = (_SHARD_HEADER_BYTES if sharded else _HEADER_BYTES) + 2 * slot \
+        + _tma16(n_w * 4)
     if gang:
         n += _al16(n_g * 4) + _al16(n_w)
     if resident:
         n += (_tma16(n_w * n_r * 4) * (2 if all_policy else 1)
               + _tma16(n_w * 4) * (3 if gang else 2)
-              + _al16(n_m * n_w * 2)
+              + _al16(n_m * n_w * (4 if sharded else 2))
               + (2 * _tma16(n_w * 4) if masked else 0))
     return n
+
+
+def _ring(n_w, n_r, n_v, n_m, n_g, all_policy, gang, masked, resident,
+          sharded=False):
+    """(steps per chunk, direct, bytes) of the layout (make_layout): the
+    most steps, up to _CHUNK_STEPS (at least one), with which it fits
+    SMEM_LIMIT; where not even one step's inputs fit, a resident layout
+    does not fit (the one-step layout, over the limit) and a global one is
+    direct (_DIRECT_CHUNK_STEPS steps a chunk, the inputs of width R and
+    the step entries in device memory), whose bytes may still be over the
+    limit."""
+    shape = (n_w, n_r, n_v, n_m, n_g if gang else 0, all_policy, gang,
+             masked, resident)
+    for cs in range(_CHUNK_STEPS, 0, -1):
+        n = _layout_bytes(cs, *shape, sharded=sharded)
+        if n <= SMEM_LIMIT:
+            return cs, False, n
+    if resident:
+        return 1, False, n
+    return (_DIRECT_CHUNK_STEPS, True,
+            _layout_bytes(_DIRECT_CHUNK_STEPS, *shape, direct=True,
+                          sharded=sharded))
 
 
 def cut_scan_smem_bytes(n_w, n_r, n_v, n_m, n_g, all_policy, gang, masked,
                         resident) -> int:
     """Dynamic shared memory of a cut-scan launch at these shapes, as the
-    kernel lays it out (csrc/cut_scan.cu make_layout; a card test holds the
-    two equal): the header, a two-slot ring of step-input chunks, the
-    capacity buffer, the gang carry and per-group counts and, on the
+    kernel lays it out (csrc/cut_scan_core.cuh make_layout; a card test
+    holds the two equal): the header, a two-slot ring of step-input chunks,
+    the capacity buffer, the gang carry and per-group counts and, on the
     resident instantiation, the worker state (free, nt_free, lifetime,
     total with ALL-policy, group ids with gang rows), the visit orders as
     16-bit indices and two policy-mask rows. The ring's chunk is the most
-    whole batches, up to _CHUNK_STEPS steps (at least one batch), with
-    which the layout fits SMEM_LIMIT; where one batch a chunk does not fit,
-    this is that layout's bytes, over the limit."""
-    shape = (n_w, n_r, n_v, n_m, n_g if gang else 0, all_policy, gang,
-             masked, resident)
-    cb = max(1, _CHUNK_STEPS // n_v)
-    n = _layout_bytes(cb, *shape)
-    while n > SMEM_LIMIT and cb > 1:
-        cb -= 1
-        n = _layout_bytes(cb, *shape)
-    return n
+    steps, up to _CHUNK_STEPS, with which the layout fits SMEM_LIMIT; a
+    chunk may end inside a batch. Where not even one step's inputs fit, the
+    layout is direct (see _ring)."""
+    return _ring(n_w, n_r, n_v, n_m, n_g, all_policy, gang, masked,
+                 resident)[2]
+
+
+def cut_scan_ring(n_w, n_r, n_v, n_m, n_g, all_policy, gang, masked,
+                  resident) -> int:
+    """Steps per ring chunk of the cut-scan's layout at these shapes,
+    negated where the layout is direct (hq_cut_scan_ring's answer)."""
+    cs, direct, _n = _ring(n_w, n_r, n_v, n_m, n_g, all_policy, gang, masked,
+                           resident)
+    return -cs if direct else cs
+
+
+def ents_scratch(n_r, ring_steps, n_blocks=1):
+    """The step-entry scratch of a direct layout (ring_steps < 0): int32
+    words for (blocks, 2 slots, steps, R) entries; None otherwise."""
+    if ring_steps >= 0:
+        return None
+    return n_blocks * 2 * -ring_steps * n_r * ENTRY_BYTES // 4
 
 
 def cut_scan_layout(n_w, n_r, n_v, n_m, n_g=0, all_policy=False, gang=False,
@@ -220,12 +263,18 @@ def cut_scan_layout(n_w, n_r, n_v, n_m, n_g=0, all_policy=False, gang=False,
     """Which instantiation of the cut-scan kernel a launch at these shapes
     runs, chosen before the launch: "resident" (the worker state in shared
     memory) where its layout fits, else "global" (the state in device
-    memory). With `native` the kernel library's own layout decides
-    (native_smem_bytes, hq_cut_scan_smem_limit; builds the kernel), else
-    its mirror here (cut_scan_smem_bytes, SMEM_LIMIT). Returns
-    {"instantiation", "resident_bytes", "global_bytes"}; raises where
-    neither fits."""
+    memory), and that layout's ring: steps per chunk, negated where the
+    layout is direct. With `native` the kernel library's own layout decides
+    (native_smem_bytes, hq_cut_scan_smem_limit, hq_cut_scan_ring; builds the
+    kernel), else its mirror here. Returns {"instantiation",
+    "resident_bytes", "global_bytes", "ring_steps"}. Every R and V has a
+    layout at W <= MAX_KERNEL_WORKERS; wider W raises."""
+    if not 1 <= n_w <= MAX_KERNEL_WORKERS:
+        raise ValueError(
+            f"the cut-scan kernel takes 1 to {MAX_KERNEL_WORKERS} workers, "
+            f"got {n_w}")
     nbytes = native_smem_bytes if native else cut_scan_smem_bytes
+    ring = native_ring if native else cut_scan_ring
     shape = (n_w, n_r, n_v, n_m, n_g, all_policy, gang, masked)
     res, glob = nbytes(*shape, True), nbytes(*shape, False)
     limit = (int(_cut_scan_lib()[0].hq_cut_scan_smem_limit()) if native
@@ -233,11 +282,11 @@ def cut_scan_layout(n_w, n_r, n_v, n_m, n_g=0, all_policy=False, gang=False,
     if glob > limit:
         raise ValueError(
             f"the cut-scan kernel's shared memory ({glob} bytes at W={n_w}, "
-            f"R={n_r}, V={n_v}, G={n_g}) exceeds {limit}: one batch's step "
-            f"inputs do not fit beside the worker buffers"
-        )
-    return {"instantiation": "resident" if res <= limit else "global",
-            "resident_bytes": res, "global_bytes": glob}
+            f"R={n_r}, V={n_v}, G={n_g}) exceeds {limit}")
+    resident = res <= limit
+    return {"instantiation": "resident" if resident else "global",
+            "resident_bytes": res, "global_bytes": glob,
+            "ring_steps": ring(*shape, resident)}
 
 
 def largest_resident_w(n_r, n_v, n_m, n_g=0, all_policy=False, gang=False,
@@ -492,10 +541,12 @@ def _cut_scan_lib():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         ll = ctypes.c_longlong
         for entry in (lib.hq_cut_scan, lib.hq_cut_scan_resident):
-            entry.argtypes = [vp] * 16 + [ci] * 6 + [vp]
+            entry.argtypes = [vp] * 17 + [ci] * 6 + [vp]
             entry.restype = ci
         lib.hq_cut_scan_smem_bytes.argtypes = [ci] * 9
         lib.hq_cut_scan_smem_bytes.restype = ll
+        lib.hq_cut_scan_ring.argtypes = [ci] * 9
+        lib.hq_cut_scan_ring.restype = ci
         lib.hq_cut_scan_smem_limit.restype = ll
         lib.hq_cut_scan_block_threads.restype = ci
         lib.hq_recip_check.argtypes = [ll, ll, vp, vp]
@@ -652,6 +703,7 @@ def greedy_cut_scan(
         total, all_mask, gang_nodes, gang_ok, group_ids, policy_mask, counts,
         n_g, order=None if resident else torch.empty(
             (n_m, n_w), dtype=torch.int32, device=device),
+        ents=_ents(n_r, layout["ring_steps"], 1, device),
     )
     if rc != 0:
         raise RuntimeError(
@@ -681,9 +733,17 @@ def reset_launch_counts() -> None:
         setattr(greedy_cut_scan, name, 0)
 
 
+def _ents(n_r, ring_steps, n_blocks, device):
+    """The step-entry scratch of a direct layout on `device`, else None."""
+    words = ents_scratch(n_r, ring_steps, n_blocks)
+    if words is None:
+        return None
+    return torch.empty(words, dtype=torch.int32, device=device)
+
+
 def _launch(entry, free, nt_free, lifetime, needs, sizes, min_time, class_m,
             order_ids, total, all_mask, gang_nodes, gang_ok, group_ids,
-            policy_mask, counts, n_g, order=None):
+            policy_mask, counts, n_g, order=None, ents=None):
     """Calls one of the kernel's C entries with the tensors' pointers and
     shapes (n_g worker groups) on the current stream of their device;
     returns its cudaError."""
@@ -700,7 +760,7 @@ def _launch(entry, free, nt_free, lifetime, needs, sizes, min_time, class_m,
             needs.data_ptr(), sizes.data_ptr(), min_time.data_ptr(),
             class_m.data_ptr(), order_ids.data_ptr(), ptr(total),
             ptr(all_mask), ptr(gang_nodes), ptr(gang_ok), ptr(group_ids),
-            ptr(policy_mask), counts.data_ptr(), ptr(order),
+            ptr(policy_mask), counts.data_ptr(), ptr(order), ptr(ents),
             n_w, n_r, n_b, n_v, class_m.shape[0], n_g, stream,
         )
 
@@ -742,7 +802,7 @@ def prologue_ms(class_m, reps=20, resident=False) -> float:
     stream = torch.cuda.current_stream(device).cuda_stream
     return _events_ms(device, lambda: entry(
         p, p, p, p, p, p, class_m.data_ptr(), p, None, None, None, None,
-        None, None, p, order.data_ptr(), n_w, 1, 0, 1, n_m, 0, stream,
+        None, None, p, order.data_ptr(), None, n_w, 1, 0, 1, n_m, 0, stream,
     ), reps)
 
 
@@ -778,11 +838,14 @@ def cut_scan_forced(free, nt_free, lifetime, needs, sizes, min_time,
     group_ids = None if gang_nodes is None else _group_ids(group_onehot)
     counts = torch.empty((n_b, n_v, n_w), dtype=torch.int32, device=device)
     order = torch.empty((n_m, n_w), dtype=torch.int32, device=device)
+    ring = native_ring(n_w, n_r, n_v, n_m, n_g, total is not None,
+                       gang_nodes is not None, policy_mask is not None,
+                       resident)
     rc = _launch(
         lib.hq_cut_scan_resident if resident else lib.hq_cut_scan, free,
         nt_free, lifetime, needs, sizes, min_time, class_m, order_ids, total,
         all_mask, gang_nodes, gang_ok, group_ids, policy_mask, counts, n_g,
-        order=order,
+        order=order, ents=_ents(n_r, ring, 1, device),
     )
     if rc != 0:
         kind = "resident" if resident else "global"
@@ -810,6 +873,16 @@ def native_smem_bytes(n_w, n_r, n_v, n_m, n_g, all_policy, gang, masked,
     builds the kernel). cut_scan_smem_bytes must give the same number."""
     lib, _record = _cut_scan_lib()
     return int(lib.hq_cut_scan_smem_bytes(
+        n_w, n_r, n_v, n_m, n_g if gang else 0, int(all_policy), int(gang),
+        int(masked), int(resident)))
+
+
+def native_ring(n_w, n_r, n_v, n_m, n_g, all_policy, gang, masked,
+                resident) -> int:
+    """The kernel's own ring at these shapes (hq_cut_scan_ring: steps per
+    chunk, negated where direct); cut_scan_ring must give the same."""
+    lib, _record = _cut_scan_lib()
+    return int(lib.hq_cut_scan_ring(
         n_w, n_r, n_v, n_m, n_g if gang else 0, int(all_policy), int(gang),
         int(masked), int(resident)))
 

@@ -16,6 +16,11 @@ import torch
 from hyperqueue_tpu.ops import assign as jax_assign
 from hyperqueue_tpu_torch.ops import assign as port_assign
 
+# one intra-op thread per process: the suite runs in several worker
+# processes at once, and torch's default of a thread per core in each
+# of them starves the other workers (and their wall-clock gates)
+torch.set_num_threads(1)
+
 U = 10_000
 INF = 2**31 - 1
 

@@ -33,6 +33,11 @@ from hyperqueue_tpu_torch.scheduler.watchdog import SolverWatchdog
 from hyperqueue_tpu_torch.utils import clock
 from hyperqueue_tpu_torch.utils import native as port_native
 
+# one intra-op thread per process: the suite runs in several worker
+# processes at once, and torch's default of a thread per core in each
+# of them starves the other workers (and their wall-clock gates)
+torch.set_num_threads(1)
+
 U = 10_000
 INF = 2**31 - 1
 SHAPES = [(1024, 256, 8, 2, 4, False, False, 0, False),

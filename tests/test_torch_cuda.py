@@ -15,8 +15,11 @@ import torch
 from chip_smoke import (
     K1_EDGE_CASES,
     K1G_EDGE_CASES,
+    K2_VR_CASES,
+    K2G_VR_CASES,
     k1_edge_case,
     k1g_edge_case,
+    sharded_vs_plain,
 )
 from hyperqueue_tpu_torch.convert import group_ids, tick_state_from_plain
 from hyperqueue_tpu_torch.models.greedy import GreedyCutScanModel
@@ -219,6 +222,7 @@ def test_layout_bytes_match_the_kernels(cuda, resident):
                 bool(gang), bool(masked), resident)
         assert assign.cut_scan_smem_bytes(*args) == \
             assign.native_smem_bytes(*args), args
+        assert assign.cut_scan_ring(*args) == assign.native_ring(*args), args
     lib, _record = assign._cut_scan_lib()
     assert int(lib.hq_cut_scan_smem_limit()) == assign.SMEM_LIMIT
 
@@ -528,28 +532,21 @@ def straddle_case(n_w=1024, n_shards=4):
 
 
 def sharded_vs_reference(case, device, n_shards):
-    """K2 against its plain version and, where K1 takes the width, against
-    K1, on the same inputs: counts, free and nt_free all exact."""
+    """K2 through its wrapper (one launch counted, in the exchange and
+    instantiation it picks) and through the forced entry in every other
+    variant that fits (both exchanges, both instantiations), against its
+    plain version and, where K1 takes the
+    width, against K1, on the same inputs: counts, free and nt_free all
+    exact (chip_smoke.sharded_vs_plain). Returns the plain counts."""
     from hyperqueue_tpu_torch.parallel import solve
 
+    launches = solve.sharded_cut_scan.launches
+    assert sharded_vs_plain(case, device, n_shards) == 0
+    assert solve.sharded_cut_scan.launches == launches + 1
     mesh = solve.make_worker_mesh([device] * n_shards)
     t = {k: torch.from_numpy(v).to(device) for k, v in case.items()}
-    opt = {k: t.get(k) for k in OPTIONAL}
-    args = [t[k] for k in KEYS]
-    want = [solve.sharded_cut_scan_reference(mesh, *args, **opt)]
-    if case["free"].shape[0] <= assign.MAX_KERNEL_WORKERS:
-        state = (t["free"].clone(), t["nt_free"].clone())
-        counts = assign.greedy_cut_scan(*state, *args[2:], **opt)
-        want.append((counts, *state))
-    launches = solve.sharded_cut_scan.launches
-    counts = solve.sharded_cut_scan(mesh, *args, **opt)
-    torch.cuda.synchronize()
-    assert solve.sharded_cut_scan.launches == launches + 1
-    for ref in want:
-        for name, got, w in zip(("counts", "free", "nt_free"),
-                                (counts, t["free"], t["nt_free"]), ref):
-            assert torch.equal(got, w), name
-    return counts
+    return solve.sharded_cut_scan_reference(
+        mesh, *(t[k] for k in KEYS), **{k: t.get(k) for k in OPTIONAL})[0]
 
 
 @pytest.mark.cuda
@@ -605,7 +602,7 @@ def test_sharded_kernel_rejects_what_it_cannot_hold(cuda):
 
     case = random_case(5, 1024, 2, 4, 1, False)
     t = {k: torch.from_numpy(v).to(cuda) for k, v in case.items()}
-    # more shards than the card holds blocks of 1024 threads at once
+    # more shards than the card holds shard blocks at once
     mesh = solve.make_worker_mesh([cuda] * 1024)
     with pytest.raises(RuntimeError, match="launch failed"):
         solve.sharded_cut_scan(mesh, *(t[k] for k in KEYS))
@@ -620,10 +617,93 @@ def test_sharded_kernel_rejects_what_it_cannot_hold(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", K2_VR_CASES + K2G_VR_CASES)
+def test_sharded_vr_edge_cases_match_reference(cuda, name):
+    """The batches whose V x R step inputs a ring of whole batches could not
+    hold (chip_smoke.py's edge cases), over 4 shards."""
+    case = k1_edge_case(name) if name in K2_VR_CASES else k1g_edge_case(name)
+    assert int(sharded_vs_reference(case, cuda, 4).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_shards", [16, 32])
+def test_sharded_kernel_past_a_cluster(cuda, n_shards):
+    """16 shards are the largest cluster (where the card fits it), 32 only
+    the grid exchange: the wrapper picks it and counts it."""
+    from hyperqueue_tpu_torch.parallel import solve
+
+    case = random_case(41, 1024, 4, 64, 2, False)
+    grid = solve.sharded_cut_scan.grid_launches
+    assert int(sharded_vs_reference(case, cuda, n_shards).sum()) > 0
+    if n_shards > solve.CLUSTER_LIMIT:
+        assert solve.sharded_cut_scan.grid_launches == grid + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("resident", [False, True], ids=["global",
+                                                          "resident"])
+def test_sharded_layout_bytes_match_the_kernel(cuda, resident):
+    from hyperqueue_tpu_torch.parallel import solve
+
+    lib, _record = solve._sharded_scan_lib()
+    rng = np.random.default_rng(10 + int(resident))
+    shapes = [(256, 4, 2, 3, 0, 0, 0, 0), (256, 4, 2, 7, 8, 0, 1, 1),
+              (4096, 867, 2, 16, 16384, 1, 1, 1), (16384, 2048, 2, 16, 16384,
+                                                   1, 1, 1),
+              (16, 64, 2048, 1, 0, 0, 0, 0)]
+    shapes += [tuple(int(x) for x in (
+        rng.integers(1, 16385), rng.integers(1, 65), rng.integers(1, 9),
+        rng.integers(1, 17), rng.integers(1, 16385), rng.integers(0, 2),
+        rng.integers(0, 2), rng.integers(0, 2))) for _ in range(200)]
+    for n_wl, n_r, n_v, n_m, n_g, all_p, gang, masked in shapes:
+        args = (n_wl, n_r, n_v, n_m, n_g if gang else 0, bool(all_p),
+                bool(gang), bool(masked), resident)
+        native = [int(a) for a in args]
+        assert solve.sharded_smem_bytes(*args) == \
+            lib.hq_sharded_smem_bytes(*native), args
+        assert solve.sharded_ring(*args) == lib.hq_sharded_ring(*native), \
+            args
+    assert int(lib.hq_sharded_smem_limit()) == assign.SMEM_LIMIT
+    assert int(lib.hq_sharded_cluster_limit()) == solve.CLUSTER_LIMIT
+
+
+@pytest.mark.cuda
+def test_refused_cluster_launch_raises(cuda, monkeypatch):
+    """A cluster launch that the kernel refuses (17 blocks, past the largest
+    cluster) raises; the wrapper never switches to the grid exchange."""
+    from hyperqueue_tpu_torch.parallel import solve
+
+    case = random_case(42, 17 * 16, 2, 4, 1, False)
+    t = {k: torch.from_numpy(v).to(cuda) for k, v in case.items()}
+    mesh = solve.make_worker_mesh([cuda] * 17)
+    args = [t[k] for k in KEYS]
+    with pytest.raises(RuntimeError, match="cudaError"):
+        solve.sharded_cut_scan_forced(mesh, *args, exchange="cluster")
+    layout = solve.sharded_layout
+    monkeypatch.setattr(solve, "sharded_layout", lambda *a, **k: {
+        **layout(*a, **k), "exchange": "cluster"})
+    before = {k: getattr(solve.sharded_cut_scan, k)
+              for k in solve.LAUNCH_COUNTS}
+    with pytest.raises(RuntimeError, match=r"launch failed \(cluster"):
+        solve.sharded_cut_scan(mesh, *args)
+    assert before == {k: getattr(solve.sharded_cut_scan, k)
+                      for k in solve.LAUNCH_COUNTS}
+
+
+@pytest.mark.cuda
+def test_cluster_step_latency(cuda):
+    from hyperqueue_tpu_torch.parallel import solve
+
+    for n_shards in (1, 4, 8, solve.CLUSTER_LIMIT):
+        ms = solve.cluster_step_latency_ms(256, n_shards, cuda)
+        assert 0 < ms < 1
+
+
+@pytest.mark.cuda
 def test_grid_step_latency(cuda):
     from hyperqueue_tpu_torch.parallel import solve
 
-    for n_shards in (1, 4):
+    for n_shards in (1, 4, 32):
         ms = solve.grid_step_latency_ms(256, n_shards, cuda)
         assert 0 < ms < 1
 

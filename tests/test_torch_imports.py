@@ -12,6 +12,11 @@ from pathlib import Path
 import pytest
 import torch
 
+# one intra-op thread per process: the suite runs in several worker
+# processes at once, and torch's default of a thread per core in each
+# of them starves the other workers (and their wall-clock gates)
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "hyperqueue_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"

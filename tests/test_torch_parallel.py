@@ -24,6 +24,11 @@ from hyperqueue_tpu_torch.parallel import solve
 from hyperqueue_tpu_torch.scheduler import tick as port_tick
 from test_torch_tick import _apply, _release, export_plain
 
+# one intra-op thread per process: the suite runs in several worker
+# processes at once, and torch's default of a thread per core in each
+# of them starves the other workers (and their wall-clock gates)
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.multichip
 
 U = 10_000
@@ -472,7 +477,7 @@ def test_build_digest_covers_included_headers(tmp_path, monkeypatch):
     through another header, builds that kernel anew; an edit to a header
     it does not include does not."""
     for name in ("cut_scan", "sharded_scan"):
-        assert 'include "cut_scan_step.cuh"' in (
+        assert 'include "cut_scan_core.cuh"' in (
             build.CSRC_DIR / f"{name}.cu").read_text()
     monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
     (tmp_path / "k.cu").write_text('#include <cuda_runtime.h>\n'
