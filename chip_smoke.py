@@ -4,13 +4,15 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels (the cut-scan, the sync probe and the
-sharded cut-scan) and its native host scan from the sources in this
-checkout, holds each kernel bit-exact against its plain PyTorch version,
-drives consecutive north-star scheduling ticks (1,024 workers, 1M ready
-tasks, 128 sampled request classes, 4 priority levels) through the port's
-run_tick, then the same north star in fused mode (gang rows, worker groups
-and a policy), then the server's own solve seam, single-block and sharded
-(`--scheduler multichip`), and prints timings.
+sharded cut-scan) and its native host core (the task queue, the host scan)
+from the sources in this checkout, holds each kernel bit-exact against its
+plain PyTorch version, drives consecutive north-star scheduling ticks
+(1,024 workers, 1M ready tasks, 128 sampled request classes, 4 priority
+levels) through the port's run_tick, then the same north star in fused mode
+(gang rows, worker groups and a policy), then the server's own solve seam,
+single-block and sharded (`--scheduler multichip`), then the north star
+with min-utilization workers, then `--scheduler milp` with its degraded
+tick, and prints timings.
 
 Phases:
   1. the card (nvidia-smi name and power limit) and the builds, all started
@@ -47,7 +49,10 @@ Phases:
   3. the main path: ticks through run_tick with GreedyCutScanModel on the
      card; each tick's counts are checked against the plain version on the
      same padded inputs and its assignments against the workers' capacity,
-     and the kernel must launch exactly once per tick;
+     and the kernel must launch exactly once per tick; every tick's counts
+     are also mapped through the per-cell Python takes on a copy of the
+     queues, which must give the assignments of the native one-call
+     map-take (mapping_check, with both times);
   4. timings: per-tick wall time and phases, the kernel's time from CUDA
      events, its plain version's time, its bounds, and the device's busy
      time and idle share over a steady window of three more ticks under
@@ -70,8 +75,9 @@ Phases:
      pinned copy to the host (K4);
   7. the sync probe (K5): the kernel against its plain version on
      arange(256) and on seeded int32 that overflow the sum, exact; its
-     device time (profiler), its plain version's and `(v * 2).sum()`'s
-     time, and the probe's round trip;
+     device time (profiler), its latency bound (the profiled time of an
+     empty kernel of the same launch shape), its plain version's and
+     `(v * 2).sum()`'s time, and the probe's round trip;
   8. the server path: the default north star as a server Core of 1,024
      Worker.create'd workers, solved as `hq server start` solves it:
      SolverWatchdog(GreedyCutScanModel(backend="auto")) with the resident
@@ -106,7 +112,32 @@ Phases:
      block scan plus one cluster or grid barrier over 4 blocks: the
      cluster_step_latency line) and the latency bound (executed steps times
      the floor of the picked exchange); then k2_step_split, us per step of
-     every K2 variant at those inputs.
+     every K2 variant at those inputs;
+ 11. the mu path: the north star as a Core whose first 8 workers have
+     min_utilization 0.5 (one allocation that must pack or idle), 4 ticks
+     through run_tick with GreedyCutScanModel on the card over
+     Core.worker_rows(): the tick cache must decline the snapshot, K1 solves
+     the unfloored workers (held against its plain version, one launch a
+     tick) and the host search (_solve_mu_workers, timed per worker from
+     here) the floored ones, each of which must receive cpu work of 0 or
+     at least its floor; the floored workers finish their tasks after each
+     tick. Logs the phases, the search's ms per tick and per worker and its
+     node-budget warnings (mu_tick, mu_ticks);
+ 12. the milp path: 24 workers of 4-16 cpus (4 floored), 2,000 tasks in 28
+     batches, through SolverWatchdog(MilpModel(), fallback=
+     GreedyCutScanModel(backend="device")): 3 armed ticks through the joint
+     program (the floors inside the MILP, no K1), one tick whose deadline is
+     forced to a tenth of the fastest MILP (the MILP's own limit set to
+     1 s): degraded to K1 with the floored rows zeroed, the floored workers
+     receiving nothing; then 2 benched ticks through the carve-out. Every K1
+     solve is held against its plain version, every floor checked, and the
+     last tick's decision records (build_unplaced_entries) against
+     oracle.explain_unplaced on its dense inputs (milp_reasons).
+
+On every path the queues must be the native ones, and every mapping of a
+tick without gang rows must pop its ids through hq_map_take (counted; the
+fused path's gang ticks take per cell in Python, as the JAX package's do);
+the mapping line sets the paths' mapping medians side by side.
 
 Every profiled kernel time comes from a window whose every launch is held
 against the plain version's outputs, exact; a window in which the profiler
@@ -161,6 +192,22 @@ N_SERVER_PIPELINED_TICKS = 16
 # each), 8 synchronous ticks, then pipelined ones
 N_SHARDS = 4
 N_MULTICHIP_PIPELINED_TICKS = 8
+
+# the mu path: the north star with N_MU_WORKERS of its workers one
+# allocation that must pack or idle (min_utilization MU), N_MU_TICKS ticks
+N_MU_TICKS = 4
+N_MU_WORKERS = 8
+MU = 0.5
+# the milp path, at the size models/milp.py documents ("tens of workers x
+# dozens of batches"): N_MILP_FLOORED of its workers floored, armed ticks,
+# one tick past a forced deadline, then benched ticks
+N_MILP_WORKERS = 24
+N_MILP_FLOORED = 4
+N_MILP_TASKS = 2000
+N_MILP_CLASSES = 8
+MILP_WORKER_CPUS = (4, 8, 16)
+N_MILP_ARMED_TICKS = 3
+N_MILP_BENCHED_TICKS = 2
 
 # the fused path: the JAX server's MAX_FUSED_GANG_ROWS gang rows per tick
 N_FUSED_TICKS = 8
@@ -276,7 +323,8 @@ def random_case(seed, n_w, n_r, n_b, n_v, with_all):
 
 
 def north_star_state(n_workers=1024, n_tasks=1_000_000, n_classes=128,
-                     seed=SEED, n_jobs=1, n_groups=1):
+                     seed=SEED, n_jobs=1, n_groups=1,
+                     worker_cpus=(32, 64, 128)):
     """The north-star tick state as plain data, with the distribution of
     the repository's tick benchmark: request classes of 1/2/4/8 cpus, a
     gpu share on 30% and a cpu-only fallback variant on half of them,
@@ -284,7 +332,8 @@ def north_star_state(n_workers=1024, n_tasks=1_000_000, n_classes=128,
     workers of 32/64/128 cpus, some with 4 or 8 gpus. With n_jobs > 1 the
     tasks are spread over that many jobs (scheduler priority = the job's
     encoded submission order), with n_groups > 1 the workers form groups
-    g0, g1, ... of consecutive workers."""
+    g0, g1, ... of consecutive workers; `worker_cpus` are the workers'
+    sizes."""
     from hyperqueue_tpu_torch.ids import make_task_id
     from hyperqueue_tpu_torch.scheduler.queues import encode_sched_priority
     from hyperqueue_tpu_torch.utils.constants import INF_TIME
@@ -327,7 +376,7 @@ def north_star_state(n_workers=1024, n_tasks=1_000_000, n_classes=128,
         ]
     workers = []
     for wid in range(1, n_workers + 1):
-        n_cpus = int(rng.choice([32, 64, 128]))
+        n_cpus = int(rng.choice(worker_cpus))
         free = [n_cpus * U, int(rng.choice([0, 0, 0, 4, 8])) * U,
                 int(rng.choice([256, 512, 1024])) * U]
         group = f"g{(wid - 1) * n_groups // n_workers}" if n_groups > 1 \
@@ -979,9 +1028,9 @@ class RecordingModel:
         self.model = model
         self.calls = []
 
-    @property
-    def last_phases(self):
-        return self.model.last_phases
+    def __getattr__(self, name):
+        # only reached for attributes not set here: the model's
+        return getattr(self.model, name)
 
     def solve(self, **kwargs):
         counts = self.model.solve(**kwargs)
@@ -1630,6 +1679,17 @@ def k5_phase(device, card):
     device_us = sum(e.self_device_time_total for e in events)
     if device_us <= 0:
         raise AssertionError("the profiler saw no sync_probe_kernel time")
+    # the latency bound: a kernel of the probe's launch shape that does
+    # nothing, profiled the same way
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            probe.empty_launch(device)
+        torch.cuda.synchronize()
+    empty_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if "empty_kernel" in e.key)
+    if empty_us <= 0:
+        raise AssertionError("the profiler saw no empty_kernel time")
     round_trips = [probe.sync_round_trip_ms(device) for _ in range(5)]
     in_bytes, out_bytes = probe.PROBE_SIZE * 4, 4
     bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
@@ -1640,6 +1700,7 @@ def k5_phase(device, card):
         "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "latency_bound_ms": empty_us / 1e3 / reps,
         "bytes": in_bytes + out_bytes, "ops": ops,
         "round_trip_ms": round_trips,
         "round_trip_min_ms": min(round_trips),
@@ -1723,6 +1784,7 @@ def server_path(card, device, model, tag="server", n_sync=N_SERVER_TICKS,
         ready_tasks=core.queues.total_ready(), classes=len(core.rq_map),
         shards=len(mesh) if mesh else 1,
         seconds=round(time.perf_counter() - t0, 3))
+    check_native_queues(core.queues, tag)
     model.paranoid_resident = 4
     core.paranoid_tick = 4
     watchdog = SolverWatchdog(model)
@@ -1848,6 +1910,7 @@ def server_path(card, device, model, tag="server", n_sync=N_SERVER_TICKS,
     assign.reset_launch_counts()
     solve.reset_launch_counts()
     probe.sync_probe.launches = 0
+    takes = NATIVE_TAKES["n"]
     sync_ms = greedy.device_sync_ms(wait_s=30)
     if greedy.probe_error() is not None:
         raise AssertionError(f"sync probe failed: {greedy.probe_error()!r}")
@@ -1876,6 +1939,7 @@ def server_path(card, device, model, tag="server", n_sync=N_SERVER_TICKS,
                 "sharded_scan_resident":
                     solve.sharded_cut_scan.resident_launches,
                 "sync_probe": probe.sync_probe.launches}
+    native_ticks = NATIVE_TAKES["n"] - takes
     gc.callbacks.remove(on_gc)
     # checks of the whole path
     stats = watchdog.stats()
@@ -1890,6 +1954,10 @@ def server_path(card, device, model, tag="server", n_sync=N_SERVER_TICKS,
     if model.paranoid_checks < 2 or result["paranoid_ticks"] < 2:
         raise AssertionError("paranoid checks did not run")
     n_solves = len(seam.calls)
+    if native_ticks != n_solves:
+        # every solve's counts are mapped once, through hq_map_take
+        raise AssertionError(f"{tag} path: {native_ticks} native takes for "
+                             f"{n_solves} solves")
     if launches[kernel] != n_solves + model.paranoid_checks:
         raise AssertionError(f"{kernel} launched {launches[kernel]} times "
                              f"for {n_solves} solves and "
@@ -1908,6 +1976,7 @@ def server_path(card, device, model, tag="server", n_sync=N_SERVER_TICKS,
         raise AssertionError(f"{tag} path launches {launches}")
     result.update(
         launches=launches, solves=n_solves, sync_solves=sync_calls,
+        native_take_ticks=native_ticks,
         paranoid_checks=model.paranoid_checks, watchdog=stats,
         resident=res, tick_cache=core.tick_cache.counters(),
         pipeline=pipeline.stats(), device_sync_ms=sync_ms,
@@ -2017,6 +2086,461 @@ def host_solves(model, kwargs, counts, card):
     return out
 
 
+# -- min-utilization workers and the MILP --------------------------------------
+
+def mu_state(n_floored=N_MU_WORKERS, mu=MU, **kwargs):
+    """north_star_state (kwargs passed on) with its first `n_floored`
+    workers given min_utilization `mu`."""
+    resources, classes, tasks, workers = north_star_state(**kwargs)
+    workers = [w + (mu,) if i < n_floored else w
+               for i, w in enumerate(workers)]
+    return resources, classes, tasks, workers
+
+
+def milp_state():
+    """The milp path's cluster: N_MILP_WORKERS workers of 4-16 cpus, the
+    first N_MILP_FLOORED with min_utilization MU, N_MILP_TASKS tasks over
+    the north star's first N_MILP_CLASSES sampled classes."""
+    return mu_state(n_floored=N_MILP_FLOORED, n_workers=N_MILP_WORKERS,
+                    n_tasks=N_MILP_TASKS, n_classes=N_MILP_CLASSES,
+                    worker_cpus=MILP_WORKER_CPUS)
+
+
+def check_floors(assignments, floors, rq_map, tag):
+    """Every floored worker (worker id -> its cpu floor at the tick's
+    start) received cpu work of 0 or at least its floor; returns the cpu
+    work of each."""
+    cpu = dict.fromkeys(floors, 0)
+    for _task, worker, rq_id, variant in assignments:
+        if worker in cpu:
+            for e in rq_map.get_variants(rq_id).variants[variant].entries:
+                if e.resource_id == 0:
+                    cpu[worker] += e.amount
+    short = {w: c for w, c in cpu.items() if 0 < c < floors[w]}
+    if short:
+        raise AssertionError(f"{tag}: floored workers under their floor: "
+                             f"{short} (floors {floors})")
+    return cpu
+
+
+class CoreRunner:
+    """Starts a tick's assignments on a Core's workers; finish() ends every
+    task of the floored workers (so that each tick has floors to meet) and
+    of a random quarter of the others."""
+
+    def __init__(self, core, seed):
+        self.core = core
+        self.rng = np.random.default_rng(seed)
+        self.running: dict = {}
+
+    def start(self, assignments):
+        core = self.core
+        for task, wid, rq_id, variant in assignments:
+            w = core.workers[wid]
+            w.assign(task, core.variant_amounts(rq_id, variant, w))
+            self.running.setdefault(wid, []).append((task, rq_id, variant))
+
+    def finish(self, floored):
+        core = self.core
+        for w in core.workers.values():
+            if w.worker_id in floored or self.rng.random() < 0.25:
+                for task, rq_id, variant in self.running.pop(w.worker_id,
+                                                             []):
+                    w.unassign(task, core.variant_amounts(rq_id, variant, w))
+
+
+def mu_path(card, device, seen):
+    """Phase 11: N_MU_TICKS north-star ticks over a Core with N_MU_WORKERS
+    min-utilization workers: the tick cache declines the snapshot, run_tick
+    solves the unfloored workers with K1 and the floored ones with the host
+    search (_solve_mu_workers, timed per worker from here). Returns the
+    K1 launches and the per-tick summaries."""
+    import logging
+
+    from hyperqueue_tpu_torch.convert import core_from_plain
+    from hyperqueue_tpu_torch.models.greedy import GreedyCutScanModel
+    from hyperqueue_tpu_torch.ops import assign
+    from hyperqueue_tpu_torch.scheduler import tick
+    from hyperqueue_tpu_torch.scheduler.tick import run_tick
+
+    t0 = time.perf_counter()
+    core = core_from_plain(*mu_state())
+    log("mu_state", workers=len(core.workers),
+        floored=sum(w.configuration.min_utilization > 0
+                    for w in core.workers.values()),
+        min_utilization=MU, ready_tasks=core.queues.total_ready(),
+        classes=len(core.rq_map), seconds=round(time.perf_counter() - t0, 3))
+    check_native_queues(core.queues, "mu")
+    model = GreedyCutScanModel(device="cuda", backend="device")
+    recorder = RecordingModel(model)
+    runner = CoreRunner(core, SEED + 6)
+    search: list = []
+    real = tick._solve_mu_workers
+
+    def timed(queues, mu_rows, rq_map, resource_map):
+        # one row at a time, in the order the search takes them: the same
+        # takes, each worker's search timed alone
+        out = []
+        for row in sorted(mu_rows, key=lambda r: r.worker_id):
+            t = time.perf_counter()
+            out += real(queues, [row], rq_map, resource_map)
+            search[-1].append((time.perf_counter() - t) * 1e3)
+        return out
+
+    class BudgetHits(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.WARNING)
+            self.n = 0
+
+        def emit(self, record):
+            if "budget" in record.getMessage():
+                self.n += 1
+
+    hits = BudgetHits()
+    tick_logger = logging.getLogger(tick.__name__)
+    tick_logger.addHandler(hits)
+    tick._solve_mu_workers = timed
+    ticks = []
+    assign.reset_launch_counts()
+    takes = NATIVE_TAKES["n"]
+    try:
+        for t in range(N_MU_TICKS):
+            if core.tick_cache.sync(core) is not None:
+                raise AssertionError("the tick cache served a snapshot "
+                                     "with min-utilization workers")
+            rows = core.worker_rows()
+            floors = {r.worker_id: r.cpu_floor for r in rows
+                      if r.cpu_floor > 0}
+            search.append([])
+            hits_before = hits.n
+            before = assign.greedy_cut_scan.launches
+            phases: dict = {}
+            t0 = time.perf_counter()
+            assignments = run_tick(core.queues, rows, core.rq_map,
+                                   core.resource_map, recorder,
+                                   phases=phases)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            if assign.greedy_cut_scan.launches != before + 1:
+                raise AssertionError(f"mu tick {t}: K1 launched "
+                                     f"{assign.greedy_cut_scan.launches - before}"
+                                     " times, expected once")
+            check_assignments(assignments, rows, core.rq_map, seen)
+            cpu = check_floors(assignments, floors, core.rq_map,
+                               f"mu tick {t}")
+            kwargs, counts = recorder.calls[-1]
+            main = [a for a in assignments if a[1] not in floors]
+            if (counts.sum() != len(main)
+                    or kwargs["free"].shape[0] != len(rows) - len(floors)):
+                raise AssertionError(f"mu tick {t}: the main solve did not "
+                                     "run over the unfloored workers")
+            check_tick_against_plain(model, kwargs, counts, device,
+                                     f"mu {t}")
+            ticks.append(dict(
+                tick=t, assigned=len(assignments),
+                mu_assigned=len(assignments) - len(main),
+                floored=len(floors),
+                floored_receiving=sum(c > 0 for c in cpu.values()),
+                wall_ms=wall_ms, phases=phases,
+                mu_search_ms=sum(search[-1]),
+                mu_search_ms_per_worker=search[-1],
+                budget_hits=hits.n - hits_before))
+            log("mu_tick", **ticks[-1], resident=model.resident_stats(),
+                card=card)
+            runner.start(assignments)
+            runner.finish(floors)
+    finally:
+        tick._solve_mu_workers = real
+        tick_logger.removeHandler(hits)
+    launches = assign.greedy_cut_scan.launches
+    native_ticks = NATIVE_TAKES["n"] - takes
+    if (launches != N_MU_TICKS or assign.greedy_cut_scan.gang_launches
+            or assign.greedy_cut_scan.resident_launches != N_MU_TICKS
+            or native_ticks != N_MU_TICKS):
+        raise AssertionError(f"mu path: K1 launched {launches} times "
+                             f"({assign.greedy_cut_scan.resident_launches} "
+                             f"resident), {native_ticks} native takes, in "
+                             f"{N_MU_TICKS} ticks")
+    steady = ticks[1:]
+    per_worker = [ms for t in ticks for ms in t["mu_search_ms_per_worker"]]
+    summary = dict(
+        ticks=N_MU_TICKS, launches=launches, native_take_ticks=native_ticks,
+        wall_ms=[t["wall_ms"] for t in ticks],
+        steady_median_ms=float(np.median([t["wall_ms"] for t in steady])),
+        phases_median_ms={
+            k: float(np.median([t["phases"].get(k, 0.0) for t in steady]))
+            for k in ("assemble", "solve_host_prep", "solve_dispatch",
+                      "device_sync", "mapping")},
+        mu_search_ms=[t["mu_search_ms"] for t in ticks],
+        mu_search_median_ms_per_worker=float(np.median(per_worker)),
+        mu_search_max_ms_per_worker=float(np.max(per_worker)),
+        floored_searches=len(per_worker),
+        budget_hits=sum(t["budget_hits"] for t in ticks), card=card)
+    log("mu_ticks", **summary)
+    return summary
+
+
+def reason_check(core, rows, batches, assignments, prio_of, degraded,
+                 card):
+    """The decision records of a tick's leftover batches against the
+    oracle: build_unplaced_entries over the Core after the tick, and
+    oracle.explain_unplaced over the tick's dense inputs (every worker row,
+    the batches in solve order) and counts made from its assignments. A
+    degraded tick's watchdog-fallback reads as the oracle's
+    solver-deferred. Returns both reason counts (tasks per reason)."""
+    from hyperqueue_tpu_torch.scheduler import decision, oracle
+    from hyperqueue_tpu_torch.scheduler.tick import (
+        assemble_solve_inputs,
+        create_batches,
+    )
+
+    batches = list(batches)
+    kw = assemble_solve_inputs(rows, batches, core.rq_map, core.resource_map)
+    index = {(b.rq_id, b.priority): i for i, b in enumerate(batches)}
+    column = {r.worker_id: i for i, r in enumerate(rows)}
+    counts = np.zeros(kw["needs"].shape[:2] + (len(rows),), dtype=np.int64)
+    for task, worker, rq_id, variant in assignments:
+        counts[index[(rq_id, prio_of[task])], variant, column[worker]] += 1
+    n_r = len(core.resource_map)
+    totals = [[core.workers[r.worker_id].resources.amount(rid)
+               for rid in range(n_r)] for r in rows]
+    reasons = oracle.explain_unplaced(
+        *(kw[k].tolist() for k in ("free", "nt_free", "lifetime", "needs",
+                                   "sizes", "min_time")),
+        counts.tolist(), total=totals)
+    want = {(b.rq_id, b.priority): (reason, b.size - int(counts[i].sum()))
+            for i, (b, reason) in enumerate(zip(batches, reasons)) if reason}
+    left = [b for b in create_batches(core.queues) if b.size > 0]
+    entries = decision.build_unplaced_entries(core, left, {},
+                                              degraded=degraded)
+    if len(left) > decision.MAX_UNPLACED_ENTRIES:
+        raise AssertionError("more leftover batches than one record holds")
+    got = {}
+    for b, entry in zip(left, entries):
+        reason = entry["reason"]
+        if degraded and reason == decision.REASON_WATCHDOG_FALLBACK:
+            reason = decision.REASON_SOLVER_DEFERRED
+        got[(b.rq_id, b.priority)] = (reason, entry["count"])
+    if got != want:
+        raise AssertionError(f"decision records {got} disagree with the "
+                             f"oracle {want}")
+    record_counts, oracle_counts = {}, {}
+    for entry in entries:
+        record_counts[entry["reason"]] = (record_counts.get(entry["reason"], 0)
+                                          + entry["count"])
+    for reason, n in want.values():
+        oracle_counts[reason] = oracle_counts.get(reason, 0) + n
+    log("milp_reasons", leftover_batches=len(left),
+        reason_counts=record_counts, oracle_reason_counts=oracle_counts,
+        degraded=degraded, card=card)
+    return record_counts, oracle_counts
+
+
+def milp_path(card, device, seen):
+    """Phase 12: `--scheduler milp` at its documented size, as the server
+    builds it: SolverWatchdog(MilpModel(), fallback=GreedyCutScanModel(
+    backend="device")). N_MILP_ARMED_TICKS armed ticks through the joint
+    program (the floors inside the MILP, no K1); one tick whose deadline is
+    forced below the MILP's measured time (and the MILP's own limit to 1 s,
+    so the stranded solve ends soon): degraded to K1 with the floored rows
+    zeroed; then N_MILP_BENCHED_TICKS benched ticks through the carve-out
+    (K1 over the unfloored workers, the host search over the floored). Every
+    K1 solve is held against its plain version; the last tick's decision
+    records against the oracle. Returns the K1 launches and a summary."""
+    from hyperqueue_tpu_torch.convert import core_from_plain
+    from hyperqueue_tpu_torch.models.greedy import GreedyCutScanModel
+    from hyperqueue_tpu_torch.models.milp import MilpModel
+    from hyperqueue_tpu_torch.ops import assign
+    from hyperqueue_tpu_torch.scheduler.tick import create_batches, run_tick
+    from hyperqueue_tpu_torch.scheduler.watchdog import SolverWatchdog
+
+    import scipy.optimize  # noqa: F401 - imported before the timed solves
+
+    plain = milp_state()
+    core = core_from_plain(*plain)
+    prio_of = {int(task): (int(u), int(s)) for task, _c, (u, s) in plain[2]}
+    check_native_queues(core.queues, "milp")
+    milp = MilpModel()
+    primary = RecordingModel(milp)
+    fallback_model = GreedyCutScanModel(device="cuda", backend="device")
+    fallback = RecordingModel(fallback_model)
+    watchdog = SolverWatchdog(primary, fallback=fallback)
+    runner = CoreRunner(core, SEED + 7)
+    log("milp_state", workers=len(core.workers), floored=N_MILP_FLOORED,
+        ready_tasks=core.queues.total_ready(), classes=len(core.rq_map),
+        batches=len(create_batches(core.queues)),
+        worker_cpus=list(MILP_WORKER_CPUS), card=card)
+    ticks, milp_ms = [], []
+    assign.reset_launch_counts()
+    takes = NATIVE_TAKES["n"]
+    schedule = (["armed"] * N_MILP_ARMED_TICKS + ["forced"]
+                + ["benched"] * N_MILP_BENCHED_TICKS)
+    for t, kind in enumerate(schedule):
+        if kind == "forced":
+            watchdog.timeout_s = min(milp_ms) / 1e3 / 10
+            milp.time_limit_secs = 1.0
+        if watchdog.supports_cpu_floor != (kind != "benched"):
+            raise AssertionError(f"milp tick {t} ({kind}): "
+                                 f"supports_cpu_floor "
+                                 f"{watchdog.supports_cpu_floor}")
+        rows = core.worker_rows()
+        floors = {r.worker_id: r.cpu_floor for r in rows if r.cpu_floor > 0}
+        if len(floors) != N_MILP_FLOORED:
+            raise AssertionError(f"milp tick {t}: floors {floors}")
+        batches = create_batches(core.queues)
+        before = assign.greedy_cut_scan.launches
+        n_primary, n_fallback = len(primary.calls), len(fallback.calls)
+        phases, decision = {}, {}
+        t0 = time.perf_counter()
+        out = run_tick(core.queues, rows, core.rq_map, core.resource_map,
+                       watchdog, batches=batches, phases=phases,
+                       decision=decision)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        solver = decision["solver"]
+        k1 = assign.greedy_cut_scan.launches - before
+        check_assignments(out, rows, core.rq_map, seen)
+        cpu = check_floors(out, floors, core.rq_map, f"milp tick {t}")
+        if kind == "armed":
+            if (solver["status"] != "ok" or k1
+                    or len(fallback.calls) != n_fallback
+                    or len(primary.calls) != n_primary + 1):
+                raise AssertionError(f"milp tick {t}: not a joint solve: "
+                                     f"{solver}, K1 {k1}")
+            kwargs, _counts = primary.calls[-1]
+            if (np.asarray(kwargs["cpu_floor"]) > 0).sum() != len(floors):
+                raise AssertionError(f"milp tick {t}: the MILP did not get "
+                                     "the floors")
+            milp_ms.append(solver["solve_ms"])
+        else:
+            kwargs, counts = fallback.calls[-1]
+            if (solver["status"] != "fallback" or k1 != 1
+                    or len(fallback.calls) != n_fallback + 1
+                    or counts.sum() != sum(1 for a in out
+                                           if a[1] not in floors)):
+                raise AssertionError(f"milp tick {t} ({kind}): {solver}, "
+                                     f"K1 {k1}")
+            ids = [r.worker_id for r in rows]
+            if kind == "forced":
+                zeroed = [i for i, w in enumerate(ids) if w in floors]
+                if (kwargs["free"][zeroed].any()
+                        or kwargs["nt_free"][zeroed].any()
+                        or any(a[1] in floors for a in out)):
+                    raise AssertionError(f"milp tick {t}: the floored rows "
+                                         "were not zeroed")
+            elif kwargs["free"].shape[0] != len(rows) - len(floors):
+                raise AssertionError(f"milp tick {t}: the benched tick did "
+                                     "not carve the floored workers out")
+            check_tick_against_plain(fallback_model, kwargs, counts, device,
+                                     f"milp {t}")
+        ticks.append(dict(tick=t, kind=kind, status=solver["status"],
+                          solve_ms=solver["solve_ms"], wall_ms=wall_ms,
+                          assigned=len(out), k1_launches=k1,
+                          floored_cpu_work=sorted(cpu.values()),
+                          phases=phases))
+        log("milp_tick", **ticks[-1], watchdog=watchdog.stats(), card=card)
+        runner.start(out)
+        if t == len(schedule) - 1:
+            reasons = reason_check(core, rows, batches, out, prio_of,
+                                   solver["status"] == "fallback", card)
+        runner.finish(floors)
+    stats = watchdog.stats()
+    launches = assign.greedy_cut_scan.launches
+    native_ticks = NATIVE_TAKES["n"] - takes
+    if ((stats["timeouts"], stats["failures"], stats["degraded_ticks"],
+         stats["skipped_ticks"]) != (1, 0, 1 + N_MILP_BENCHED_TICKS, 0)
+            or launches != 1 + N_MILP_BENCHED_TICKS):
+        raise AssertionError(f"milp path: watchdog {stats}, K1 {launches}")
+    summary = dict(ticks=len(schedule), launches=launches,
+                   native_take_ticks=native_ticks, milp_ms=milp_ms,
+                   milp_median_ms=float(np.median(milp_ms)),
+                   armed_wall_ms=[t["wall_ms"] for t in ticks
+                                  if t["kind"] == "armed"],
+                   forced_timeout_s=watchdog.timeout_s,
+                   reason_counts=reasons[0], oracle_reason_counts=reasons[1],
+                   watchdog=stats, card=card)
+    log("milp_ticks", **summary)
+    return summary
+
+
+# -- the native queue and its one-call map-take -------------------------------
+
+# ticks whose non-gang take went through hq_map_take (install_native_takes)
+NATIVE_TAKES = {"n": 0}
+
+
+def install_native_takes() -> None:
+    """Count, in NATIVE_TAKES, every mapping whose takes went through the
+    native hq_map_take (scheduler/tick._native_map_take returned ids)."""
+    from hyperqueue_tpu_torch.scheduler import tick
+
+    real = tick._native_map_take
+
+    def counted(*args):
+        out = real(*args)
+        if out is not None:
+            NATIVE_TAKES["n"] += 1
+        return out
+
+    tick._native_map_take = counted
+
+
+def check_native_queues(queues, tag) -> None:
+    from hyperqueue_tpu_torch.utils.native import NativeTaskQueue
+
+    kinds = {type(q).__name__ for _rq, q in queues.items()}
+    if not queues.items() or any(not isinstance(q, NativeTaskQueue)
+                                 for _rq, q in queues.items()):
+        raise AssertionError(f"{tag} path: queues are {kinds}, not native")
+
+
+def python_queues(plain):
+    """The plain state's tasks in Python TaskQueues (the per-cell take
+    path), in the order tick_state_from_plain adds them."""
+    from hyperqueue_tpu_torch.scheduler.queues import TaskQueue, TaskQueues
+
+    queues = TaskQueues()
+    for rq_id in range(len(plain[1])):
+        queues._queues[rq_id] = TaskQueue()
+    for task_id, class_index, (user, sched) in plain[2]:
+        queues.add(int(class_index), (int(user), int(sched)), int(task_id))
+    return queues
+
+
+def capture_mapping():
+    """Keep the next mapping's batches, worker ids and counts (a copy)."""
+    from hyperqueue_tpu_torch.scheduler import tick
+
+    real = tick._map_counts
+    box: dict = {}
+
+    def once(queues, batches, worker_ids, counts, phases=None):
+        tick._map_counts = real
+        box.update(batches=list(batches), worker_ids=list(worker_ids),
+                   counts=np.array(counts, copy=True))
+        return real(queues, batches, worker_ids, counts, phases=phases)
+
+    tick._map_counts = once
+    return box
+
+
+def mapping_check(mapped, py_queues, assignments) -> float:
+    """The same counts mapped through the per-cell Python takes on a copy
+    of the queues: the same assignments as hq_map_take's. Returns the
+    per-cell mapping's ms."""
+    from hyperqueue_tpu_torch.scheduler import tick
+
+    takes = NATIVE_TAKES["n"]
+    t0 = time.perf_counter()
+    per_cell = tick._map_counts(py_queues, mapped["batches"],
+                                mapped["worker_ids"], mapped["counts"])
+    per_cell_ms = (time.perf_counter() - t0) * 1e3
+    if NATIVE_TAKES["n"] != takes:
+        raise AssertionError("the Python queues' copy took natively")
+    if per_cell != assignments:
+        raise AssertionError("hq_map_take and the per-cell takes map the "
+                             "same counts to different assignments")
+    return per_cell_ms
+
+
 # -- main --------------------------------------------------------------------
 
 def main_path(card, device, seen):
@@ -2029,10 +2553,16 @@ def main_path(card, device, seen):
     from hyperqueue_tpu_torch.scheduler.tick import run_tick
 
     t0 = time.perf_counter()
-    resource_map, rq_map, queues, rows = tick_state_from_plain(
-        *north_star_state())
+    plain = north_star_state()
+    resource_map, rq_map, queues, rows = tick_state_from_plain(*plain)
     log("state", workers=len(rows), ready_tasks=queues.total_ready(),
         classes=len(rq_map), seconds=round(time.perf_counter() - t0, 3))
+    check_native_queues(queues, "default")
+    # the per-cell Python path's queues: a copy that every tick's counts
+    # are mapped through too, so it stays equal to the native queues
+    py_queues = python_queues(plain)
+    del plain  # 1M task tuples the collector would traverse in each tick
+    per_cell_ms = []
     totals = [list(row.total) for row in rows]
     nt0 = [row.nt_free for row in rows]
     model = GreedyCutScanModel(device="cuda", backend="device")
@@ -2040,14 +2570,17 @@ def main_path(card, device, seen):
     rng = np.random.default_rng(SEED + 1)
     tick_ms, tick_phases, last_case = [], [], None
     assign.reset_launch_counts()
+    takes = NATIVE_TAKES["n"]
     for tick in range(N_TICKS):
         before = assign.greedy_cut_scan.launches
         phases: dict = {}
+        mapped = capture_mapping()
         t0 = time.perf_counter()
         assignments = run_tick(queues, rows, rq_map, resource_map, recorder,
                                phases=phases)
         tick_ms.append((time.perf_counter() - t0) * 1e3)
         tick_phases.append(phases)
+        per_cell_ms.append(mapping_check(mapped, py_queues, assignments))
         if assign.greedy_cut_scan.launches != before + 1:
             raise AssertionError(f"tick {tick} launched the kernel "
                                  f"{assign.greedy_cut_scan.launches - before}"
@@ -2069,6 +2602,16 @@ def main_path(card, device, seen):
             f"main path launched the kernel {launches} times "
             f"({assign.greedy_cut_scan.resident_launches} resident) in "
             f"{N_TICKS} ticks")
+    native_ticks = NATIVE_TAKES["n"] - takes
+    if native_ticks != N_TICKS:
+        raise AssertionError(f"default path: {native_ticks} of {N_TICKS} "
+                             "ticks mapped through hq_map_take")
+    native_ms = [p["mapping"] for p in tick_phases]
+    log("mapping_check", ticks=N_TICKS, native_take_ticks=native_ticks,
+        native_ms=native_ms, per_cell_ms=per_cell_ms,
+        native_steady_median_ms=float(np.median(native_ms[1:])),
+        per_cell_steady_median_ms=float(np.median(per_cell_ms[1:])),
+        card=card)
 
     def one_tick():
         a = run_tick(queues, rows, rq_map, resource_map, model)
@@ -2151,10 +2694,13 @@ def fused_path(card, device, seen):
         advance(assignments, rows, rq_map, totals, nt0, rng)
         return placed
 
+    check_native_queues(queues, "fused")
     tick_ms, tick_phases, m_rows, last_case = [], [], [], None
     assign.reset_launch_counts()
+    takes, plain_ticks = NATIVE_TAKES["n"], 0
     for tick in range(N_FUSED_TICKS):
         idle, gang_batches, batches, ctx = tick_inputs()
+        plain_ticks += not gang_batches
         before = (assign.greedy_cut_scan.launches,
                   assign.greedy_cut_scan.gang_launches)
         phases: dict = {}
@@ -2190,6 +2736,14 @@ def fused_path(card, device, seen):
             f"fused path launched the kernel {launches} times "
             f"({assign.greedy_cut_scan.resident_launches} resident) in "
             f"{N_FUSED_TICKS} ticks")
+    # a tick with gang rows takes per cell in Python, as the JAX package's
+    native_ticks = NATIVE_TAKES["n"] - takes
+    if native_ticks != plain_ticks:
+        raise AssertionError(f"fused path: {native_ticks} native takes for "
+                             f"{plain_ticks} ticks without gang rows")
+    log("native_mapping", path="fused", ticks=N_FUSED_TICKS,
+        ticks_without_gang_rows=plain_ticks, native_take_ticks=native_ticks,
+        card=card)
 
     def one_tick():
         idle, gang_batches, batches, ctx = tick_inputs()
@@ -2221,6 +2775,7 @@ def main() -> int:
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    install_native_takes()
 
     # phase 1: the card and the builds, all started together
     card = card_info()
@@ -2403,6 +2958,25 @@ def main() -> int:
     log("k2_step_split", **k2_step_split(m_case, device, N_SHARDS, k2),
         card=card)
 
+    # phase 11: min-utilization workers at the north star (K1 and the host
+    # search); phase 12: `--scheduler milp` with its degraded tick
+    mu = mu_path(card, device, set())
+    milp = milp_path(card, device, set())
+    log("mapping", native=True,
+        default_median_ms=ticks["phases_median_ms"]["mapping"],
+        server_sync_median_ms=server_summary["sync"]["phases_median_ms"]
+        ["mapping"],
+        server_pipelined_median_ms=server_summary["pipelined"]
+        ["phases_median_ms"]["mapping"],
+        multichip_sync_median_ms=m_summary["sync"]["phases_median_ms"]
+        ["mapping"],
+        mu_median_ms=mu["phases_median_ms"]["mapping"],
+        native_take_ticks={"server": server["native_take_ticks"],
+                           "multichip": multi["native_take_ticks"],
+                           "mu": mu["native_take_ticks"],
+                           "milp": milp["native_take_ticks"]},
+        card=card)
+
     kernels = []
     for name, replaces, launch_count, err, timing, held in (
         ("cut_scan", "hyperqueue_tpu/ops/assign.py:398", launches, max_err,
@@ -2428,6 +3002,8 @@ def main() -> int:
             "wrapper_ms": timing["wrapper_ms"],
             "server_launches": server["launches"]["cut_scan"]
             if name == "cut_scan" else 0,
+            "mu_launches": mu["launches"] if name == "cut_scan" else 0,
+            "milp_launches": milp["launches"] if name == "cut_scan" else 0,
             # every launch of the path ran this instantiation (checked)
             "instantiation": "resident",
             "launches_by_instantiation": {"resident": launch_count,
@@ -2449,6 +3025,7 @@ def main() -> int:
         "bound_ms": k5["bound_ms"],
         "bound_by": k5["bound_by"],
         "library_ms": k5["library_ms"],
+        "latency_bound_ms": k5["latency_bound_ms"],
         "wrapper_ms": k5["wrapper_ms"],
         "round_trip_ms": k5["round_trip_min_ms"],
     })

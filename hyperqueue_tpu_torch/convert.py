@@ -31,6 +31,11 @@ from hyperqueue_tpu_torch.resources.request import (
 from hyperqueue_tpu_torch.scheduler.policy import PolicyTable
 from hyperqueue_tpu_torch.scheduler.queues import TaskQueues
 from hyperqueue_tpu_torch.scheduler.tick import WorkerRow
+from hyperqueue_tpu_torch.server.worker import (
+    Worker,
+    WorkerConfiguration,
+    cpu_floor,
+)
 from hyperqueue_tpu_torch.utils.constants import INF_TIME
 
 
@@ -44,10 +49,12 @@ def tick_state_from_plain(resources, classes, tasks, workers):
       three optional).
     tasks: (task_id, class_index, (user_priority, scheduler_priority))
       rows in queue (FIFO) order.
-    workers: (worker_id, free, nt_free, lifetime_secs, total[, group])
-      rows; free and total are per-resource amounts in resource-id order,
-      total may be None; group is the worker group's name ("default" when
-      absent).
+    workers: (worker_id, free, nt_free, lifetime_secs, total[, group[,
+      min_utilization]]) rows; free and total are per-resource amounts in
+      resource-id order, total may be None; group is the worker group's
+      name ("default" when absent); min_utilization (0 when absent) gives
+      the row's cpu_floor, as server/worker.Worker.cpu_floor computes it
+      from the worker's cpus (resource 0) and its free cpus.
 
     Raises ValueError where the data does not give the ids it promises
     (a resource name out of place, two classes that intern to one rq-id).
@@ -84,17 +91,20 @@ def tick_state_from_plain(resources, classes, tasks, workers):
     for task_id, class_index, (user, sched) in tasks:
         queues.add(int(class_index), (int(user), int(sched)), int(task_id))
 
-    rows = [
-        WorkerRow(
+    rows = []
+    for worker_id, free, nt_free, lifetime, total, *rest in workers:
+        mu = float(rest[1]) if len(rest) > 1 else 0.0
+        all_cpus = (total if total is not None else free)[0] if free else 0
+        rows.append(WorkerRow(
             worker_id=int(worker_id),
             free=[int(a) for a in free],
             nt_free=int(nt_free),
             lifetime_secs=int(lifetime),
             total=None if total is None else [int(a) for a in total],
-            group=str(group[0]) if group else "default",
-        )
-        for worker_id, free, nt_free, lifetime, total, *group in workers
-    ]
+            cpu_floor=cpu_floor(mu, int(all_cpus),
+                                int(free[0]) if free else 0),
+            group=str(rest[0]) if rest else "default",
+        ))
     return resource_map, rq_map, queues, rows
 
 
@@ -107,19 +117,16 @@ def core_from_plain(resources, classes, tasks, workers):
     set from the row and its group from the row's sixth field. A finite
     lifetime becomes the worker's time limit, counted from now, so its
     lifetime_secs() reads one less as soon as a fraction of a second has
-    passed. The core's id counter continues after the largest worker id.
+    passed. Its min_utilization comes from the row's seventh field. The
+    core's id counter continues after the largest worker id.
     """
     from hyperqueue_tpu_torch.server.core import Core
-    from hyperqueue_tpu_torch.server.worker import (
-        Worker,
-        WorkerConfiguration,
-    )
 
     resource_map, rq_map, queues, rows = tick_state_from_plain(
         resources, classes, tasks, workers
     )
     core = Core(resource_map=resource_map, rq_map=rq_map, queues=queues)
-    for row in rows:
+    for row, plain in zip(rows, workers):
         total = row.total if row.total is not None else row.free
         items = tuple(
             ResourceDescriptorItem.sum(resources[rid], int(amount))
@@ -130,6 +137,7 @@ def core_from_plain(resources, classes, tasks, workers):
             group=row.group,
             time_limit_secs=(0.0 if row.lifetime_secs >= INF_TIME
                              else float(row.lifetime_secs)),
+            min_utilization=float(plain[6]) if len(plain) > 6 else 0.0,
         )
         worker = Worker.create(row.worker_id, config, resource_map)
         worker.free = list(row.free)

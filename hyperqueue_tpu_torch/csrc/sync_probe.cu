@@ -17,6 +17,10 @@
 //
 // Plain C entry, loaded with ctypes; it returns cudaGetLastError() right
 // after the launch so a refused launch reaches the caller.
+//
+// hq_empty_kernel launches a kernel of the same shape that does nothing:
+// its device time is the card's floor for any launch, the probe's latency
+// bound (a measurement entry; nothing on a path calls it).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -51,7 +55,14 @@ sync_probe_kernel(const int32_t* __restrict__ v, int32_t* __restrict__ out,
     }
 }
 
+__global__ void __launch_bounds__(kThreads) empty_kernel() {}
+
 }  // namespace
+
+extern "C" int hq_empty_kernel(void* stream) {
+    empty_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>();
+    return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int hq_sync_probe(const void* v, void* out, int n, void* stream) {
     sync_probe_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(

@@ -417,8 +417,14 @@ class GreedyCutScanModel:
         needs: np.ndarray,      # (B, V, R) int32
         sizes: np.ndarray,      # (B,) int32/int64
         min_time: np.ndarray,   # (B, V) int32 seconds
+        priorities: list | None = None,  # accepted for model-interface
+                                         # parity; rows are already in
+                                         # descending priority order
         total: np.ndarray | None = None,     # (W, R) int32 pool totals
         all_mask: np.ndarray | None = None,  # (B, V, R) int32 0/1 ALL-policy
+        weights: np.ndarray | None = None,   # (B, V) request weights,
+                                             # consumed by run_tick's batch
+                                             # order; accepted for parity
         gang_nodes: np.ndarray | None = None,    # (B,) int32 gang sizes
         gang_ok: np.ndarray | None = None,       # (W,) int32 host idleness
         group_onehot: np.ndarray | None = None,  # (W, G) int32 group map
@@ -436,8 +442,9 @@ class GreedyCutScanModel:
         ).result()
 
     def solve_async(self, free, nt_free, lifetime, needs, sizes, min_time,
-                    total=None, all_mask=None, gang_nodes=None, gang_ok=None,
-                    group_onehot=None, affinity=None):
+                    priorities=None, total=None, all_mask=None, weights=None,
+                    gang_nodes=None, gang_ok=None, group_onehot=None,
+                    affinity=None):
         """Dispatch one solve; returns a handle whose `.result()` yields the
         unpadded counts. A host solve computes eagerly (the handle is a
         box); on the card the handle comes back with the kernel and the
@@ -459,7 +466,8 @@ class GreedyCutScanModel:
     # -- preparation -------------------------------------------------------
     def prepare(self, free, nt_free, lifetime, needs, sizes, min_time,
                 total=None, all_mask=None, gang_nodes=None, gang_ok=None,
-                group_onehot=None, affinity=None) -> dict:
+                group_onehot=None, affinity=None, priorities=None,
+                weights=None) -> dict:
         """Pad one solve's inputs into the persistent bucket buffers and
         compute the visit classes: returns the kernel's padded host inputs
         (free_p, nt_p, life_p, needs_p, sizes_p, mt_p, total_p, amask_p,
@@ -471,7 +479,9 @@ class GreedyCutScanModel:
         `gang_ok` / `group_onehot` mean no idle worker / one group of none.
         Affinity: a uniform positive matrix cannot reorder or exclude and
         is dropped; otherwise it keys the visit classes, and where some
-        weight is <= 0 its positive entries become the policy mask."""
+        weight is <= 0 its positive entries become the policy mask.
+        `priorities` and `weights` are taken as solve takes them, and
+        ignored."""
         _t0 = time.perf_counter()
         n_w, n_r = free.shape
         n_b, n_v, _ = needs.shape

@@ -1,16 +1,160 @@
-// hqcore: the host-side scan of the scheduling tick, for the PyTorch port.
+// hqcore: native host structures of the scheduling tick, for the PyTorch
+// port.
 //
-// An own copy of the JAX package's native host solve (hq_cut_scan) and the
-// mapping phase's nonzero pass (hq_nonzero), behind a C ABI consumed via
+// An own copy of the JAX package's native core, behind a C ABI consumed via
 // ctypes (hyperqueue_tpu_torch/utils/native.py). Host C++, not a GPU
-// kernel: the solve backend's cost model picks it over the CUDA kernel
-// when the device round trip would cost the tick more.
+// kernel:
+//
+//   * TaskQueue: the per-request-class ready queue, a priority-bucketed
+//     FIFO of u64 task ids with tombstone removal (the semantics of
+//     scheduler/queues.TaskQueue), and hq_map_take, which pops every
+//     solver cell's ids of one tick in one call;
+//   * hq_cut_scan: the host-side scan of the tick, which the solve
+//     backend's cost model picks over the CUDA kernel when the device
+//     round trip would cost the tick more;
+//   * hq_nonzero: the mapping phase's nonzero pass.
 //
 // Build: g++ -O2 -std=c++17 -fPIC -shared, done by utils/native.py at
 // first use into hyperqueue_tpu_torch/_build/.
 
 #include <cstdint>
+#include <deque>
+#include <functional>
+#include <map>
+#include <unordered_set>
+#include <utility>
 #include <vector>
+
+namespace {
+
+using Priority = std::pair<int64_t, int64_t>;  // compared lexicographically
+
+struct TaskQueue {
+    // descending priority: std::map with reverse comparator
+    std::map<Priority, std::deque<uint64_t>, std::greater<Priority>> levels;
+    std::unordered_set<uint64_t> tombstones;
+    int64_t size = 0;
+
+    void compact_level(std::deque<uint64_t>& level) {
+        if (tombstones.empty()) return;
+        std::deque<uint64_t> kept;
+        for (uint64_t id : level) {
+            auto it = tombstones.find(id);
+            if (it != tombstones.end()) {
+                tombstones.erase(it);
+            } else {
+                kept.push_back(id);
+            }
+        }
+        level.swap(kept);
+    }
+};
+
+}  // namespace
+
+extern "C" {
+
+void* hq_queue_new() { return new TaskQueue(); }
+
+void hq_queue_free(void* handle) { delete static_cast<TaskQueue*>(handle); }
+
+void hq_queue_add(void* handle, int64_t prio_user, int64_t prio_sched,
+                  uint64_t task_id) {
+    auto* q = static_cast<TaskQueue*>(handle);
+    q->levels[{prio_user, prio_sched}].push_back(task_id);
+    q->size += 1;
+}
+
+void hq_queue_remove(void* handle, uint64_t task_id) {
+    auto* q = static_cast<TaskQueue*>(handle);
+    q->tombstones.insert(task_id);
+    q->size -= 1;
+}
+
+int64_t hq_queue_len(void* handle) {
+    return static_cast<TaskQueue*>(handle)->size;
+}
+
+// Fill up to max_levels (priority_user, priority_sched, count) triples in
+// descending priority order, compacting tombstones on the way. Returns the
+// number of levels written.
+int64_t hq_queue_priority_sizes(void* handle, int64_t* out_prio_user,
+                                int64_t* out_prio_sched, int64_t* out_counts,
+                                int64_t max_levels) {
+    auto* q = static_cast<TaskQueue*>(handle);
+    int64_t n = 0;
+    for (auto it = q->levels.begin(); it != q->levels.end();) {
+        q->compact_level(it->second);
+        if (it->second.empty()) {
+            it = q->levels.erase(it);
+            continue;
+        }
+        if (n < max_levels) {
+            out_prio_user[n] = it->first.first;
+            out_prio_sched[n] = it->first.second;
+            out_counts[n] = static_cast<int64_t>(it->second.size());
+            ++n;
+        }
+        ++it;
+    }
+    return n;
+}
+
+// Pop up to `count` ids at the given priority level (FIFO). Returns the
+// number written to out_ids.
+int64_t hq_queue_take(void* handle, int64_t prio_user, int64_t prio_sched,
+                      int64_t count, uint64_t* out_ids) {
+    auto* q = static_cast<TaskQueue*>(handle);
+    auto it = q->levels.find({prio_user, prio_sched});
+    if (it == q->levels.end()) return 0;
+    q->compact_level(it->second);
+    int64_t n = 0;
+    while (!it->second.empty() && n < count) {
+        out_ids[n++] = it->second.front();
+        it->second.pop_front();
+    }
+    q->size -= n;
+    if (it->second.empty()) q->levels.erase(it);
+    return n;
+}
+
+// Batched mapping take: for each nonzero solver cell i, pop cell_count[i]
+// ids from the queue of batch cell_batch[i] at that batch's priority and
+// append them to out_ids; out_cell_n[i] records how many were written for
+// the cell. One C call replaces one ctypes round trip per cell in the
+// tick's counts -> assignments mapping. Returns total ids written.
+int64_t hq_map_take(void** queue_handles, const int64_t* prio_user,
+                    const int64_t* prio_sched, const int64_t* cell_batch,
+                    const int64_t* cell_count, int64_t n_cells,
+                    uint64_t* out_ids, int64_t* out_cell_n) {
+    int64_t total = 0;
+    for (int64_t i = 0; i < n_cells; ++i) {
+        int64_t b = cell_batch[i];
+        int64_t got = hq_queue_take(queue_handles[b], prio_user[b],
+                                    prio_sched[b], cell_count[i],
+                                    out_ids + total);
+        out_cell_n[i] = got;
+        total += got;
+    }
+    return total;
+}
+
+// Every id (descending priority, FIFO within a level) into out_ids, at
+// most `max` (the caller sizes it with hq_queue_len).
+int64_t hq_queue_all(void* handle, uint64_t* out_ids, int64_t max) {
+    auto* q = static_cast<TaskQueue*>(handle);
+    int64_t n = 0;
+    for (auto& [prio, level] : q->levels) {
+        q->compact_level(level);
+        for (uint64_t id : level) {
+            if (n >= max) return n;
+            out_ids[n++] = id;
+        }
+    }
+    return n;
+}
+
+}  // extern "C"
 
 // ---------------------------------------------------------------------------
 // hq_cut_scan: the host-side dense tick solve (the numpy fallback's exact

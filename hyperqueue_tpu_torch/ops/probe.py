@@ -38,6 +38,8 @@ def _probe_lib():
         vp = ctypes.c_void_p
         lib.hq_sync_probe.argtypes = [vp, vp, ctypes.c_int, vp]
         lib.hq_sync_probe.restype = ctypes.c_int
+        lib.hq_empty_kernel.argtypes = [vp]
+        lib.hq_empty_kernel.restype = ctypes.c_int
         lib._hq_prototypes = True
     return lib, record
 
@@ -73,6 +75,20 @@ def sync_probe(v: torch.Tensor) -> torch.Tensor:
 
 
 sync_probe.launches = 0
+
+
+def empty_launch(device="cuda") -> None:
+    """Launch a kernel of the probe's shape that does nothing, on the
+    current stream, without synchronizing or counting: its device time is
+    the card's floor for a launch, the probe's latency bound."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"the empty kernel needs a CUDA device, not {device}")
+    lib, _record = _probe_lib()
+    with torch.cuda.device(device):
+        rc = lib.hq_empty_kernel(torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"empty kernel launch failed: cudaError {rc}")
 
 
 def sync_round_trip_ms(device="cuda", reps: int = 3) -> float:

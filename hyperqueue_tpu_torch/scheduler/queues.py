@@ -7,13 +7,21 @@ priority) pairs compared lexicographically, higher first.
 
 Implementation: per queue, a dict priority -> deque plus a descending-sorted
 key list maintained with bisect (distinct priorities are few). Cancelled tasks
-are removed lazily via a tombstone set.
+are removed lazily via a tombstone set. TaskQueues takes its queues from
+utils/native.make_task_queue: the C++ queue (native/hqcore.cpp) where the
+native library builds, else this Python one, with the same interface and
+semantics.
+
+The lazy array store's view (LazyQueueView) comes with the server's data
+model.
 """
 
 from __future__ import annotations
 
 from bisect import insort
 from collections import deque
+
+from hyperqueue_tpu_torch.utils.native import make_task_queue
 
 Priority = tuple[int, int]  # (user_priority, scheduler_priority), higher first
 
@@ -126,24 +134,35 @@ class TaskQueue:
 
 
 class TaskQueues:
-    """rq-id -> TaskQueue, plus bookkeeping of total ready tasks."""
+    """rq-id -> TaskQueue, plus bookkeeping of total ready tasks.
+
+    Queues come from utils.native.make_task_queue: the C++ queue where the
+    native library builds (the tick then pops every cell's ids in one
+    native call, scheduler/tick._native_map_take), else the Python
+    TaskQueue above."""
 
     def __init__(self):
         self._queues: dict[int, TaskQueue] = {}
+        # monotone mutation counter over add/remove (takes during mapping
+        # show up in total_ready instead): a cheap "could a re-solve see
+        # different inputs?" signature with the membership and total_ready
+        self.version = 0
 
     def queue(self, rq_id: int) -> TaskQueue:
         q = self._queues.get(rq_id)
         if q is None:
-            q = TaskQueue()
+            q = make_task_queue()
             self._queues[rq_id] = q
         return q
 
     def add(self, rq_id: int, priority: Priority, task_id: int) -> None:
+        self.version += 1
         self.queue(rq_id).add(priority, task_id)
 
     def remove(self, rq_id: int, task_id: int) -> None:
         q = self._queues.get(rq_id)
         if q is not None:
+            self.version += 1
             q.remove(task_id)
 
     def items(self) -> list[tuple[int, TaskQueue]]:

@@ -17,12 +17,19 @@ by its job boosts and the workers by its affinity rows.
 
 The server's tick reads its workers from the incremental dense snapshot
 (`dense=`, scheduler/tick_cache.py) and may run pipelined (`pipeline=`,
-scheduler/pipeline.py). Not in this module yet, raising
-NotImplementedError: min-utilization workers.
+scheduler/pipeline.py).
+
+Min-utilization workers (a cpu floor: all of it or no cpu work this tick)
+are solved jointly by a model that can express the floor
+(`supports_cpu_floor`, models/milp.MilpModel); under the greedy models they
+are carved out of the main solve and each gets an exact host search over
+the leftovers (_solve_mu_workers), the JAX package's documented deviation.
 """
 
 from __future__ import annotations
 
+import ctypes
+import logging
 import time as _time
 from dataclasses import dataclass
 
@@ -37,9 +44,15 @@ from hyperqueue_tpu_torch.scheduler.queues import (
     TaskQueues,
 )
 from hyperqueue_tpu_torch.utils.constants import INF_TIME
-from hyperqueue_tpu_torch.utils.native import native_nonzero
+from hyperqueue_tpu_torch.utils.native import NativeTaskQueue, native_nonzero
+
+logger = logging.getLogger(__name__)
 
 MAX_CUTS_PER_QUEUE = 32
+# Node budget of the per-worker min-utilization branch-and-bound
+# (_solve_mu_workers): past it the best fill FOUND still ships (the first
+# dive is a greedy max-take seed) and a warning names the worker.
+MU_DFS_NODE_BUDGET = 50_000
 # Values above this get range-compressed before entering the solve. The
 # CUDA kernel divides exactly at any int32 amount; the compression is kept
 # because it changes decisions, and the solve must decide as the reference
@@ -187,7 +200,7 @@ def run_tick(
 
     `dense` (a scheduler/tick_cache.DenseSnapshot) replaces `workers` with
     the persistent incremental snapshot; the cache serves only ticks
-    without min-utilization workers, so the carve-out below is skipped
+    without min-utilization workers, so the floors below are skipped
     structurally. `key_cache` (a TickStateCache) memoizes sort keys and the
     batch layout across ticks. `decision` (optional dict) receives the
     solver's verdict under "solver": status, backend, backend_reason,
@@ -206,7 +219,8 @@ def run_tick(
     scheduler/policy.TickPolicyContext) carries this tick's affinity rows
     and per-job boosts. The JAX package passes gang_ok and group_ids to the
     solve on its dense-snapshot path only; here they reach the solve from
-    `workers` as well.
+    `workers` as well (filtered with the rows where the min-utilization
+    carve-out drops workers).
     """
     if batches is None:
         batches = create_batches(queues)
@@ -223,35 +237,71 @@ def run_tick(
         )
     if not batches or not workers:
         return []
+
+    # min-utilization workers take tasks all-or-nothing (enough cpu work to
+    # clear their floor, or none). A model that can express that jointly
+    # (supports_cpu_floor: MilpModel, `--scheduler milp`) solves normal and
+    # mu workers in one program, the reference semantics (solver.rs:479-518
+    # add_min_utilization). The water-fill cannot, so under the greedy
+    # models the mu workers are carved out of the main solve and each gets
+    # an exact host search over the leftovers — the JAX package's
+    # documented deviation: a task never chooses BETWEEN a normal and a mu
+    # worker in one decision.
     mu_workers = [w for w in workers if w.cpu_floor > 0]
-    if mu_workers and policy is not None and policy.rows:
-        # the mu carve-out drops workers from the row list, so the (B, W)
-        # affinity rows (built against the unfiltered order) no longer
-        # align — keep only the alignment-free priority boosts
-        policy = type(policy)(rows={}, boosts=policy.boosts)
-    if mu_workers:
-        raise NotImplementedError(
-            "min-utilization workers (_solve_mu_workers) are not ported "
-            "yet; they come with their own slice"
+    if mu_workers and getattr(model, "supports_cpu_floor", False):
+        return _run_main_solve(
+            queues, workers, rq_map, resource_map, model, batches,
+            cpu_floor=np.fromiter(
+                (max(w.cpu_floor, 0) for w in workers), dtype=np.int64,
+                count=len(workers),
+            ),
+            phases=phases, key_cache=key_cache, decision=decision,
+            gang_ok=gang_ok, group_ids=group_ids, policy=policy,
         )
-    return _run_main_solve(
+    if mu_workers:
+        keep = np.fromiter((w.cpu_floor <= 0 for w in workers), dtype=bool,
+                           count=len(workers))
+        workers = [w for w in workers if w.cpu_floor <= 0]
+        if not workers:
+            return _solve_mu_workers(queues, mu_workers, rq_map,
+                                     resource_map)
+        # the carve-out dropped workers from the row list: the (W,) gang
+        # inputs are filtered with the rows, and the (B, W) affinity rows
+        # (built against the unfiltered order) no longer align — keep only
+        # the alignment-free priority boosts
+        if gang_ok is not None:
+            gang_ok = np.asarray(gang_ok)[keep]
+        if group_ids is not None:
+            group_ids = np.asarray(group_ids)[keep]
+        if policy is not None and policy.rows:
+            policy = type(policy)(rows={}, boosts=policy.boosts)
+    assignments = _run_main_solve(
         queues, workers, rq_map, resource_map, model, batches,
         phases=phases, key_cache=key_cache, decision=decision,
         gang_ok=gang_ok, group_ids=group_ids, policy=policy,
     )
+    if mu_workers:
+        assignments.extend(
+            _solve_mu_workers(queues, mu_workers, rq_map, resource_map)
+        )
+    return assignments
 
 
 def assemble_solve_inputs(workers, batches, rq_map, resource_map,
-                          dense=None, key_cache=None, gang_ok=None,
-                          group_ids=None, policy=None):
+                          cpu_floor=None, dense=None, key_cache=None,
+                          gang_ok=None, group_ids=None, policy=None):
     """Build the dense model.solve inputs for `batches` over `workers`.
 
     Sorts `batches` IN PLACE into the production solve order (priority,
     gang rows first within a user priority, boosted scheduler priority,
-    scarcity, achievable objective) and applies range compression. Adds
-    the policy's (B, W) `affinity` rows and, when a gang batch is present,
-    `gang_nodes`, `gang_ok` and `group_onehot`. Returns the kwargs dict for
-    model.solve().
+    scarcity, achievable objective) and applies range compression. The
+    kwargs carry every batch's `priorities` (the MILP's lexicographic
+    levels) and, when a class carries a non-default request weight, the
+    (B, V) `weights`; the greedy models accept and ignore both. Adds the
+    policy's (B, W) `affinity` rows, when a gang batch is present
+    `gang_nodes`, `gang_ok` and `group_onehot`, and with `cpu_floor` (the
+    joint min-utilization path of run_tick) the (W,) floors, ceil-shifted
+    with the cpu column. Returns the kwargs dict for model.solve().
 
     Two input forms, bit-identical by contract (tick_cache.paranoid_check):
 
@@ -436,7 +486,8 @@ def assemble_solve_inputs(workers, batches, rq_map, resource_map,
     batches.sort(key=_sort_key, reverse=True)
 
     # per-tick sizes always refresh; the batch-shaped LAYOUT arrays
-    # (needs/min_time/all_mask) are pure in the sorted rq-id sequence and
+    # (needs/min_time/all_mask/weights) are pure in the sorted rq-id
+    # sequence and
     # reusable across ticks through `key_cache` — steady state repeats the
     # sequence exactly
     sizes = np.fromiter(
@@ -455,6 +506,7 @@ def assemble_solve_inputs(workers, batches, rq_map, resource_map,
         needs = layout["needs64"]
         min_time = layout["min_time"]
         all_mask = layout["all_mask"]
+        w_arr = layout["w_arr"]
         needs_cache_owned = True
     else:
         needs = np.zeros((n_b, n_v, n_r), dtype=np.int64)
@@ -470,6 +522,7 @@ def assemble_solve_inputs(workers, batches, rq_map, resource_map,
         if cache_key != n_r:
             dense_cache = {}
             rq_map._dense_cache = (n_r, dense_cache)
+        weighted_rows: list[tuple[int, int, np.ndarray]] = []
         for bi, batch in enumerate(batches):
             row = dense_cache.get(batch.rq_id)
             if row is None:
@@ -485,13 +538,25 @@ def assemble_solve_inputs(workers, batches, rq_map, resource_map,
                             am[vi, entry.resource_id] = 1
                         else:
                             nd[vi, entry.resource_id] = entry.amount
-                row = (k, nd, am if am.any() else None, mt)
+                wt = np.array([v.weight for v in variants], dtype=np.float64)
+                row = (k, nd, am if am.any() else None, mt,
+                       wt if (wt != 1.0).any() else None)
                 dense_cache[batch.rq_id] = row
-            k, nd, am, mt = row
+            k, nd, am, mt, wt = row
             needs[bi, :k] = nd
             min_time[bi, :k] = mt
             if am is not None and all_mask is not None:
                 all_mask[bi, :k] = am
+            if wt is not None:
+                weighted_rows.append((bi, k, wt))
+        w_arr = None
+        if weighted_rows:
+            # request weights, only where a class carries a non-default
+            # one: the greedy models consumed them through the batch order
+            # above; the MILP folds them into its objective
+            w_arr = np.ones((n_b, n_v), dtype=np.float64)
+            for bi, k, wt in weighted_rows:
+                w_arr[bi, :k] = wt
         needs_cache_owned = False
         if key_cache is not None:
             key_cache.batch_layout_sig = layout_sig
@@ -499,6 +564,7 @@ def assemble_solve_inputs(workers, batches, rq_map, resource_map,
                 "needs64": needs,
                 "min_time": min_time,
                 "all_mask": all_mask,
+                "w_arr": w_arr,
                 "needs32": None,
             }
             needs_cache_owned = True  # stored: shifts must copy-on-write
@@ -525,6 +591,8 @@ def assemble_solve_inputs(workers, batches, rq_map, resource_map,
     extra = {}
     if all_mask is not None and all_mask.any():
         extra = {"total": total.astype(np.int32), "all_mask": all_mask}
+    if w_arr is not None:
+        extra["weights"] = w_arr
     if policy is not None and policy.rows:
         # heterogeneity affinity (B, W): one row per batch in the SORTED
         # order, index-aligned with the solve's worker axis; classes the
@@ -557,6 +625,13 @@ def assemble_solve_inputs(workers, batches, rq_map, resource_map,
         extra["group_onehot"] = (
             gids[:, None] == np.arange(n_g, dtype=np.int32)[None, :]
         ).astype(np.int32)
+    if cpu_floor is not None:
+        # a floor must never become EASIER to meet than in the unshifted
+        # program: ceil-shift it with the cpu column
+        if shifts[0]:
+            s = shifts[0]
+            cpu_floor = (cpu_floor + (1 << s) - 1) >> s
+        extra["cpu_floor"] = cpu_floor
     return {
         "free": free.astype(np.int32),
         "nt_free": nt_free,
@@ -564,19 +639,20 @@ def assemble_solve_inputs(workers, batches, rq_map, resource_map,
         "needs": needs32,
         "sizes": sizes,
         "min_time": min_time,
+        "priorities": [b.priority for b in batches],
         **extra,
     }
 
 
 def _run_main_solve(queues, workers, rq_map, resource_map, model, batches,
-                    dense=None, phases=None, key_cache=None, decision=None,
-                    pipeline=None, gang_ok=None, group_ids=None,
-                    policy=None):
+                    cpu_floor=None, dense=None, phases=None, key_cache=None,
+                    decision=None, pipeline=None, gang_ok=None,
+                    group_ids=None, policy=None):
     _t0 = _time.perf_counter()
     kwargs = assemble_solve_inputs(
-        workers, batches, rq_map, resource_map, dense=dense,
-        key_cache=key_cache, gang_ok=gang_ok, group_ids=group_ids,
-        policy=policy,
+        workers, batches, rq_map, resource_map, cpu_floor=cpu_floor,
+        dense=dense, key_cache=key_cache, gang_ok=gang_ok,
+        group_ids=group_ids, policy=policy,
     )
     _t1 = _time.perf_counter()
     if pipeline is not None and hasattr(model, "solve_async"):
@@ -667,7 +743,9 @@ def _map_counts(queues, batches, worker_ids, counts,
     One global nonzero over (B, V, W): row-major order preserves the
     per-batch FIFO take semantics of a nested (batch, variant, worker)
     loop. Every backend hands over C-contiguous int32 counts, so the
-    native nonzero (utils/native.py) applies where the library is built.
+    native nonzero (utils/native.py) applies where the library is built,
+    and where every batch's queue is native one call pops every cell's
+    ids (_native_map_take); gang ticks take per cell in Python.
     """
     _t2 = _time.perf_counter()
     assignments: list[Assignment] = []
@@ -711,7 +789,24 @@ def _map_counts(queues, batches, worker_ids, counts,
                 )
             return assignments
         batch_queues = [queues.queue(b.rq_id) for b in batches]
+        native = _native_map_take(batch_queues, batches, bs, vals)
         extend = assignments.extend
+        if native is not None:
+            # one C call popped every cell's ids; stitch the tuples here
+            out_ids, cell_n = native
+            pos = 0
+            for ci, (bi, vi, wi) in enumerate(
+                zip(bs.tolist(), vs.tolist(), ws.tolist())
+            ):
+                end = pos + cell_n[ci]
+                rq_id = batches[bi].rq_id
+                worker_id = worker_ids[wi]
+                extend(
+                    [(tid, worker_id, rq_id, vi)
+                     for tid in out_ids[pos:end]]
+                )
+                pos = end
+            return assignments
         cur_bi = -1
         queue = rq_id = priority = None
         for bi, vi, wi, n in zip(
@@ -734,3 +829,227 @@ def _map_counts(queues, batches, worker_ids, counts,
             phases["mapping"] = phases.get("mapping", 0.0) + (
                 _time.perf_counter() - _t2
             ) * 1e3
+
+
+def _solve_mu_workers(queues, mu_rows, rq_map, resource_map):
+    """Exact all-or-nothing solve for min-utilization workers (host side).
+
+    Reference semantics (solver.rs:479-518 add_min_utilization): a worker
+    with min_utilization either receives enough cpu work to push its busy
+    cpus to at least mu x all_cpus, or receives no CPU-consuming work this
+    tick (the constraint binds only cpu-consuming variables, so zero-cpu
+    tasks — e.g. gpu-only — may land regardless). Per
+    worker, a depth-first branch-and-bound over (request class, priority,
+    variant) candidate counts maximizes the priority-lexicographic score
+    (per level: task count, or weight x resource-share value when the level
+    carries non-default request weights — mirroring the LP objective,
+    solver.rs:520-549) subject to the worker's resources and the cpu floor.
+
+    Candidates are capped at the 32 best (priority, value) classes and the
+    search at MU_DFS_NODE_BUDGET nodes — past the budget the best fill
+    found so far ships (usually the greedy first dive; possibly empty, in
+    which case the worker stays idle this tick, a warning names it, and it
+    retries next tick). mu workers are rare; exactness on small instances
+    matters more than scale here.
+    """
+    assignments: list[Assignment] = []
+    n_r = len(resource_map)
+
+    for row in sorted(mu_rows, key=lambda r: r.worker_id):
+        free0 = list(row.free[:n_r]) + [0] * (n_r - len(row.free))
+        total0 = list((row.total or row.free)[:n_r])
+        total0 += [0] * (n_r - len(total0))
+        floor = row.cpu_floor
+        nt0 = max(row.nt_free, 0)
+        if nt0 == 0:
+            continue
+
+        # --- gather candidates from the current queue state ---
+        # group = (rq_id, priority): variants of one class share the queued
+        # count, so the DFS constrains the SUM of their takes (mirrors the
+        # kernel's one `remaining` across the variant axis in scan_batches)
+        cands = []  # (priority, value, rq_id, vi, needs(R,), max_count, grp)
+        group_count: dict[tuple[int, tuple], int] = {}
+        for rq_id, queue in queues.items():
+            rqv = rq_map.get_variants(rq_id)
+            if rqv.is_multi_node:
+                continue
+            for priority, count in queue.priority_sizes():
+                if count <= 0:
+                    continue
+                group_count[(rq_id, priority)] = count
+                for vi, variant in enumerate(rqv.variants):
+                    if variant.min_time_secs > row.lifetime_secs:
+                        continue
+                    needs_vec = [0] * n_r
+                    ok = True
+                    for e in variant.entries:
+                        if e.resource_id >= n_r:
+                            ok = False
+                            break
+                        amt = (
+                            total0[e.resource_id]
+                            if e.policy is AllocationPolicy.ALL
+                            else e.amount
+                        )
+                        if e.policy is AllocationPolicy.ALL and (
+                            amt <= 0 or free0[e.resource_id] != amt
+                        ):
+                            ok = False
+                            break
+                        needs_vec[e.resource_id] = amt
+                    if not ok:
+                        continue
+                    fit = nt0
+                    for r in range(n_r):
+                        if needs_vec[r] > 0:
+                            fit = min(fit, free0[r] // needs_vec[r])
+                    if fit <= 0:
+                        continue
+                    value = variant.weight * sum(
+                        needs_vec[r] / total0[r]
+                        for r in range(n_r)
+                        if needs_vec[r] > 0 and total0[r] > 0
+                    )
+                    cands.append(
+                        (priority, value, rq_id, vi, needs_vec,
+                         min(count, fit), (rq_id, priority))
+                    )
+        if not cands:
+            continue
+        cands.sort(key=lambda c: (c[0], c[1]), reverse=True)
+        cands = cands[:32]
+        group_left0 = dict(group_count)
+
+        # priority levels and their scoring mode (count vs weighted value)
+        levels = sorted({c[0] for c in cands}, reverse=True)
+        level_of = {p: i for i, p in enumerate(levels)}
+        weighted_level = [False] * len(levels)
+        for c in cands:
+            if abs(rq_map.get_variants(c[2]).variants[c[3]].weight - 1.0) \
+                    > 1e-9:
+                weighted_level[level_of[c[0]]] = True
+
+        def task_score(c):
+            return c[1] if weighted_level[level_of[c[0]]] else 1.0
+
+        # optimistic per-level remaining score from candidate i onward
+        n_c = len(cands)
+        opt = [[0.0] * len(levels) for _ in range(n_c + 1)]
+        for i in range(n_c - 1, -1, -1):
+            opt[i] = list(opt[i + 1])
+            c = cands[i]
+            opt[i][level_of[c[0]]] += task_score(c) * c[5]
+
+        # static suffix bound on addable cpus (ignores shared resources:
+        # an over-estimate, which is what a prune needs)
+        suffix_cpu = [0] * (n_c + 1)
+        for i in range(n_c - 1, -1, -1):
+            suffix_cpu[i] = suffix_cpu[i + 1] + cands[i][4][0] * cands[i][5]
+
+        best_score: list[float] | None = None
+        best_take: list[int] | None = None
+        nodes = 0
+
+        def dfs(i, free, nt, cpu_used, score, take):
+            nonlocal best_score, best_take, nodes
+            nodes += 1
+            if nodes > MU_DFS_NODE_BUDGET:
+                return
+            # prune: even everything remaining cannot beat the best
+            if best_score is not None:
+                bound = [s + o for s, o in zip(score, opt[i])]
+                if bound <= best_score:
+                    return
+            # prune: floor unreachable even with all remaining cpus (only
+            # once cpus are committed — an all-zero-cpu completion stays
+            # feasible from cpu_used == 0)
+            if 0 < cpu_used and cpu_used + suffix_cpu[i] < floor:
+                return
+            if i == n_c:
+                # all-or-nothing applies to CPU usage (reference
+                # solver.rs:479-518 constrains only cpu-consuming variables):
+                # zero-cpu assignments (e.g. gpu-only tasks) are always
+                # allowed on a floored worker
+                if (cpu_used == 0 or cpu_used >= floor) and (
+                    best_score is None or score > best_score
+                ):
+                    best_score = list(score)
+                    best_take = list(take)
+                return
+            c = cands[i]
+            needs_vec = c[4]
+            x_max = min(c[5], nt, group_left[c[6]])
+            for r in range(n_r):
+                if needs_vec[r] > 0:
+                    x_max = min(x_max, free[r] // needs_vec[r])
+            for x in range(x_max, -1, -1):
+                if x:
+                    new_free = [
+                        free[r] - x * needs_vec[r] for r in range(n_r)
+                    ]
+                else:
+                    new_free = free
+                li = level_of[c[0]]
+                new_score = list(score)
+                new_score[li] += task_score(c) * x
+                take.append(x)
+                group_left[c[6]] -= x
+                dfs(
+                    i + 1, new_free, nt - x,
+                    cpu_used + x * needs_vec[0], new_score, take,
+                )
+                group_left[c[6]] += x
+                take.pop()
+
+        group_left = dict(group_left0)
+        dfs(0, free0, nt0, 0, [0.0] * len(levels), [])
+
+        if nodes > MU_DFS_NODE_BUDGET:
+            # budget exhausted: the best solution FOUND so far still ships
+            # (the first dive is a greedy max-take seed, so one is almost
+            # always in hand); log so an idle mu worker is explainable
+            logger.warning(
+                "min-utilization solve for worker %d hit the %d-node "
+                "budget; shipping the best fill found (%s)",
+                row.worker_id, MU_DFS_NODE_BUDGET,
+                "non-empty" if best_take and any(best_take) else "empty",
+            )
+        if not best_take or not any(best_take):
+            continue
+        for c, x in zip(cands, best_take):
+            if x <= 0:
+                continue
+            priority, _value, rq_id, vi = c[0], c[1], c[2], c[3]
+            for task_id in queues.queue(rq_id).take(priority, x):
+                assignments.append((task_id, row.worker_id, rq_id, vi))
+    return assignments
+
+
+def _native_map_take(batch_queues, batches, bs, vals):
+    """Pop every solver cell's task ids with ONE native call when all batch
+    queues are C++-backed (native/hqcore.cpp hq_map_take); returns
+    (ids_list, per_cell_counts) or None to use the per-cell Python path."""
+    if not all(isinstance(q, NativeTaskQueue) for q in batch_queues):
+        return None
+    lib = batch_queues[0]._lib
+    n_b = len(batches)
+    handles = (ctypes.c_void_p * n_b)(*(q._handle for q in batch_queues))
+    pu = (ctypes.c_int64 * n_b)(*(b.priority[0] for b in batches))
+    ps = (ctypes.c_int64 * n_b)(*(b.priority[1] for b in batches))
+    n_cells = bs.size
+    # the solver's ndarrays go to C directly
+    cell_batch = np.ascontiguousarray(bs, dtype=np.int64)
+    cell_count = np.ascontiguousarray(vals, dtype=np.int64)
+    out_ids = np.empty(int(cell_count.sum()), dtype=np.uint64)
+    cell_n = np.empty(n_cells, dtype=np.int64)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    lib.hq_map_take(
+        handles, pu, ps,
+        cell_batch.ctypes.data_as(i64p),
+        cell_count.ctypes.data_as(i64p),
+        n_cells,
+        out_ids.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+        cell_n.ctypes.data_as(i64p),
+    )
+    return out_ids.tolist(), cell_n.tolist()

@@ -152,6 +152,12 @@ class SolverWatchdog:
     def armed(self) -> bool:
         return self._bench_remaining == 0 and not self._abandoned_busy()
 
+    @property
+    def supports_cpu_floor(self) -> bool:
+        # while benched, the fallback runs the tick; it cannot express the
+        # joint min-utilization floor, so the tick takes the carve-out
+        return self.armed and getattr(self.model, "supports_cpu_floor", False)
+
     def __getattr__(self, name):
         # only reached for attributes not set on the watchdog itself
         return getattr(object.__getattribute__(self, "_last_ran"), name)
@@ -292,8 +298,22 @@ class SolverWatchdog:
                 "watchdog has no fallback"
             )
         self.last_solve_degraded = True
+        fb_kwargs = dict(kwargs)
+        # the fallback cannot express the joint min-utilization floor: on a
+        # degraded tick the floored workers WAIT (their rows are zeroed, so
+        # they receive nothing) rather than take work below their floor
+        cpu_floor = fb_kwargs.pop("cpu_floor", None)
+        if cpu_floor is not None:
+            floored = np.asarray(cpu_floor) > 0
+            if floored.any():
+                free = np.array(fb_kwargs["free"], copy=True)
+                free[floored] = 0
+                nt_free = np.array(fb_kwargs["nt_free"], copy=True)
+                nt_free[floored] = 0
+                fb_kwargs["free"] = free
+                fb_kwargs["nt_free"] = nt_free
         try:
-            result = self.fallback.solve(**kwargs)
+            result = self.fallback.solve(**fb_kwargs)
         except Exception:  # noqa: BLE001 - never kill the scheduling loop
             self.skipped_ticks += 1
             self.last_solve_skipped = True

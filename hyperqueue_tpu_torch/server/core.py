@@ -56,6 +56,10 @@ class Core:
     # skip the O(W) membership walk on the common unchanged tick.
     # Row CONTENT changes (free/nt_free) ride on Worker.epoch instead.
     membership_epoch: int = 0
+    # rq_id -> (membership_epoch, amount_capable, lifetime_ok, stable) memo
+    # for scheduler/decision.classify_class (pure in the worker set per
+    # class)
+    capable_memo: dict = field(default_factory=dict)
 
     def bump_membership(self) -> None:
         self.membership_epoch += 1

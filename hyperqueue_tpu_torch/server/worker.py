@@ -11,6 +11,7 @@ transport.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 
 from hyperqueue_tpu_torch.utils.constants import INF_TIME
@@ -53,6 +54,16 @@ class WorkerConfiguration:
     # redirect (-1 = not a borrowed worker); lets the borrowing shard
     # count its borrowed pool in `hq server stats`
     lent_from: int = -1
+
+
+def cpu_floor(min_utilization: float, all_cpus: int, free_cpus: int) -> int:
+    """floor = ceil(mu x all_cpus) - used_cpus = mu x all - (all - free);
+    0 for normal workers or once enough is already running (reference
+    solver.rs:493-498)."""
+    if min_utilization <= 0.001 or all_cpus <= 0:
+        return 0
+    floor = math.ceil(min_utilization * all_cpus) - (all_cpus - free_cpus)
+    return max(floor, 0)
 
 
 @dataclass
@@ -131,22 +142,13 @@ class Worker:
         return max(int(remaining), 0)
 
     def cpu_floor(self) -> int:
-        """Cpu fractions this tick must still fill for min_utilization.
-
-        floor = ceil(mu x all_cpus) - used_cpus = mu x all - (all - free);
-        0 for normal workers or once enough is already running (reference
-        solver.rs:493-498). Resource id 0 is the cpus column by convention
-        (reference CPU_RESOURCE_ID)."""
-        mu = self.configuration.min_utilization
-        if mu <= 0.001 or not self.free:
+        """Cpu fractions this tick must still fill for min_utilization
+        (the module-level cpu_floor). Resource id 0 is the cpus column by
+        convention (reference CPU_RESOURCE_ID)."""
+        if not self.free:
             return 0
-        all_cpus = self.resources.amount(0)
-        if all_cpus <= 0:
-            return 0
-        import math
-
-        floor = math.ceil(mu * all_cpus) - (all_cpus - self.free[0])
-        return max(floor, 0)
+        return cpu_floor(self.configuration.min_utilization,
+                         self.resources.amount(0), self.free[0])
 
     def assign(self, task_id: int, amounts: list[tuple[int, int]]) -> None:
         """amounts: [(resource_id, fraction_amount)] of the chosen variant."""

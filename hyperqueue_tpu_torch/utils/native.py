@@ -1,12 +1,14 @@
-"""ctypes loader for the native host scan (native/hqcore.cpp).
+"""ctypes loader for the native host core (native/hqcore.cpp): the task
+queue and its one-call map-take, the host scan and the nonzero pass.
 
 The library is built with the host's C++ compiler at first use, from the
 package's own source, into `_build/` beside the package (ignored by git):
 its file name carries a hash of the source and the flags, so an edited
 source builds anew, and a file lock lets concurrent processes share one
 build. On a host without a C++ compiler every entry point here returns
-None and the caller solves with the numpy twin
-(ops/assign.greedy_cut_scan_numpy), whose semantics the native scan shares.
+None, make_task_queue returns the Python TaskQueue, and the caller solves
+with the numpy twin (ops/assign.greedy_cut_scan_numpy): the Python and
+native structures share their semantics, and the tests hold them equal.
 """
 
 from __future__ import annotations
@@ -72,6 +74,42 @@ def load_native():
 
 
 def _set_prototypes(lib) -> None:
+    lib.hq_queue_new.restype = ctypes.c_void_p
+    lib.hq_queue_free.argtypes = [ctypes.c_void_p]
+    lib.hq_queue_add.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_uint64,
+    ]
+    lib.hq_queue_remove.argtypes = [ctypes.c_void_p, ctypes.c_uint64]
+    lib.hq_queue_len.argtypes = [ctypes.c_void_p]
+    lib.hq_queue_len.restype = ctypes.c_int64
+    lib.hq_queue_priority_sizes.argtypes = [
+        ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_int64,
+    ]
+    lib.hq_queue_priority_sizes.restype = ctypes.c_int64
+    lib.hq_queue_take.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_uint64),
+    ]
+    lib.hq_queue_take.restype = ctypes.c_int64
+    lib.hq_queue_all.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint64), ctypes.c_int64,
+    ]
+    lib.hq_queue_all.restype = ctypes.c_int64
+    lib.hq_map_take.argtypes = [
+        ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_uint64),
+        ctypes.POINTER(ctypes.c_int64),
+    ]
+    lib.hq_map_take.restype = ctypes.c_int64
     lib.hq_cut_scan.argtypes = [
         ctypes.POINTER(ctypes.c_int64),   # free (W,R)
         ctypes.POINTER(ctypes.c_int64),   # total (W,R) or NULL
@@ -179,3 +217,61 @@ def native_nonzero(counts):
         if got < capacity or capacity >= n:
             return flat[:got], vals[:got]
         capacity = n
+
+
+class NativeTaskQueue:
+    """Same interface as scheduler.queues.TaskQueue, backed by C++."""
+
+    __slots__ = ("_lib", "_handle")
+
+    MAX_LEVELS = 4096
+
+    def __init__(self, lib):
+        self._lib = lib
+        self._handle = ctypes.c_void_p(lib.hq_queue_new())
+
+    def __del__(self):
+        if getattr(self, "_handle", None):
+            self._lib.hq_queue_free(self._handle)
+            self._handle = None
+
+    def __len__(self) -> int:
+        return self._lib.hq_queue_len(self._handle)
+
+    def add(self, priority, task_id: int) -> None:
+        self._lib.hq_queue_add(self._handle, priority[0], priority[1], task_id)
+
+    def remove(self, task_id: int) -> None:
+        self._lib.hq_queue_remove(self._handle, task_id)
+
+    def priority_sizes(self):
+        n = self.MAX_LEVELS
+        pu = (ctypes.c_int64 * n)()
+        ps = (ctypes.c_int64 * n)()
+        counts = (ctypes.c_int64 * n)()
+        got = self._lib.hq_queue_priority_sizes(self._handle, pu, ps, counts, n)
+        return [((pu[i], ps[i]), counts[i]) for i in range(got)]
+
+    def take(self, priority, count: int):
+        out = (ctypes.c_uint64 * count)()
+        got = self._lib.hq_queue_take(
+            self._handle, priority[0], priority[1], count, out
+        )
+        return [out[i] for i in range(got)]
+
+    def all_tasks(self):
+        n = len(self)
+        out = (ctypes.c_uint64 * max(n, 1))()
+        got = self._lib.hq_queue_all(self._handle, out, n)
+        return [out[i] for i in range(got)]
+
+
+def make_task_queue():
+    """The native queue where the library is built, else the Python
+    TaskQueue."""
+    lib = load_native()
+    if lib is not None:
+        return NativeTaskQueue(lib)
+    from hyperqueue_tpu_torch.scheduler.queues import TaskQueue
+
+    return TaskQueue()

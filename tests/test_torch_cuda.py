@@ -732,3 +732,74 @@ def test_multichip_model_on_card_matches_cpu(cuda):
         assert gpu.last_backend_reason == "multichip-mesh"
     assert gpu.paranoid_checks == 1
     assert solve.sharded_cut_scan.launches == launches + 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+def test_mu_ticks_on_card_match_cpu(cuda, seed):
+    """Min-utilization workers with the card model: three ticks over a
+    small north-star Core with four floored workers, the card's and the
+    CPU's run_tick on identical state (the carve-out: K1 over the
+    unfloored workers, the host search over the floored): the same
+    assignments, one K1 launch a tick, every floor met or untouched."""
+    from chip_smoke import CoreRunner, check_floors, mu_state
+    from hyperqueue_tpu_torch.convert import core_from_plain
+
+    plain = mu_state(n_floored=4, n_workers=64, n_tasks=4000, n_classes=16,
+                     seed=seed)
+    cores = [core_from_plain(*plain) for _ in range(2)]
+    models = [GreedyCutScanModel(device="cuda"),
+              GreedyCutScanModel(device="cpu", backend="device")]
+    runners = [CoreRunner(core, seed) for core in cores]
+    for t in range(3):
+        outs, floored = [], []
+        for core, model in zip(cores, models):
+            assert core.tick_cache.sync(core) is None
+            rows = core.worker_rows()
+            floors = {r.worker_id: r.cpu_floor for r in rows
+                      if r.cpu_floor > 0}
+            before = assign.greedy_cut_scan.launches
+            outs.append(run_tick(core.queues, rows, core.rq_map,
+                                 core.resource_map, model))
+            check_floors(outs[-1], floors, core.rq_map, f"tick {t}")
+            floored.append(floors)
+            if model.device.type == "cuda":
+                assert assign.greedy_cut_scan.launches == before + 1
+        assert outs[0] == outs[1], f"tick {t}"
+        assert floored[0] == floored[1] and floored[0]
+        for runner, out, floors in zip(runners, outs, floored):
+            runner.start(out)
+            runner.finish(floors)
+
+
+@pytest.mark.cuda
+def test_degraded_milp_tick_on_card_zeroes_the_floored_rows(cuda):
+    """A failed MILP degrades its tick to the card model with the floored
+    rows zeroed: the floored workers receive nothing, and the assignments
+    equal the CPU fallback's on an identical Core."""
+    from chip_smoke import milp_state
+    from hyperqueue_tpu_torch.convert import core_from_plain
+    from hyperqueue_tpu_torch.scheduler.watchdog import SolverWatchdog
+
+    class FailingMilp:
+        supports_cpu_floor = True
+
+        def solve(self, **kwargs):
+            raise RuntimeError("injected solver failure")
+
+    outs = []
+    for device in ("cuda", "cpu"):
+        core = core_from_plain(*milp_state())
+        wd = SolverWatchdog(FailingMilp(), fallback=GreedyCutScanModel(
+            device=device, backend="device"))
+        rows = core.worker_rows()
+        floored = {r.worker_id for r in rows if r.cpu_floor > 0}
+        decision = {}
+        before = assign.greedy_cut_scan.launches
+        outs.append(run_tick(core.queues, rows, core.rq_map,
+                             core.resource_map, wd, decision=decision))
+        assert decision["solver"]["status"] == "fallback"
+        assert floored and not {w for _t, w, *_ in outs[-1]} & floored
+        if device == "cuda":
+            assert assign.greedy_cut_scan.launches == before + 1
+    assert outs[0] == outs[1] and outs[0]

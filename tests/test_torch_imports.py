@@ -45,7 +45,9 @@ def test_port_files_exist():
                    "server/worker.py", "resources/descriptor.py",
                    "resources/worker_resources.py", "utils/clock.py",
                    "utils/native.py", "models/greedy.py",
-                   "models/multichip.py", "parallel/solve.py", "convert.py"):
+                   "models/multichip.py", "models/milp.py",
+                   "scheduler/oracle.py", "scheduler/decision.py",
+                   "parallel/solve.py", "convert.py"):
         assert f"hyperqueue_tpu_torch/{module}" in names, module
     for source in ("csrc/cut_scan.cu", "csrc/cut_scan_step.cuh",
                    "csrc/sharded_scan.cu", "csrc/sync_probe.cu",

@@ -45,10 +45,13 @@ U = 10_000
 INF = 2**31 - 1
 
 
-def export_plain(resource_map, rq_map, queues, workers):
+def export_plain(resource_map, rq_map, queues, workers,
+                 min_utilization=None):
     """The JAX package's tick state as plain data (tick_state_from_plain's
     input). Queue order is read with take() and restored with add(), which
-    keeps every level's FIFO order."""
+    keeps every level's FIFO order. `min_utilization` (worker id -> the
+    JAX worker's configured min_utilization) adds the group ("default")
+    and min_utilization fields to every row."""
     resources = resource_map.names()
     classes = [
         [
@@ -77,6 +80,9 @@ def export_plain(resource_map, rq_map, queues, workers):
          None if w.total is None else list(w.total))
         for w in workers
     ]
+    if min_utilization is not None:
+        rows = [row + ("default", min_utilization.get(row[0], 0.0))
+                for row in rows]
     return resources, classes, tasks, rows
 
 
@@ -277,27 +283,60 @@ def _small_state():
     return tick_state_from_plain(*SMALL_PLAIN)
 
 
+def _jax_small_state(min_utilization=0.0):
+    """SMALL_PLAIN as the JAX package's objects, the worker's cpu_floor
+    as the JAX Worker.cpu_floor gives it for `min_utilization`."""
+    from hyperqueue_tpu.resources.descriptor import (
+        ResourceDescriptor,
+        ResourceDescriptorItem,
+    )
+    from hyperqueue_tpu.server.worker import Worker, WorkerConfiguration
+
+    resource_map = ResourceIdMap()
+    cpus = resource_map.get_or_create("cpus")
+    rq_map = ResourceRqMap()
+    rq = rq_map.get_or_create(ResourceRequestVariants.single(
+        ResourceRequest(entries=(ResourceRequestEntry(cpus, U),))))
+    queues = TaskQueues()
+    for i in range(4):
+        queues.add(rq, (0, 0), i)
+    worker = Worker.create(1, WorkerConfiguration(
+        descriptor=ResourceDescriptor(
+            items=(ResourceDescriptorItem.sum("cpus", 4 * U),)),
+        min_utilization=min_utilization), resource_map)
+    rows = [jax_tick.WorkerRow(worker_id=1, free=[4 * U], nt_free=4,
+                               lifetime_secs=INF,
+                               cpu_floor=worker.cpu_floor())]
+    return resource_map, rq_map, queues, rows
+
+
 @pytest.mark.parametrize("option", ["dense", "pipeline"])
 def test_unported_tick_options_raise(option):
-    """Both options serve every tick but the one the port still refuses: a
-    core with a min-utilization worker. Its tick cache declines the
+    """A core with a min-utilization worker: its tick cache declines the
     snapshot, as the server's does, and the worker-rows tick it falls back
-    to raises for the unported carve-out, with the pipeline too, before
-    anything is dispatched."""
+    to (with the pipeline passed too, which that path does not use, as in
+    the JAX package) gives the JAX package's assignments: the floored
+    worker's exact host search."""
     core = core_from_plain(*SMALL_PLAIN)
     for worker in core.workers.values():
         worker.configuration.min_utilization = 0.5
     core.bump_membership()
     snap = core.tick_cache.sync(core)
     assert snap is None
+    j_resource_map, j_rq_map, j_queues, j_rows = _jax_small_state(0.5)
+    assert [r.cpu_floor for r in core.worker_rows()] == \
+        [r.cpu_floor for r in j_rows] == [2 * U]
     pipeline = TickPipeline()
     kwargs = {"dense": snap} if option == "dense" else {"pipeline": pipeline}
-    with pytest.raises(NotImplementedError, match="min-utilization"):
-        port_tick.run_tick(core.queues, core.worker_rows(), core.rq_map,
-                           core.resource_map,
-                           GreedyCutScanModel(device="cpu"), **kwargs)
+    got = port_tick.run_tick(core.queues, core.worker_rows(), core.rq_map,
+                             core.resource_map,
+                             GreedyCutScanModel(device="cpu"), **kwargs)
+    want = jax_tick.run_tick(j_queues, j_rows, j_rq_map, j_resource_map,
+                             JaxModel(backend="numpy"), **kwargs)
+    assert got == want
+    assert len(got) == 4
     assert pipeline.depth == 0
-    assert core.queues.total_ready() == 4
+    assert core.queues.total_ready() == j_queues.total_ready() == 0
 
 
 @pytest.mark.parametrize("option", ["dense", "pipeline"])
@@ -326,15 +365,30 @@ def test_dense_and_pipeline_options_match_worker_rows(option):
 
 
 def test_min_utilization_workers_raise():
-    resource_map, rq_map, queues, rows = _small_state()
-    rows[0].cpu_floor = U
-    # with a policy too: its rows are stripped before the refusal
-    policy = port_policy.TickPolicyContext({0: np.ones(1, np.float32)}, {})
-    for kwargs in ({}, {"policy": policy}):
-        with pytest.raises(NotImplementedError, match="min-utilization"):
-            port_tick.run_tick(queues, rows, rq_map, resource_map,
-                               GreedyCutScanModel(device="cpu", backend="device"), **kwargs)
-    assert queues.total_ready() == 4
+    """A floored worker beside the solve (its floor met or not, with and
+    without a policy, whose rows the carve-out strips) gives the JAX
+    package's assignments."""
+    for floor in (U, 8 * U):
+        for with_policy in (False, True):
+            resource_map, rq_map, queues, rows = _small_state()
+            j_resource_map, j_rq_map, j_queues, j_rows = _jax_small_state()
+            rows[0].cpu_floor = j_rows[0].cpu_floor = floor
+            kwargs, j_kwargs = {}, {}
+            if with_policy:
+                row = np.ones(1, np.float32)
+                kwargs["policy"] = port_policy.TickPolicyContext({0: row},
+                                                                 {})
+                j_kwargs["policy"] = jax_policy.TickPolicyContext({0: row},
+                                                                  {})
+            got = port_tick.run_tick(
+                queues, rows, rq_map, resource_map,
+                GreedyCutScanModel(device="cpu", backend="device"), **kwargs)
+            want = jax_tick.run_tick(j_queues, j_rows, j_rq_map,
+                                     j_resource_map,
+                                     JaxModel(backend="numpy"), **j_kwargs)
+            assert got == want
+            assert len(got) == (4 if floor <= 4 * U else 0)
+            assert queues.total_ready() == j_queues.total_ready()
 
 
 # -- the fused tick: gang batches, worker groups and a policy ---------------

@@ -35,8 +35,6 @@ from hyperqueue_tpu_torch.utils import clock as port_clock
 from hyperqueue_tpu_torch.utils.constants import INF_TIME
 
 U = 10_000
-# keys the JAX assemble adds that the port's model does not take
-JAX_ONLY = {"priorities", "weights"}
 
 
 class _FrozenClock:
@@ -189,7 +187,7 @@ class Twin:
             None, jax_tick.create_batches(self.jax.queues), self.jax.rq_map,
             self.jax.resource_map, dense=j_snap,
             key_cache=self.jax.tick_cache)
-        assert set(scratch) == set(incr) == set(jax_incr) - JAX_ONLY
+        assert set(scratch) == set(incr) == set(jax_incr)
         for key in incr:
             a, b, c = (np.asarray(x[key]) for x in (scratch, incr, jax_incr))
             assert a.dtype == b.dtype == c.dtype, key
