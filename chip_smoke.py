@@ -12,7 +12,8 @@ levels) through the port's run_tick, then the same north star in fused mode
 (gang rows, worker groups and a policy), then the server's own solve seam,
 single-block and sharded (`--scheduler multichip`), then the north star
 with min-utilization workers, then `--scheduler milp` with its degraded
-tick, and prints timings.
+tick, then the server's tick itself (reactor.schedule) over the north star
+held as lazy array chunks, plain and fused, and prints timings.
 
 Phases:
   1. the card (nvidia-smi name and power limit) and the builds, all started
@@ -133,11 +134,43 @@ Phases:
      solve is held against its plain version, every floor checked, and the
      last tick's decision records (build_unplaced_entries) against
      oracle.explain_unplaced on its dense inputs (milp_reasons).
+ 13. the reactor path: the server's tick itself, reactor.schedule, over
+     the default north star held as the server holds an array submit:
+     lazy_core_from_plain, one job of 1M lazy ids in chunks of 16,384, a
+     JobManager behind the lazy store; SolverWatchdog(GreedyCutScanModel(
+     backend="auto")), the resident paranoid check and the tick cache's
+     every 4th tick, prefill on, the sync probe resolved first. A
+     recording Comm and an EventSink that forwards to the JobManager; the
+     workers answer between ticks (ReactorHarness). 8 synchronous ticks,
+     3 under torch.profiler (the device's idle share), then 8 pipelined
+     ones. Every solve is held against the plain version; it fails on a
+     Core.sanity_check failure (every 4th tick, walking every materialized
+     task), a compute message for a task not ASSIGNED or prefilled on that
+     worker, lazy ready plus materialized READY tasks other than the
+     queues' total_ready, a job whose lazy and materialized tasks are not
+     what was submitted, a tick without its flight record or whose
+     record's counts are not the messages sent, a "decision-record
+     assembly failed" log line, a host tick, any watchdog failure, or a
+     second tick-cache rebuild. Tick 0 (up to 512 prefilled tasks per
+     worker) is logged on its own and left out of the medians;
+ 14. the reactor_fused path: the fused north star (8 jobs, 8 groups of 128
+     workers) as lazy chunks, the 16 gang tasks of gang_tasks submitted as
+     Tasks through on_new_tasks, core.fused_solve and the fused path's
+     policy, 8 ticks on GreedyCutScanModel(backend="device") with prefill;
+     the checks of phase 13 (Core.sanity_check aside), K1g held against
+     its plain version, every gang all-or-nothing on idle members of one
+     group, no excluded (class, group) pair in the solve's placements, and
+     one job paused before tick 4 (its chunks held, a queue-paused entry
+     with the held count on each paused tick, none of its tasks placed)
+     and resumed before tick 6 (everything held back in the queues).
 
-On every path the queues must be the native ones, and every mapping of a
-tick without gang rows must pop its ids through hq_map_take (counted; the
-fused path's gang ticks take per cell in Python, as the JAX package's do);
-the mapping line sets the paths' mapping medians side by side.
+On every path before the reactor paths the queues must be the native
+ones, and every mapping of a tick without gang rows must pop its ids
+through hq_map_take (counted; the fused path's gang ticks take per cell in
+Python, as the JAX package's do); the reactor paths' classes hold lazy
+tasks, so their mappings take per cell in Python and materialize each id,
+as the JAX package's do. The mapping line sets the paths' mapping medians
+side by side.
 
 Every profiled kernel time comes from a window whose every launch is held
 against the plain version's outputs, exact; a window in which the profiler
@@ -165,6 +198,7 @@ from __future__ import annotations
 
 import gc
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -215,6 +249,13 @@ MAX_FUSED_GANG_ROWS = 16
 N_JOBS = 8
 N_GROUPS = 8
 N_GANG_TASKS = 160
+# the reactor paths (phases 13 and 14)
+N_REACTOR_TICKS = 8
+N_REACTOR_PIPELINED_TICKS = 8
+N_REACTOR_FUSED_TICKS = 8
+REACTOR_PAUSED_JOB = 2
+REACTOR_PAUSE_TICK = 4
+REACTOR_RESUME_TICK = 6
 # weights 2.0 on some groups, 0.0 (exclusion) on some (task class, group)
 # pairs, and runtime-prediction boosts
 FUSED_POLICY = {
@@ -1731,7 +1772,8 @@ class RecordingSeam:
         # rewrites them in place at its next sync; the counts are views of
         # the model's pinned host buffers, which a kept reference would
         # stop the allocator reusing
-        return {k: np.array(v, copy=True) for k, v in kwargs.items()}
+        return {k: None if v is None else np.array(v, copy=True)
+                for k, v in kwargs.items()}
 
     def solve(self, **kwargs):
         counts = self.watchdog.solve(**kwargs)
@@ -2755,6 +2797,621 @@ def fused_path(card, device, seen):
     return tick_ms, tick_phases, last_case, launches, m_rows, one_tick
 
 
+# -- the reactor paths ---------------------------------------------------------
+
+class ReactorComm:
+    """The reactor's Comm: records the compute messages of the current tick
+    and every retract and cancel."""
+
+    def __init__(self):
+        self.compute = []
+        self.retracts = []
+        self.cancels = []
+
+    def send_compute(self, worker_id, tasks):
+        self.compute.append((worker_id, tasks))
+
+    def send_cancel(self, worker_id, task_ids):
+        self.cancels.append((worker_id, list(task_ids)))
+
+    def send_retract(self, worker_id, task_refs):
+        self.retracts.append((worker_id, list(task_refs)))
+
+    def ask_for_scheduling(self):
+        pass
+
+
+class JobSink:
+    """The reactor's EventSink: forwards task news to the JobManager, as
+    the JAX server's EventBridge does (without its journal and trace
+    spans). No task may fail or be canceled and no worker may be lost on
+    these paths."""
+
+    def __init__(self, core, jobs):
+        from hyperqueue_tpu_torch.ids import task_id_job
+
+        self.core = core
+        self.jobs = jobs
+        self.job_of = task_id_job
+
+    def on_task_started(self, task_id, instance_id, worker_ids, variant=0,
+                        wtrace=None):
+        task = self.core.tasks.get(task_id)
+        self.jobs.on_task_started(
+            self.job_of(task_id), task_id, worker_ids,
+            started_at=(task.t_started if task else 0.0) or None)
+
+    def on_task_restarted(self, task_id):
+        self.jobs.on_task_restarted(self.job_of(task_id), task_id)
+
+    def on_task_finished(self, task_id, wtrace=None):
+        self.jobs.on_task_finished(self.job_of(task_id), task_id)
+
+    def on_task_failed(self, task_id, message, wtrace=None):
+        raise AssertionError(f"task {task_id} failed: {message}")
+
+    def on_task_canceled(self, task_id):
+        raise AssertionError(f"task {task_id} canceled")
+
+    def on_worker_new(self, worker):
+        pass
+
+    def on_worker_lost(self, worker_id, reason):
+        raise AssertionError(f"worker {worker_id} lost: {reason}")
+
+
+class DecisionLog(logging.Handler):
+    """Keeps the reactor's log records that say a tick's decision record
+    could not be assembled (the reactor logs and goes on)."""
+
+    NAME = "hyperqueue_tpu_torch.server.reactor"
+
+    def __init__(self):
+        super().__init__()
+        self.failures = []
+        logging.getLogger(self.NAME).addHandler(self)
+
+    def emit(self, record):
+        if "decision-record assembly failed" in record.getMessage():
+            self.failures.append(record.getMessage())
+
+    def close(self):
+        logging.getLogger(self.NAME).removeHandler(self)
+        super().close()
+
+
+class ReactorHarness:
+    """Drives reactor.schedule over a lazy server core as the server loop
+    and its workers would, and checks every tick.
+
+    Between ticks: each compute message is answered with on_task_running
+    (a prefilled task joins its worker's FIFO backlog instead); a random
+    quarter of the workers finish all their running tasks; each of those
+    starts its backlog in FIFO order while the next task fits what the
+    finished tasks released (and the worker's free resources and task
+    slots); each retract is answered through on_retract_response (ok while
+    the task is still in the backlog). A worker starts its backlog only
+    into released resources: the rest of its free resources belong to a
+    pipelined solve still in flight, which maps at the next tick against
+    the free resources it was dispatched with."""
+
+    def __init__(self, tag, core, jobs, seam, checker, device, card,
+                 submitted, seed):
+        from hyperqueue_tpu_torch.server import reactor
+
+        self.tag, self.core, self.jobs, self.seam = tag, core, jobs, seam
+        # every solve on the device given, none on the host
+        self.backend = f"device-{device.type}"
+        self.checker, self.device, self.card = checker, device, card
+        self.submitted = submitted
+        self.reactor = reactor
+        self.comm = ReactorComm()
+        self.events = JobSink(core, jobs)
+        self.rng = np.random.default_rng(seed)
+        self.running: dict = {}   # worker_id -> [task ids]
+        self.backlog: dict = {}   # worker_id -> {task id: None}, FIFO
+        self.retracts_seen = 0
+        self.ticks: list = []
+        self.decision_log = DecisionLog()
+        # as the server does once it has started (see server_path)
+        gc.collect()
+        gc.freeze()
+        self.gc = {"ms": 0.0, "t0": None}
+        gc.callbacks.append(self._on_gc)
+
+    def _on_gc(self, stage, _info):
+        if stage == "start":
+            self.gc["t0"] = time.perf_counter()
+        elif self.gc["t0"] is not None:
+            self.gc["ms"] += (time.perf_counter() - self.gc["t0"]) * 1e3
+            self.gc["t0"] = None
+
+    def close(self):
+        gc.callbacks.remove(self._on_gc)
+        gc.unfreeze()
+        self.decision_log.close()
+
+    def check_solves(self, first_call):
+        """Every solve recorded since `first_call` against the plain
+        version on the same padded inputs (the checker model pads them, so
+        the model's own buffers, which a pipelined solve may still read,
+        stay untouched)."""
+        for kwargs, counts in self.seam.calls[first_call:]:
+            check_tick_against_plain(self.checker, kwargs, counts,
+                                     self.device, self.core.tick_counter)
+
+    def tick(self, run="sync", record=True, check=None):
+        """One reactor tick, its checks and the workers' answers; returns
+        the tick's summary. `check(msgs, idle_before)` adds a path's own
+        checks; record=False leaves the solves' plain check to the caller
+        (a profiled window must not count the plain version's time)."""
+        from hyperqueue_tpu_torch.server.task import TaskState
+
+        core = self.core
+        idle_before = {wid for wid, w in core.workers.items()
+                       if w.is_idle() and not w.draining}
+        self.comm.compute = []
+        first_call = len(self.seam.calls)
+        materialized = core.lazy.materialized_total
+        self.gc["ms"] = 0.0
+        t0 = time.perf_counter()
+        self.reactor.schedule(core, self.comm, self.events, self.seam)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        gc_ms = self.gc["ms"]
+        msgs = self.comm.compute
+        n_msgs = sum(len(m) for _w, m in msgs)
+        t1 = time.perf_counter()
+        if record:
+            self.check_solves(first_call)
+        if self.decision_log.failures:
+            raise AssertionError(f"{self.tag}: "
+                                 f"{self.decision_log.failures[0]}")
+        rec = core.flight.latest()
+        if rec is None or rec["tick"] != core.tick_counter:
+            # the recorder drops an idle tick: nothing placed, nothing left
+            if (n_msgs or core.queues.total_ready() or core.mn_queue
+                    or core.paused_held):
+                raise AssertionError(f"{self.tag} tick {core.tick_counter} "
+                                     "has no flight record")
+            rec = {"counts": dict.fromkeys(
+                ("assigned", "gang_assigned", "prefilled", "ready_left",
+                 "paused"), 0), "solver": {"status": "idle"},
+                "phases": core.tick_stats.last_ms}
+        counts = rec["counts"]
+        if (counts["assigned"] + counts["gang_assigned"]
+                + counts["prefilled"]) != n_msgs:
+            raise AssertionError(f"{self.tag} tick {core.tick_counter}: "
+                                 f"record counts {counts}, {n_msgs} "
+                                 "messages sent")
+        solver = rec["solver"]
+        if (solver.get("status") not in ("ok", "pipelined", "idle")
+                or (solver.get("status") == "ok"
+                    and solver.get("backend") != self.backend)):
+            raise AssertionError(f"{self.tag} tick {core.tick_counter} "
+                                 f"solved {solver}")
+        for wid, batch in msgs:
+            w = core.workers[wid]
+            for m in batch:
+                task = core.tasks.get(m["id"])
+                ok = (task is not None and task.state is TaskState.ASSIGNED
+                      and task.instance_id == m["instance"])
+                if ok and "node_ids" in m:
+                    ok = bool(task.mn_workers) and task.mn_workers[0] == wid
+                elif ok:
+                    ok = task.assigned_worker == wid and (
+                        m["id"] in w.prefilled_tasks if task.prefilled
+                        else m["id"] in w.assigned_tasks)
+                if not ok:
+                    raise AssertionError(f"{self.tag}: message for task "
+                                         f"{m['id']} on worker {wid}")
+        if check is not None:
+            check(msgs, idle_before)
+        self._start_messages(msgs)
+        self._start_backlog(self._finish_quarter())
+        self.answer_retracts()
+        sanity = bool(core.paranoid_tick
+                      and core.tick_counter % core.paranoid_tick == 0)
+        if sanity:
+            core.sanity_check()
+        self._check_counts()
+        summary = dict(
+            tick=core.tick_counter, run=run, wall_ms=wall_ms,
+            phases=rec["phases"], gc_ms=gc_ms, messages=n_msgs,
+            assigned=counts["assigned"],
+            gang_assigned=counts["gang_assigned"],
+            prefilled=counts["prefilled"],
+            materialized=core.lazy.materialized_total - materialized,
+            ready_left=counts["ready_left"], paused=counts["paused"],
+            solver={k: solver.get(k) for k in ("status", "backend",
+                                              "backend_reason")},
+            sanity_checked=sanity,
+            harness_ms=(time.perf_counter() - t1) * 1e3)
+        if record:
+            self.ticks.append(summary)
+            log(f"{self.tag}_tick", **summary, card=self.card)
+        return summary
+
+    def _start_messages(self, msgs):
+        core = self.core
+        for wid, batch in msgs:
+            for m in batch:
+                if core.tasks[m["id"]].prefilled:
+                    self.backlog.setdefault(wid, {})[m["id"]] = None
+                else:
+                    self.reactor.on_task_running(core, self.events, m["id"],
+                                                 m["instance"])
+                    self.running.setdefault(wid, []).append(m["id"])
+
+    def _finish_quarter(self):
+        """Returns worker_id -> [resources released, slots released]."""
+        core = self.core
+        released: dict = {}
+        for wid in sorted(core.workers):
+            if self.rng.random() < 0.25:
+                w = core.workers[wid]
+                for tid in self.running.pop(wid, []):
+                    task = core.tasks[tid]
+                    if not task.mn_workers:
+                        got = released.setdefault(
+                            wid, [[0] * len(w.free), 0])
+                        for rid, a in core.variant_amounts(
+                                task.rq_id, task.assigned_variant, w):
+                            got[0][rid] += a
+                        got[1] += 1
+                    self.reactor.on_task_finished(
+                        core, self.comm, self.events, tid,
+                        task.instance_id)
+        return released
+
+    def _start_backlog(self, released):
+        core = self.core
+        for wid, (room, slots) in released.items():
+            queued = self.backlog.get(wid, {})
+            w = core.workers[wid]
+            while queued:
+                tid = next(iter(queued))
+                task = core.tasks[tid]
+                if not (task.prefilled and task.assigned_worker == wid):
+                    del queued[tid]  # retracted and placed again meanwhile
+                    continue
+                amounts = core.variant_amounts(task.rq_id,
+                                               task.assigned_variant, w)
+                if slots <= 0 or w.nt_free <= 0 or w.mn_task or any(
+                        min(w.free[rid], room[rid]) < a
+                        for rid, a in amounts):
+                    break
+                for rid, a in amounts:
+                    room[rid] -= a
+                slots -= 1
+                del queued[tid]
+                self.reactor.on_task_running(core, self.events, tid,
+                                             task.instance_id)
+                self.running.setdefault(wid, []).append(tid)
+
+    def answer_retracts(self):
+        for wid, refs in self.comm.retracts[self.retracts_seen:]:
+            queued = self.backlog.get(wid, {})
+            for tid, instance in refs:
+                ok = tid in queued
+                queued.pop(tid, None)
+                self.reactor.on_retract_response(self.core, self.comm, tid,
+                                                 ok, instance)
+        self.retracts_seen = len(self.comm.retracts)
+        if self.comm.cancels:
+            raise AssertionError(f"{self.tag}: cancels {self.comm.cancels}")
+
+    def _check_counts(self):
+        from hyperqueue_tpu_torch.server.task import TaskState
+
+        core = self.core
+        held = sum(len(h) for h in core.paused_held.values())
+        ready = sum(1 for t in core.tasks.values()
+                    if t.state is TaskState.READY)
+        mn_ready = sum(1 for tid in core.mn_queue
+                       if core.tasks[tid].state is TaskState.READY)
+        if core.lazy.ready + ready - held - mn_ready \
+                != core.queues.total_ready():
+            raise AssertionError(
+                f"{self.tag}: lazy {core.lazy.ready} + materialized "
+                f"{ready - held - mn_ready} != {core.queues.total_ready()}")
+        for job_id, job in self.jobs.jobs.items():
+            if job.n_lazy + len(job.tasks) != self.submitted[job_id]:
+                raise AssertionError(
+                    f"{self.tag}: job {job_id} holds {job.n_lazy} lazy and "
+                    f"{len(job.tasks)} tasks of {self.submitted[job_id]}")
+
+    def medians(self):
+        """Steady medians (tick 0 left out) of the phases, per run."""
+        out = {}
+        for run in ("sync", "pipelined"):
+            ticks = [t for t in self.ticks[1:] if t["run"] == run]
+            if not ticks:
+                continue
+            names = sorted({k for t in ticks for k in t["phases"]})
+            out[run] = dict(
+                ticks=len(ticks),
+                wall_median_ms=float(np.median([t["wall_ms"]
+                                                for t in ticks])),
+                phases_median_ms={k: float(np.median(
+                    [t["phases"].get(k, 0.0) for t in ticks]))
+                    for k in names},
+                **{f"{k}_median": float(np.median([t[k] for t in ticks]))
+                   for k in ("messages", "materialized", "prefilled",
+                             "gc_ms")})
+        return out
+
+
+def reactor_path(card, device):
+    """Phase 13: reactor.schedule over the default north star held as lazy
+    array chunks (lazy_core_from_plain: one job, chunks of 16,384 ids), as
+    `hq server start` runs it: SolverWatchdog(GreedyCutScanModel(
+    backend="auto")) with the resident paranoid check and the tick cache's
+    (and Core.sanity_check's) every 4th tick, prefill on. The sync probe is
+    resolved first; then N_REACTOR_TICKS synchronous ticks, 3 more under
+    torch.profiler (their solves held against the plain version after the
+    window), and N_REACTOR_PIPELINED_TICKS pipelined ones (more while a
+    solve is still pending). Returns the path's summary."""
+    from hyperqueue_tpu_torch.convert import lazy_core_from_plain
+    from hyperqueue_tpu_torch.models import greedy
+    from hyperqueue_tpu_torch.models.greedy import GreedyCutScanModel
+    from hyperqueue_tpu_torch.ops import assign, probe
+    from hyperqueue_tpu_torch.parallel import solve
+    from hyperqueue_tpu_torch.scheduler.pipeline import TickPipeline
+    from hyperqueue_tpu_torch.scheduler.watchdog import SolverWatchdog
+
+    t0 = time.perf_counter()
+    plain = north_star_state()
+    core, jobs = lazy_core_from_plain(*plain)
+    submitted = {1: len(plain[2])}
+    del plain
+    log("reactor_state", workers=len(core.workers),
+        ready_tasks=core.queues.total_ready(), lazy=core.lazy.stats(),
+        classes=len(core.rq_map), seconds=round(time.perf_counter() - t0, 3),
+        card=card)
+    model = GreedyCutScanModel(device="cuda", backend="auto")
+    model.paranoid_resident = 4
+    core.paranoid_tick = 4
+    watchdog = SolverWatchdog(model)
+    seam = RecordingSeam(watchdog)
+    checker = GreedyCutScanModel(device="cuda", backend="device")
+    # counts to 0 just before the path; the probe starts here, as the
+    # server's first solve would start it
+    assign.reset_launch_counts()
+    solve.reset_launch_counts()
+    probe.sync_probe.launches = 0
+    greedy._reset_probe_for_tests()
+    sync_ms = greedy.device_sync_ms(wait_s=30)
+    if greedy.probe_error() is not None or sync_ms is None:
+        raise AssertionError(f"sync probe: {sync_ms}, "
+                             f"{greedy.probe_error()!r}")
+    h = ReactorHarness("reactor", core, jobs, seam, checker, device, card,
+                       submitted, SEED + 5)
+    try:
+        for _ in range(N_REACTOR_TICKS):
+            h.tick()
+        n_window = 3
+        first_call = len(seam.calls)
+        window = profiled_window(lambda: h.tick(record=False), n_window)
+        h.check_solves(first_call)
+        window = window_summary(*window, n_window,
+                                h.medians()["sync"]["wall_median_ms"], card)
+        core.tick_pipeline = TickPipeline()
+        n = 0
+        while n < N_REACTOR_PIPELINED_TICKS or (
+                core.tick_pipeline.pending is not None and n < 16):
+            h.tick(run="pipelined")
+            n += 1
+        if core.tick_pipeline.pending is not None:
+            raise AssertionError("reactor path: a solve is still pending")
+    finally:
+        h.close()
+    launches = {"cut_scan": assign.greedy_cut_scan.launches,
+                "cut_scan_resident": assign.greedy_cut_scan.resident_launches,
+                "cut_scan_gang": assign.greedy_cut_scan.gang_launches,
+                "sharded_scan": solve.sharded_cut_scan.launches,
+                "sync_probe": probe.sync_probe.launches}
+    stats = watchdog.stats()
+    if (stats["failures"], stats["timeouts"], stats["degraded_ticks"],
+            stats["skipped_ticks"]) != (0, 0, 0, 0):
+        raise AssertionError(f"reactor path: watchdog degraded: {stats}")
+    if core.tick_cache.full_rebuilds > 1:
+        raise AssertionError(f"reactor path: tick cache "
+                             f"{core.tick_cache.counters()}")
+    n_solves = len(seam.calls)
+    if (launches["cut_scan"] != n_solves + model.paranoid_checks
+            or launches["cut_scan_resident"] != launches["cut_scan"]
+            or launches["cut_scan_gang"] or launches["sharded_scan"]
+            or launches["sync_probe"] < 1 or n_solves < 1):
+        raise AssertionError(f"reactor path launches {launches} for "
+                             f"{n_solves} solves and "
+                             f"{model.paranoid_checks} paranoid checks")
+    summary = dict(
+        ticks=len(h.ticks), first_tick=h.ticks[0], medians=h.medians(),
+        profiled_window=window, launches=launches, solves=n_solves,
+        paranoid_checks=model.paranoid_checks, watchdog=stats,
+        tick_cache=core.tick_cache.counters(), lazy=core.lazy.stats(),
+        materialized_tasks=len(core.tasks), device_sync_ms=sync_ms,
+        retracts=sum(len(r) for _w, r in h.comm.retracts))
+    log("reactor_ticks", **summary, card=card)
+    return summary
+
+
+def reactor_fused_path(card, device):
+    """Phase 14: reactor.schedule in fused mode over the fused north star
+    held as lazy chunks (8 jobs, 8 groups of 128 workers), with the 16 gang
+    tasks of gang_tasks submitted through on_new_tasks, core.fused_solve
+    and the fused path's policy, on GreedyCutScanModel(backend="device"),
+    prefill on. Job REACTOR_PAUSED_JOB is paused before tick
+    REACTOR_PAUSE_TICK and resumed before tick REACTOR_RESUME_TICK. Returns
+    the path's summary."""
+    from hyperqueue_tpu_torch.convert import (
+        lazy_core_from_plain,
+        policy_table_from_plain,
+    )
+    from hyperqueue_tpu_torch.ids import task_id_job, task_id_task
+    from hyperqueue_tpu_torch.models.greedy import GreedyCutScanModel
+    from hyperqueue_tpu_torch.ops import assign
+    from hyperqueue_tpu_torch.scheduler.policy import PolicyState, task_class
+    from hyperqueue_tpu_torch.scheduler.predict import RuntimePredictor
+    from hyperqueue_tpu_torch.server import reactor
+    from hyperqueue_tpu_torch.server.protocol import rqv_from_wire
+    from hyperqueue_tpu_torch.server.task import Task
+
+    t0 = time.perf_counter()
+    resources, classes, tasks, workers = north_star_state(
+        n_jobs=N_JOBS, n_groups=N_GROUPS)
+    gang_classes, gangs = gang_tasks(len(classes),
+                                     n_gangs=MAX_FUSED_GANG_ROWS)
+    core, jobs = lazy_core_from_plain(resources, classes + gang_classes,
+                                      tasks, workers)
+    submitted: dict = {}
+    for tid, _c, _p in tasks:
+        submitted[task_id_job(tid)] = submitted.get(task_id_job(tid), 0) + 1
+    del tasks
+    gang_nodes, gang_list = {}, []
+    for tid, rq, prio, n in gangs:
+        # the gang's request as the server receives it
+        if core.intern_rqv(rqv_from_wire({"variants": [{"n_nodes": n}]},
+                                         core.resource_map)) != rq:
+            raise AssertionError(f"the gang class of {n} nodes is not {rq}")
+        jobs.attach_task(jobs.jobs[task_id_job(tid)], task_id_task(tid))
+        submitted[task_id_job(tid)] += 1
+        gang_nodes[tid] = n
+        gang_list.append(Task(task_id=tid, rq_id=rq, priority=prio))
+    table = policy_table_from_plain(FUSED_POLICY)
+    predictor = RuntimePredictor(alpha=table.ewma_alpha)
+    feed = np.random.default_rng(SEED + 3)
+    for _ in range(4):
+        for job in range(1, N_JOBS + 1):
+            predictor.observe(f"job{job}", float(feed.uniform(1, 600)))
+    core.policy = PolicyState(table, predictor=predictor,
+                              job_name=lambda job: f"job{job}")
+    core.fused_solve = True
+    classes_of = [task_class(core.rq_map.get_variants(rq),
+                             core.resource_map)
+                  for rq in range(len(core.rq_map))]
+    excluded = {(tclass, group)
+                for tclass, row in FUSED_POLICY["affinity"].items()
+                for group, weight in row.items() if weight == 0.0}
+    model = GreedyCutScanModel(device="cuda", backend="device")
+    seam = RecordingSeam(model)
+    checker = GreedyCutScanModel(device="cuda", backend="device")
+    assign.reset_launch_counts()
+    h = ReactorHarness("reactor_fused", core, jobs, seam, checker, device,
+                       card, submitted, SEED + 6)
+    reactor.on_new_tasks(core, h.comm, gang_list)
+    log("reactor_fused_state", workers=len(core.workers),
+        ready_tasks=core.queues.total_ready(), lazy=core.lazy.stats(),
+        gang_tasks=len(core.mn_queue), jobs=N_JOBS, groups=N_GROUPS,
+        seconds=round(time.perf_counter() - t0, 3), card=card)
+    placed_gangs: set = set()
+    state = {"paused": False}
+
+    def check(msgs, idle_before):
+        """The paused job places nothing; the solve places no task on a
+        group its policy excludes; each gang is all-or-nothing on idle members of one
+        group that receive nothing else this tick."""
+        sent_to = {wid for wid, batch in msgs if batch}
+        taken: set = set()
+        for wid, batch in msgs:
+            for m in batch:
+                if state["paused"] and task_id_job(m["id"]) \
+                        == REACTOR_PAUSED_JOB:
+                    raise AssertionError(f"paused job placed {m['id']}")
+                if "node_ids" not in m:
+                    task = core.tasks[m["id"]]
+                    # prefill reads no policy (as in the JAX reactor): the
+                    # exclusion binds the solve's placements
+                    if not task.prefilled and (
+                            classes_of[task.rq_id],
+                            core.workers[wid].group) in excluded:
+                        raise AssertionError(f"rq {task.rq_id} on worker "
+                                             f"{wid} of an excluded group")
+                    continue
+                nodes = set(m["node_ids"])
+                groups = {core.workers[n].group for n in nodes}
+                if (len(nodes) != gang_nodes[m["id"]] or len(groups) != 1
+                        or ("nodes", groups.pop()) in excluded
+                        or not nodes <= idle_before or nodes & taken
+                        or (nodes - {wid}) & sent_to):
+                    raise AssertionError(f"gang {m['id']} on {nodes} is "
+                                         "not all-or-nothing on idle "
+                                         "members of one group")
+                taken |= nodes
+                placed_gangs.add(m["id"])
+
+    def waiting():
+        return core.queues.total_ready() + len(core.mn_queue)
+
+    pause: dict = {"queue_paused_counts": []}
+    try:
+        for tick in range(N_REACTOR_FUSED_TICKS):
+            if tick == REACTOR_PAUSE_TICK:
+                held, n_retracts = reactor.pause_jobs(
+                    core, h.comm, [REACTOR_PAUSED_JOB])
+                segs = [s for s in core.lazy.per_job.get(
+                    REACTOR_PAUSED_JOB, []) if s.remaining]
+                if held <= 0 or not segs or any(s.in_queue for s in segs):
+                    raise AssertionError(f"pause held {held}; the job's "
+                                         "chunks are not all held")
+                pause.update(held=held, retracts=n_retracts,
+                             lazy_held=core.lazy.held)
+                state["paused"] = True
+                h.answer_retracts()
+            if tick == REACTOR_RESUME_TICK:
+                before = waiting()
+                held = core.lazy.held + sum(
+                    len(v) for v in core.paused_held.values())
+                released = reactor.resume_jobs(core, h.comm,
+                                               [REACTOR_PAUSED_JOB])
+                if (released != held or core.lazy.held or core.paused_held
+                        or waiting() - before != released):
+                    raise AssertionError(f"resume released {released} of "
+                                         f"{held} held")
+                pause.update(released=released)
+                state["paused"] = False
+            h.tick(check=check)
+            if state["paused"]:
+                entries = [e["count"] for e in core.flight.latest()
+                           ["unplaced"] if e["reason"] == "queue-paused"
+                           and e["job"] == REACTOR_PAUSED_JOB]
+                want = len(core.paused_held.get(REACTOR_PAUSED_JOB, ()))
+                if entries != ([want] if want else []):
+                    raise AssertionError(f"queue-paused entries {entries}, "
+                                         f"{want} held")
+                pause["queue_paused_counts"].append(entries)
+    finally:
+        h.close()
+    if not pause["queue_paused_counts"] or \
+            not pause["queue_paused_counts"][0]:
+        raise AssertionError("the paused job's first tick has no "
+                             "queue-paused entry")
+    n_solves = len(seam.calls)
+    gang_row_solves = sum(1 for kwargs, _c in seam.calls
+                          if kwargs.get("gang_nodes") is not None
+                          and np.any(kwargs["gang_nodes"] > 0))
+    launches = {"cut_scan": assign.greedy_cut_scan.launches,
+                "cut_scan_resident": assign.greedy_cut_scan.resident_launches,
+                "cut_scan_gang": assign.greedy_cut_scan.gang_launches}
+    # the policy's mask is live on every tick, so every launch runs the
+    # K1g branches; gang rows ride the solves while gangs wait
+    if (launches["cut_scan"] != n_solves or gang_row_solves < 1
+            or launches["cut_scan_gang"] != n_solves
+            or launches["cut_scan_resident"] != n_solves
+            or not placed_gangs):
+        raise AssertionError(f"reactor_fused path launches {launches} for "
+                             f"{n_solves} solves ({gang_row_solves} with "
+                             f"gang rows), gangs placed {len(placed_gangs)}")
+    summary = dict(
+        ticks=len(h.ticks), first_tick=h.ticks[0], medians=h.medians(),
+        launches=launches, solves=n_solves, gang_row_solves=gang_row_solves,
+        gangs_placed=len(placed_gangs), pause=pause,
+        lazy=core.lazy.stats(), materialized_tasks=len(core.tasks),
+        retracts=sum(len(r) for _w, r in h.comm.retracts))
+    log("reactor_fused_ticks", **summary, card=card)
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -2962,6 +3619,11 @@ def main() -> int:
     # search); phase 12: `--scheduler milp` with its degraded tick
     mu = mu_path(card, device, set())
     milp = milp_path(card, device, set())
+
+    # phases 13 and 14: the server's tick itself, reactor.schedule over the
+    # north star held as lazy array chunks, then in fused mode
+    react = reactor_path(card, device)
+    react_fused = reactor_fused_path(card, device)
     log("mapping", native=True,
         default_median_ms=ticks["phases_median_ms"]["mapping"],
         server_sync_median_ms=server_summary["sync"]["phases_median_ms"]
@@ -2971,6 +3633,11 @@ def main() -> int:
         multichip_sync_median_ms=m_summary["sync"]["phases_median_ms"]
         ["mapping"],
         mu_median_ms=mu["phases_median_ms"]["mapping"],
+        # lazy classes take per cell in Python and materialize each id
+        reactor_sync_median_ms=react["medians"]["sync"]["phases_median_ms"]
+        ["mapping"],
+        reactor_pipelined_median_ms=react["medians"]["pipelined"]
+        ["phases_median_ms"]["mapping"],
         native_take_ticks={"server": server["native_take_ticks"],
                            "multichip": multi["native_take_ticks"],
                            "mu": mu["native_take_ticks"],
@@ -3004,6 +3671,13 @@ def main() -> int:
             if name == "cut_scan" else 0,
             "mu_launches": mu["launches"] if name == "cut_scan" else 0,
             "milp_launches": milp["launches"] if name == "cut_scan" else 0,
+            "reactor_launches": react["launches"]["cut_scan"]
+            if name == "cut_scan" else 0,
+            # a fused reactor tick without gang rows launches plain K1
+            "reactor_fused_launches": react_fused["launches"]["cut_scan_gang"]
+            if name == "cut_scan_gang"
+            else react_fused["launches"]["cut_scan"]
+            - react_fused["launches"]["cut_scan_gang"],
             # every launch of the path ran this instantiation (checked)
             "instantiation": "resident",
             "launches_by_instantiation": {"resident": launch_count,
@@ -3028,6 +3702,7 @@ def main() -> int:
         "latency_bound_ms": k5["latency_bound_ms"],
         "wrapper_ms": k5["wrapper_ms"],
         "round_trip_ms": k5["round_trip_min_ms"],
+        "reactor_launches": react["launches"]["sync_probe"],
     })
     kernels.append({
         "name": "sharded_scan",

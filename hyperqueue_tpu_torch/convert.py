@@ -10,13 +10,17 @@ name per worker (`group_ids` turns the rows' groups into the tick's group
 index map) and the scheduling policy's tables (`policy_table_from_plain`).
 `core_from_plain` builds the server's view of the same state instead: a
 `server/core.Core` with `Worker`s, which the incremental tick cache reads.
+`lazy_core_from_plain` builds that Core as the server holds an array
+submit: the ready tasks as lazy array chunks (server/lazy.py) of their jobs
+in a `server/jobs.JobManager`, materialized only when the reactor takes
+them.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from hyperqueue_tpu_torch.ids import IdCounter
+from hyperqueue_tpu_torch.ids import IdCounter, task_id_job, task_id_task
 from hyperqueue_tpu_torch.resources.descriptor import (
     ResourceDescriptor,
     ResourceDescriptorItem,
@@ -36,6 +40,7 @@ from hyperqueue_tpu_torch.server.worker import (
     WorkerConfiguration,
     cpu_floor,
 )
+from hyperqueue_tpu_torch.utils import clock
 from hyperqueue_tpu_torch.utils.constants import INF_TIME
 
 
@@ -147,6 +152,45 @@ def core_from_plain(resources, classes, tasks, workers):
         core.worker_id_counter = IdCounter(start=max(core.workers) + 1)
     core.bump_membership()
     return core
+
+
+def lazy_core_from_plain(resources, classes, tasks, workers,
+                         chunk_size=16384):
+    """A server Core whose ready tasks are lazy array chunks, and its jobs.
+
+    Takes the plain data of core_from_plain. The tasks are grouped by
+    (job, class, priority), in order of first appearance; each group's
+    job-local ids, sorted, are cut into `ids=` chunks of at most
+    `chunk_size` and registered with the core's lazy store, as the server
+    registers a chunked array submit. Each job is created in a JobManager
+    (name f"job{id}"), which the store reaches through `jobs_getter`, so
+    that a task taken from a chunk gets its JobTaskInfo. Returns
+    (core, jobs).
+    """
+    from hyperqueue_tpu_torch.server.jobs import JobManager
+    from hyperqueue_tpu_torch.server.lazy import ArrayChunk
+
+    core = core_from_plain(resources, classes, [], workers)
+    jobs = JobManager()
+    core.lazy.jobs_getter = lambda: jobs
+    groups: dict[tuple, list[int]] = {}
+    for task_id, class_index, (user, sched) in tasks:
+        key = (task_id_job(int(task_id)), int(class_index),
+               (int(user), int(sched)))
+        groups.setdefault(key, []).append(task_id_task(int(task_id)))
+    now = clock.now()
+    for (job_id, rq_id, priority), ids in groups.items():
+        if job_id not in jobs.jobs:
+            jobs.create_job(name=f"job{job_id}", submit_dir="",
+                            job_id=job_id)
+        ids.sort()
+        for start in range(0, len(ids), chunk_size):
+            core.lazy.register(core, ArrayChunk(
+                job_id=job_id, rq_id=rq_id, priority=priority, body={},
+                crash_limit=5, ids=ids[start:start + chunk_size],
+                submitted_at=now, ready_at=now,
+            ))
+    return core, jobs
 
 
 def group_ids(rows) -> np.ndarray:

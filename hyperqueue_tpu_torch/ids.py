@@ -43,3 +43,10 @@ class IdCounter:
         value = self._next
         self._next += self._stride
         return value
+
+    def ensure_above(self, used: int) -> None:
+        """Advance past `used` (an id taken elsewhere, e.g. a job created
+        with an explicit id) while keeping the congruence class."""
+        if used >= self._next:
+            steps = (used - self._next) // self._stride + 1
+            self._next += steps * self._stride

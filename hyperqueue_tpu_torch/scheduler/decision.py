@@ -10,10 +10,10 @@ Classification runs once per tick over the LEFTOVER batches only (classes
 the solve did not drain), never per task: tasks of one request class share
 one reason, so the cost is O(leftover classes x workers).
 
-The registry holds every code of the JAX package. The port emits all but
-``queue-paused``, which needs paused jobs: they come with the server's data
-model (the task map and the jobs), as do the per-tick DecisionRecords of
-the flight recorder that these entries fill.
+The registry holds every code of the JAX package, and the port emits each
+of them: the reactor (server/reactor.schedule) assembles these entries,
+with one ``queue-paused`` entry per paused job, into the per-tick
+DecisionRecord it pushes into the flight recorder (utils/flight.py).
 """
 
 from __future__ import annotations
@@ -32,8 +32,8 @@ REASON_NO_MATCHING_WORKER = "no-matching-worker"
 REASON_INSUFFICIENT_CAPACITY = "insufficient-capacity"
 # A multi-node gang is waiting for enough idle same-group workers.
 REASON_GANG_INCOMPLETE = "gang-incomplete"
-# The task's job is paused (`hq job pause`); it is held out of the queues.
-# Not emitted by the port yet: paused jobs come with the server's data model.
+# The task's job is paused (reactor.pause_jobs); it is held out of the
+# queues.
 REASON_QUEUE_PAUSED = "queue-paused"
 # Capacity was free this tick but the solver deliberately left the class
 # unplaced (priority interleaving, cut cap, gang reservation drain).

@@ -12,8 +12,9 @@ utils/native.make_task_queue: the C++ queue (native/hqcore.cpp) where the
 native library builds, else this Python one, with the same interface and
 semantics.
 
-The lazy array store's view (LazyQueueView) comes with the server's data
-model.
+A class that holds unmaterialized lazy array tasks (server/lazy.py) is
+served through LazyQueueView, which merges them into the counts and
+materializes them at take time.
 """
 
 from __future__ import annotations
@@ -133,13 +134,73 @@ class TaskQueue:
         return out
 
 
+class LazyQueueView:
+    """One rq class's queue with its lazy array segments merged in.
+
+    Returned by TaskQueues.queue()/items() only while the class has
+    unmaterialized lazy tasks (server/lazy.py): counts include them, and
+    `take` materializes ids on demand AFTER draining the base queue (so
+    requeued/materialized tasks keep approximate FIFO precedence at equal
+    priority). The view deliberately does NOT subclass the native queue —
+    tick mapping falls back to its per-cell Python take path whenever a
+    batch queue is a view, which is where materialization hooks in.
+
+    `all_tasks`/`remove` cover the BASE queue only: whole-job operations
+    on lazy tasks go through LazyStore.detach_job/materialize_job first.
+    """
+
+    __slots__ = ("_base", "_store", "_core", "_rq_id")
+
+    def __init__(self, base, store, core, rq_id: int):
+        self._base = base
+        self._store = store
+        self._core = core
+        self._rq_id = rq_id
+
+    def __len__(self) -> int:
+        return len(self._base) + self._store.ready_count_rq(self._rq_id)
+
+    def priority_sizes(self) -> list[tuple[Priority, int]]:
+        lazy = self._store.level_sizes(self._rq_id)
+        merged: dict[Priority, int] = dict(self._base.priority_sizes())
+        for priority, n in lazy.items():
+            merged[priority] = merged.get(priority, 0) + n
+        return sorted(merged.items(), key=lambda kv: kv[0], reverse=True)
+
+    def take(self, priority: Priority, count: int) -> list[int]:
+        got = self._base.take(priority, count)
+        if len(got) < count:
+            got.extend(
+                self._store.take(
+                    self._core, self._rq_id, priority, count - len(got)
+                )
+            )
+        return got
+
+    def add(self, priority: Priority, task_id: int) -> None:
+        self._base.add(priority, task_id)
+
+    def remove(self, task_id: int) -> None:
+        self._base.remove(task_id)
+
+    def all_tasks(self) -> list[int]:
+        return self._base.all_tasks()
+
+
 class TaskQueues:
     """rq-id -> TaskQueue, plus bookkeeping of total ready tasks.
 
     Queues come from utils.native.make_task_queue: the C++ queue where the
     native library builds (the tick then pops every cell's ids in one
     native call, scheduler/tick._native_map_take), else the Python
-    TaskQueue above."""
+    TaskQueue above.
+
+    When a lazy-array store is bound (Core.__post_init__ links
+    server/lazy.LazyStore), classes holding unmaterialized array tasks are
+    served through LazyQueueView so batch sizing and takes include them;
+    classes without lazy tasks keep the bare (native) queue and its
+    one-call map-take.
+    """
 
     def __init__(self):
         self._queues: dict[int, TaskQueue] = {}
@@ -147,17 +208,30 @@ class TaskQueues:
         # show up in total_ready instead): a cheap "could a re-solve see
         # different inputs?" signature with the membership and total_ready
         self.version = 0
+        # bound by Core.__post_init__; None for standalone queue users
+        self.lazy = None
+        self._core = None
 
-    def queue(self, rq_id: int) -> TaskQueue:
+    def bind_lazy(self, store, core) -> None:
+        self.lazy = store
+        self._core = core
+
+    def _base(self, rq_id: int) -> TaskQueue:
         q = self._queues.get(rq_id)
         if q is None:
             q = make_task_queue()
             self._queues[rq_id] = q
         return q
 
+    def queue(self, rq_id: int):
+        q = self._base(rq_id)
+        if self.lazy is not None and self.lazy.ready_count_rq(rq_id) > 0:
+            return LazyQueueView(q, self.lazy, self._core, rq_id)
+        return q
+
     def add(self, rq_id: int, priority: Priority, task_id: int) -> None:
         self.version += 1
-        self.queue(rq_id).add(priority, task_id)
+        self._base(rq_id).add(priority, task_id)
 
     def remove(self, rq_id: int, task_id: int) -> None:
         q = self._queues.get(rq_id)
@@ -165,11 +239,25 @@ class TaskQueues:
             self.version += 1
             q.remove(task_id)
 
-    def items(self) -> list[tuple[int, TaskQueue]]:
-        return [(rq_id, q) for rq_id, q in self._queues.items() if len(q)]
+    def items(self):
+        lazy_rqs = (
+            set(self.lazy.ready_rqs()) if self.lazy is not None else set()
+        )
+        out = [
+            (rq_id, self.queue(rq_id) if rq_id in lazy_rqs else q)
+            for rq_id, q in self._queues.items()
+            if len(q) or rq_id in lazy_rqs
+        ]
+        for rq_id in lazy_rqs:
+            if rq_id not in self._queues:
+                out.append((rq_id, self.queue(rq_id)))
+        return out
 
     def total_ready(self) -> int:
-        return sum(len(q) for q in self._queues.values())
+        n = sum(len(q) for q in self._queues.values())
+        if self.lazy is not None:
+            n += self.lazy.ready
+        return n
 
     def sanity_check(self) -> None:
         for q in self._queues.values():

@@ -158,6 +158,15 @@ class SolverWatchdog:
         # joint min-utilization floor, so the tick takes the carve-out
         return self.armed and getattr(self.model, "supports_cpu_floor", False)
 
+    def reset_stats(self) -> None:
+        """Zero the telemetry counters (a metrics reset) without touching
+        the armed/bench state machine."""
+        self.failures = 0
+        self.timeouts = 0
+        self.degraded_ticks = 0
+        self.rearms = 0
+        self.skipped_ticks = 0
+
     def __getattr__(self, name):
         # only reached for attributes not set on the watchdog itself
         return getattr(object.__getattribute__(self, "_last_ran"), name)

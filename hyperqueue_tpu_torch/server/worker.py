@@ -5,8 +5,8 @@ tasks, free resources (dense, mirrors the solver's columns), time-limit and
 heartbeat state. The free/nt_free fields are exactly the WorkerRow the tick
 snapshot copies out (scheduler/tick.py, scheduler/tick_cache.py).
 
-The configuration's wire conversion comes with the worker runtime and
-transport.
+A worker registers with its configuration in wire form
+(WorkerConfiguration.to_wire/from_wire).
 """
 
 from __future__ import annotations
@@ -55,6 +55,48 @@ class WorkerConfiguration:
     # count its borrowed pool in `hq server stats`
     lent_from: int = -1
 
+    def to_wire(self) -> dict:
+        return {
+            "descriptor": self.descriptor.to_dict(),
+            "hostname": self.hostname,
+            "group": self.group,
+            "heartbeat_secs": self.heartbeat_secs,
+            "time_limit_secs": self.time_limit_secs,
+            "idle_timeout_secs": self.idle_timeout_secs,
+            "on_server_lost": self.on_server_lost,
+            "reconnect_timeout_secs": self.reconnect_timeout_secs,
+            "overview_interval_secs": self.overview_interval_secs,
+            "min_utilization": self.min_utilization,
+            "listen_address": self.listen_address,
+            "manager": self.manager,
+            "manager_job_id": self.manager_job_id,
+            "alloc_id": self.alloc_id,
+            "runner_pool": self.runner_pool,
+            "uplink_flush_secs": self.uplink_flush_secs,
+            "lent_from": self.lent_from,
+        }
+
+    @classmethod
+    def from_wire(cls, data: dict) -> "WorkerConfiguration":
+        return cls(
+            descriptor=ResourceDescriptor.from_dict(data["descriptor"]),
+            hostname=data.get("hostname", "localhost"),
+            group=data.get("group", "default"),
+            heartbeat_secs=data.get("heartbeat_secs", 8.0),
+            time_limit_secs=data.get("time_limit_secs", 0.0),
+            idle_timeout_secs=data.get("idle_timeout_secs", 0.0),
+            on_server_lost=data.get("on_server_lost", "stop"),
+            reconnect_timeout_secs=data.get("reconnect_timeout_secs", 60.0),
+            overview_interval_secs=data.get("overview_interval_secs", 0.0),
+            min_utilization=data.get("min_utilization", 0.0),
+            listen_address=data.get("listen_address", ""),
+            manager=data.get("manager", "none"),
+            manager_job_id=data.get("manager_job_id", ""),
+            alloc_id=data.get("alloc_id", ""),
+            runner_pool=data.get("runner_pool", -1),
+            uplink_flush_secs=data.get("uplink_flush_secs", 0.002),
+            lent_from=data.get("lent_from", -1),
+        )
 
 def cpu_floor(min_utilization: float, all_cpus: int, free_cpus: int) -> int:
     """floor = ceil(mu x all_cpus) - used_cpus = mu x all - (all - free);

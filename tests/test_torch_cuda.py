@@ -803,3 +803,62 @@ def test_degraded_milp_tick_on_card_zeroes_the_floored_rows(cuda):
         if device == "cuda":
             assert assign.greedy_cut_scan.launches == before + 1
     assert outs[0] == outs[1] and outs[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True], ids=["plain", "fused"])
+def test_reactor_ticks_on_card_match_cpu(cuda, fused):
+    """reactor.schedule over a lazy core on the card against the same ticks
+    on the CPU (the plain version): the same compute and retract messages
+    and the same flight records (wall-clock and platform fields aside),
+    every card solve held against the plain version by the harness. Fused:
+    two gangs of 2 and 3 nodes ride the solve."""
+    from chip_smoke import ReactorHarness, RecordingSeam
+    from hyperqueue_tpu_torch.convert import lazy_core_from_plain
+    from hyperqueue_tpu_torch.server import reactor
+    from hyperqueue_tpu_torch.server.protocol import rqv_from_wire
+    from hyperqueue_tpu_torch.server.task import Task
+
+    def view(record):
+        out = {k: v for k, v in record.items()
+               if k not in ("time", "duration_ms", "phases")}
+        out["solver"] = {k: v for k, v in record["solver"].items()
+                         if k in ("status", "objective")}
+        return out
+
+    runs = []
+    for device in (cuda, torch.device("cpu")):
+        resources, classes, tasks, workers = _server_state(5)
+        core, jobs = lazy_core_from_plain(resources, classes, tasks,
+                                          workers, chunk_size=500)
+        submitted = {0: len(tasks)}
+        model = GreedyCutScanModel(device=device, backend="device")
+        seam = RecordingSeam(model)
+        h = ReactorHarness("card_test", core, jobs, seam,
+                           GreedyCutScanModel(device=device,
+                                              backend="device"),
+                           device, "test", submitted, seed=3)
+        if fused:
+            core.fused_solve = True
+            gangs = []
+            for i, n in enumerate((2, 3)):
+                rq = core.intern_rqv(rqv_from_wire(
+                    {"variants": [{"n_nodes": n}]}, core.resource_map))
+                tid = 5000 + i
+                jobs.attach_task(jobs.jobs[0], tid)
+                submitted[0] += 1
+                gangs.append(Task(task_id=tid, rq_id=rq, priority=(3, 0)))
+            reactor.on_new_tasks(core, h.comm, gangs)
+        seen = []
+        try:
+            for _tick in range(5):
+                h.tick()
+                seen.append(([(w, [{k: v for k, v in m.items()
+                                    if k != "trace"} for m in msgs])
+                              for w, msgs in h.comm.compute],
+                             view(core.flight.latest())))
+        finally:
+            h.close()
+        runs.append((seen, list(h.comm.retracts), len(seam.calls)))
+    assert runs[0] == runs[1]
+    assert runs[0][2] >= 1 and runs[0][0][0][0]

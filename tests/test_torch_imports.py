@@ -47,7 +47,12 @@ def test_port_files_exist():
                    "utils/native.py", "models/greedy.py",
                    "models/multichip.py", "models/milp.py",
                    "scheduler/oracle.py", "scheduler/decision.py",
-                   "parallel/solve.py", "convert.py"):
+                   "parallel/solve.py", "convert.py",
+                   "server/task.py", "server/jobs.py", "server/lazy.py",
+                   "server/protocol.py", "server/reactor.py",
+                   "scheduler/queues.py", "utils/metrics.py",
+                   "utils/trace.py", "utils/flight.py",
+                   "transport/framing.py"):
         assert f"hyperqueue_tpu_torch/{module}" in names, module
     for source in ("csrc/cut_scan.cu", "csrc/cut_scan_step.cuh",
                    "csrc/sharded_scan.cu", "csrc/sync_probe.cu",
