@@ -13,7 +13,8 @@ levels) through the port's run_tick, then the same north star in fused mode
 single-block and sharded (`--scheduler multichip`), then the north star
 with min-utilization workers, then `--scheduler milp` with its degraded
 tick, then the server's tick itself (reactor.schedule) over the north star
-held as lazy array chunks, plain and fused, and prints timings.
+held as lazy array chunks, plain and fused, then a journaled server's
+kill -9 and restore at the same size, and prints timings.
 
 Phases:
   1. the card (nvidia-smi name and power limit) and the builds, all started
@@ -162,7 +163,37 @@ Phases:
      group, no excluded (class, group) pair in the solve's placements, and
      one job paused before tick 4 (its chunks held, a queue-paused entry
      with the held count on each paused tick, none of its tasks placed)
-     and resumed before tick 6 (everything held back in the queues).
+     and resumed before tick 6 (everything held back in the queues);
+ 15. the journal path: a journaled server (server/bootstrap.Server, the
+     default scheduler: SolverWatchdog(GreedyCutScanModel()), K1 on the
+     card; journal_plane="thread", reattach_timeout=30) on a virtual clock
+     that moves only between ticks (TickClock). Its 1,024 workers register
+     (worker-connected journaled), the north star arrives as 200 array
+     submits through `_client_submit` (one per request class, priority and
+     run of up to 16,384 ids, as contiguous id ranges: lazy chunks), then
+     4 ticks through ReactorHarness with the server's EventBridge as the
+     EventSink and without prefill, one compact_journal (snapshot + GC;
+     the journal copied just before it), 3 more ticks, and a kill -9 (the
+     JAX simulator's: listeners cleared, journal.kill(), the plane
+     dropped). Server B restores from the snapshot plus the tail, server C
+     by full replay of the pre-compaction copy plus every later record;
+     both boot with one uid. It fails unless B restored from the snapshot
+     and C by replay, their fingerprints (tests/test_snapshot.py
+     `_fingerprint`) and ledger captures are equal, B materialized exactly
+     the ids the journal touched (the rest in chunks), and B's fence
+     floor is its generation base. Half of A's workers come back and
+     reattach their running tasks (every claim must hold), the other half
+     register anew and their tasks' holds expire (requeued, fenced); B then
+     runs 2 ticks, which fail on a dispatch of a task A finished or of a
+     (task, instance) pair A dispatched, and on Core.sanity_check. Every
+     solve of A and B is held against the plain version; each tick logs
+     its journal records and bytes, the codec's cost on them (each record
+     decoded and encoded again, which must give its payload back), and the
+     commit barrier; then the compaction's phases, both restores, the
+     journal plane's commits (p50, p99), and the path's peak RSS. The
+     ticks run without prefill: a snapshot keeps every materialized task
+     (a prefilled backlog too) as its own record while a replay keeps the
+     untouched ones in chunks (ROADMAP Queue 3).
 
 On every path before the reactor paths the queues must be the native
 ones, and every mapping of a tick without gang rows must pop its ids
@@ -188,7 +219,8 @@ Each kernel's registers, spills and shared memory (nvcc -Xptxas -v) are on
 a "ptxas" line per source. The main paths (default, fused, server) must run
 every cut-scan solve in the resident instantiation.
 
-The third-to-last line is the kernels JSON (K1, K1g, K5, K2), the
+The third-to-last line is the kernels JSON (K1, K1g, K5, K2; K1's entry
+counts the journal path's launches too), the
 second-to-last the card;
 the last line is {"ok": true, "device": {...}}. Exits non-zero, printing no
 result line, when there is no CUDA device or any phase fails.
@@ -256,6 +288,14 @@ N_REACTOR_FUSED_TICKS = 8
 REACTOR_PAUSED_JOB = 2
 REACTOR_PAUSE_TICK = 4
 REACTOR_RESUME_TICK = 6
+# the journal path: server A's ticks before and after its compaction, the
+# restored server B's ticks, the id runs of the array submits, and the
+# virtual clock's step between ticks
+N_JOURNAL_TICKS = 4
+N_JOURNAL_TAIL_TICKS = 3
+N_JOURNAL_RESUME_TICKS = 2
+JOURNAL_CHUNK = 16384
+JOURNAL_TICK_SECONDS = 0.05
 # weights 2.0 on some groups, 0.0 (exclusion) on some (task class, group)
 # pairs, and runtime-prediction boosts
 FUSED_POLICY = {
@@ -2896,7 +2936,7 @@ class ReactorHarness:
     the free resources it was dispatched with."""
 
     def __init__(self, tag, core, jobs, seam, checker, device, card,
-                 submitted, seed):
+                 submitted, seed, events=None, comm=None, prefill=True):
         from hyperqueue_tpu_torch.server import reactor
 
         self.tag, self.core, self.jobs, self.seam = tag, core, jobs, seam
@@ -2905,8 +2945,10 @@ class ReactorHarness:
         self.checker, self.device, self.card = checker, device, card
         self.submitted = submitted
         self.reactor = reactor
-        self.comm = ReactorComm()
-        self.events = JobSink(core, jobs)
+        # a server's own EventBridge and Comm where the path has a Server
+        self.comm = ReactorComm() if comm is None else comm
+        self.events = JobSink(core, jobs) if events is None else events
+        self.prefill = prefill
         self.rng = np.random.default_rng(seed)
         self.running: dict = {}   # worker_id -> [task ids]
         self.backlog: dict = {}   # worker_id -> {task id: None}, FIFO
@@ -2955,7 +2997,8 @@ class ReactorHarness:
         materialized = core.lazy.materialized_total
         self.gc["ms"] = 0.0
         t0 = time.perf_counter()
-        self.reactor.schedule(core, self.comm, self.events, self.seam)
+        self.reactor.schedule(core, self.comm, self.events, self.seam,
+                              prefill=self.prefill)
         wall_ms = (time.perf_counter() - t0) * 1e3
         gc_ms = self.gc["ms"]
         msgs = self.comm.compute
@@ -3006,9 +3049,11 @@ class ReactorHarness:
                                          f"{m['id']} on worker {wid}")
         if check is not None:
             check(msgs, idle_before)
+        t_answer = time.perf_counter()
         self._start_messages(msgs)
         self._start_backlog(self._finish_quarter())
         self.answer_retracts()
+        answer_ms = (time.perf_counter() - t_answer) * 1e3
         sanity = bool(core.paranoid_tick
                       and core.tick_counter % core.paranoid_tick == 0)
         if sanity:
@@ -3025,6 +3070,10 @@ class ReactorHarness:
             solver={k: solver.get(k) for k in ("status", "backend",
                                               "backend_reason")},
             sanity_checked=sanity,
+            # the workers' answers (starts, finishes, retracts): where the
+            # reactor's events reach the EventSink and, on a journaled
+            # server, the journal
+            answer_ms=answer_ms,
             harness_ms=(time.perf_counter() - t1) * 1e3)
         if record:
             self.ticks.append(summary)
@@ -3137,7 +3186,7 @@ class ReactorHarness:
                     for k in names},
                 **{f"{k}_median": float(np.median([t[k] for t in ticks]))
                    for k in ("messages", "materialized", "prefilled",
-                             "gc_ms")})
+                             "gc_ms", "answer_ms")})
         return out
 
 
@@ -3412,6 +3461,633 @@ def reactor_fused_path(card, device):
     return summary
 
 
+class TickClock:
+    """The journal path's clock (a utils/clock provider): wall and
+    monotonic time that move only when `advance` is called, between ticks,
+    as the JAX package's simulator moves its clock between events. A live
+    server stamps a finished task twice, the jobs layer's finished_at and
+    then the journal record's time; under the system clock the two differ
+    by microseconds, so a snapshot restore (which keeps the first) and a
+    journal replay (which keeps the second) would differ in the last digits
+    that the fingerprint compares."""
+
+    def __init__(self):
+        self.t = time.time()
+        self.m = time.monotonic()
+
+    def time(self):
+        return self.t
+
+    def monotonic(self):
+        return self.m
+
+    def advance(self, seconds):
+        self.t += seconds
+        self.m += seconds
+
+
+def fingerprint(server) -> dict:
+    """Canonical restorable-state dump of a server, as the JAX package's
+    tests/test_snapshot.py `_fingerprint` takes it. The ONLY tolerated
+    difference between a snapshot restore and a full replay is the
+    wall-clock `t_ready` a re-queued task picks up at restore time, so it
+    is zeroed for tasks that are not held for reattach."""
+    from hyperqueue_tpu_torch.server.protocol import rqv_to_wire
+
+    core = server.core
+    jobs = {}
+    for job_id, job in server.jobs.jobs.items():
+        jobs[job_id] = {
+            "name": job.name,
+            "open": job.is_open,
+            "cancel_reason": job.cancel_reason,
+            "submitted_at": round(job.submitted_at, 6),
+            "counters": dict(job.counters),
+            "submits": job.submits,
+            "tasks": {
+                t.job_task_id: (
+                    t.status, t.error, round(t.submitted_at, 6),
+                    t.started_at, t.finished_at,
+                )
+                for t in job.tasks.values()
+            },
+        }
+    tasks = {}
+    body_groups: dict[int, list[int]] = {}
+    for task_id, task in core.tasks.items():
+        held = task_id in server.reattach_pending
+        tasks[task_id] = {
+            "instance": task.instance_id,
+            "crashes": task.crash_counter,
+            "state": task.state.value,
+            "priority": task.priority,
+            "entry": task.entry,
+            "body": task.body,
+            "deps": tuple(sorted(task.deps)),
+            "crash_limit": task.crash_limit,
+            "stamps": (task.t_ready, task.t_assigned, task.t_started)
+            if held else (0.0, task.t_assigned, task.t_started),
+            "rqv": rqv_to_wire(
+                core.rq_map.get_variants(task.rq_id), core.resource_map
+            ),
+            "held": held,
+        }
+        body_groups.setdefault(id(task.body), []).append(task_id)
+    return {
+        "jobs": jobs,
+        "tasks": tasks,
+        "ready": core.queues.total_ready(),
+        "fence_floor": core.instance_fence_floor,
+        "event_seq": server._event_seq,
+        "uids": sorted(server.journal_uids),
+        "n_boots": server.n_boots,
+        # identity sharing of array bodies must survive the snapshot (the
+        # compute-message dedup depends on it)
+        "body_sharing": sorted(
+            tuple(sorted(g)) for g in body_groups.values()
+        ),
+    }
+
+
+def first_difference(a, b, path="") -> str:
+    """Where two fingerprints first differ, for the failure message."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        for k in sorted(set(a) | set(b), key=repr):
+            if k not in a or k not in b:
+                return f"{path}/{k!r}: only in {'B' if k in a else 'C'}"
+            if a[k] != b[k]:
+                return first_difference(a[k], b[k], f"{path}/{k!r}")
+        return path
+    return f"{path}: B {a!r} != C {b!r}"[:400]
+
+
+def journal_state():
+    """The reactor path's north star as a server receives it over the
+    wire: the plain state, its 1,024 workers (a configuration, free
+    amounts and task slots each) and one array submit per (request class,
+    user priority, run of up to JOURNAL_CHUNK ids), in the order of
+    lazy_core_from_plain's chunks: the same 200 chunks, each id run
+    renumbered to a contiguous `id_range` (the ids are labels; which
+    class and priority each run holds is unchanged). Returns (resources,
+    workers, submits, n_tasks)."""
+    from hyperqueue_tpu_torch.convert import core_from_plain
+    from hyperqueue_tpu_torch.server.protocol import rqv_to_wire
+
+    resources, classes, tasks, workers = north_star_state()
+    ref = core_from_plain(resources, classes, [], workers)
+    sizes: dict = {}
+    for _task_id, class_index, (user, _sched) in tasks:
+        key = (int(class_index), int(user))
+        sizes[key] = sizes.get(key, 0) + 1
+    submits, lo = [], 0
+    for (class_index, user), n in sizes.items():
+        wire = rqv_to_wire(ref.rq_map.get_variants(class_index),
+                           ref.resource_map)
+        for start in range(0, n, JOURNAL_CHUNK):
+            hi = lo + min(JOURNAL_CHUNK, n - start)
+            # the body `hq submit --array ... -- true` sends: the client
+            # always sends one (ROADMAP Queue 3: an empty body loses its
+            # identity sharing across a snapshot restore)
+            body = {"cmd": ["true"], "env": {}, "cwd": None,
+                    "stdout": None, "stderr": None, "submit_dir": "/"}
+            submits.append({
+                "name": "north-star", "submit_dir": "/", "open": True,
+                "array": {"id_range": [lo, hi], "request": wire,
+                          "body": body, "priority": user},
+            })
+            lo = hi
+    worker_rows = [(wid, w.configuration, list(w.free), w.nt_free)
+                   for wid, w in sorted(ref.workers.items())]
+    return resources, worker_rows, submits, len(tasks)
+
+
+def register_workers(server, resources, worker_rows):
+    """Each worker row registers with the server (reactor.on_new_worker,
+    which journals worker-connected) under the server's next worker id,
+    with all its resources free (a north-star row's free amounts are its
+    total) and the row's task slots. Returns {row's worker id: the
+    Worker}."""
+    from hyperqueue_tpu_torch.server import reactor
+    from hyperqueue_tpu_torch.server.worker import Worker
+
+    core = server.core
+    for name in resources:
+        core.resource_map.get_or_create(name)
+    out = {}
+    for wid, config, free, nt_free in worker_rows:
+        worker = Worker.create(core.worker_id_counter.next(), config,
+                               core.resource_map)
+        names = core.resource_map.names()
+        got = {names[rid]: a for rid, a in enumerate(worker.free) if a}
+        want = {resources[rid]: a for rid, a in enumerate(free) if a}
+        if got != want:
+            raise AssertionError(f"worker row {wid}: free {want} is not "
+                                 f"its total {got}")
+        worker.nt_free = nt_free
+        reactor.on_new_worker(core, server.comm, server.events, worker)
+        out[wid] = worker
+    return out
+
+
+def journal_frames(path, offset):
+    """The payloads of the frames appended to a journal file since byte
+    `offset`: (payloads, framed bytes read)."""
+    import struct
+
+    with open(path, "rb") as f:
+        f.seek(offset)
+        data = f.read()
+    payloads, pos = [], 0
+    while pos + 8 <= len(data):
+        (length,) = struct.unpack_from("<I", data, pos)
+        if pos + 8 + length > len(data):
+            break
+        payloads.append(data[pos + 8:pos + 8 + length])
+        pos += 8 + length
+    return payloads, pos
+
+
+def codec_cost(payloads):
+    """The codec on one tick's own journal records: decode every payload,
+    encode every record again (which must give the payload back, byte for
+    byte), each timed whole. Returns the records and the costs."""
+    from hyperqueue_tpu_torch.transport import codec
+
+    t0 = time.perf_counter()
+    records = [codec.unpackb(p) for p in payloads]
+    t1 = time.perf_counter()
+    again = [codec.packb(r) for r in records]
+    t2 = time.perf_counter()
+    if again != payloads:
+        raise AssertionError("journal path: the codec does not give a "
+                             "record's payload back")
+    n = max(len(payloads), 1)
+    mb = sum(len(p) for p in payloads) / 1e6
+    return records, {
+        "encode_us_per_record": (t2 - t1) / n * 1e6,
+        "decode_us_per_record": (t1 - t0) / n * 1e6,
+        "encode_mb_s": mb / (t2 - t1) if t2 > t1 else None,
+        "decode_mb_s": mb / (t1 - t0) if t1 > t0 else None,
+    }
+
+
+class JournalTap:
+    """Reads what a journaled server appended after each tick: the
+    records, their bytes, the codec's cost on them, and the kinds."""
+
+    def __init__(self, server):
+        self.server = server
+        self.offset = server.journal_path.stat().st_size
+        self.max_depth = 0
+
+    def after_tick(self):
+        jplane = self.server.jplane
+        self.max_depth = max(self.max_depth, jplane.depth())
+        t0 = time.perf_counter()
+        jplane.barrier()
+        barrier_ms = (time.perf_counter() - t0) * 1e3
+        payloads, n_bytes = journal_frames(self.server.journal_path,
+                                           self.offset)
+        self.offset += n_bytes
+        records, cost = codec_cost(payloads)
+        kinds: dict = {}
+        for r in records:
+            kinds[r["event"]] = kinds.get(r["event"], 0) + 1
+        return records, dict(records=len(records), bytes=n_bytes,
+                             barrier_ms=barrier_ms, kinds=kinds, **cost)
+
+    def reset(self):
+        """After a compaction rewrote the file."""
+        self.offset = self.server.journal_path.stat().st_size
+
+
+def check_plane(server, tag, tap):
+    """The commit thread did not die, and every enqueue that found the
+    pending bound was counted as a stall."""
+    from hyperqueue_tpu_torch.server import journal_plane
+
+    jplane = server.jplane
+    if jplane._dead or server._stop_event.is_set():
+        raise AssertionError(f"{tag}: the journal plane reported a fatal "
+                             "error")
+    stalls = journal_plane._STALLS_TOTAL.labels().value
+    if tap.max_depth >= jplane.max_pending and stalls < 1:
+        raise AssertionError(f"{tag}: the pending bound was reached "
+                             f"({tap.max_depth}) with no stall counted")
+    return dict(jplane.stats(), records=jplane.records,
+                commit_ms=jplane.commit_ms(), stalls_total=stalls,
+                max_depth_seen=tap.max_depth,
+                max_pending=jplane.max_pending)
+
+
+def journal_path(card, device):
+    """Phase 15: the journal. A journaled Server (the port's
+    server/bootstrap.py) on the default scheduler, K1 on the card: 1,024
+    workers register, the north star arrives as 200 array submits through
+    `_client_submit` (lazy chunks), 4 ticks through ReactorHarness with
+    the server's EventBridge as the EventSink, one compact_journal
+    (snapshot + GC), 3 more ticks, then a kill -9 of the server (the
+    JAX simulator's: listeners cleared, journal.kill(), the plane
+    dropped). Server B restores from the snapshot plus the journal's tail,
+    server C by full replay of the pre-compaction journal plus every later
+    record; B and C must hold the same state (the fingerprint) and the
+    same usage ledger. Half of A's workers come back and reattach their
+    running tasks, the other half register anew and their tasks' holds
+    expire (fenced, requeued); B then runs 2 ticks on the card. Returns the
+    path's summary."""
+    import asyncio
+    import resource
+    import secrets
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from hyperqueue_tpu_torch.events.journal import Journal
+    from hyperqueue_tpu_torch.ids import task_id_job, task_id_task
+    from hyperqueue_tpu_torch.models.greedy import GreedyCutScanModel
+    from hyperqueue_tpu_torch.ops import assign
+    from hyperqueue_tpu_torch.parallel import solve
+    from hyperqueue_tpu_torch.server import reactor
+    from hyperqueue_tpu_torch.server.bootstrap import Server
+    from hyperqueue_tpu_torch.server.task import (
+        INSTANCE_GENERATION_STRIDE,
+        TaskState,
+    )
+    from hyperqueue_tpu_torch.utils import clock
+
+    t_path = time.perf_counter()
+    resources, worker_rows, submits, n_tasks = journal_state()
+    log("journal_state", workers=len(worker_rows), submits=len(submits),
+        tasks=n_tasks, seconds=round(time.perf_counter() - t_path, 3),
+        card=card)
+    submitted = {1: n_tasks}
+    checker = GreedyCutScanModel(device="cuda", backend="device")
+    tick_clock = TickClock()
+    previous_clock = clock.install(tick_clock)
+    tmp = Path(tempfile.mkdtemp(prefix="hq-journal-"))
+    journal = tmp / "journal.bin"
+    full = tmp / "full.bin"
+    uid_a, uid_b = secrets.token_hex(8), secrets.token_hex(8)
+    server_kwargs = dict(journal_plane="thread", reattach_timeout=30.0,
+                         # every array submit is a lazy chunk, as
+                         # lazy_core_from_plain holds them
+                         lazy_array_threshold=1)
+    out: dict = {}
+    try:
+        # counts to 0 just before the path
+        assign.reset_launch_counts()
+        solve.reset_launch_counts()
+
+        # --- server A's whole life on one event loop -------------------
+        async def life_a():
+            a = Server(server_dir=tmp / "a", journal_path=journal,
+                       **server_kwargs)
+            await a._open_journal(uid_a)
+            a.comm = ReactorComm()
+            t0 = time.perf_counter()
+            by_row = register_workers(a, resources, worker_rows)
+            for i, desc in enumerate(submits):
+                if i:
+                    desc = dict(desc, job_id=1)
+                reply = await a._client_submit({"job": desc})
+                if reply.get("op") != "submit_response":
+                    raise AssertionError(f"journal path: submit {i}: "
+                                         f"{reply}")
+            job = a.jobs.jobs[1]
+            if job.n_lazy != n_tasks or job.tasks \
+                    or len(a.core.lazy.segments_of(1)) != len(submits):
+                raise AssertionError(
+                    f"journal path: {job.n_lazy} lazy, {len(job.tasks)} "
+                    f"materialized, {len(a.core.lazy.segments_of(1))} "
+                    "chunks after the submits")
+            tap = JournalTap(a)
+            a.jplane.barrier()
+            tap.reset()
+            log("journal_submitted", chunks=len(submits),
+                seconds=round(time.perf_counter() - t0, 3),
+                journal_bytes=journal.stat().st_size, card=card)
+            seam = RecordingSeam(a.model)
+            h = ReactorHarness("journal", a.core, a.jobs, seam, checker,
+                               device, card, submitted, SEED + 9,
+                               events=a.events, comm=a.comm, prefill=False)
+            dispatched: set = set()
+            ticks = []
+            try:
+                for i in range(N_JOURNAL_TICKS + N_JOURNAL_TAIL_TICKS):
+                    if i == N_JOURNAL_TICKS:
+                        a.jplane.barrier(sync=True)
+                        shutil.copyfile(journal, full)
+                        compaction = await a.compact_journal(
+                            reason="chip-smoke")
+                        tap.reset()
+                        log("journal_compaction", **compaction,
+                            full_copy_bytes=full.stat().st_size,
+                            card=card)
+                        out["compaction"] = compaction
+                    tick_clock.advance(JOURNAL_TICK_SECONDS)
+                    summary = h.tick()
+                    for _wid, batch in h.comm.compute:
+                        for m in batch:
+                            dispatched.add((m["id"], m["instance"]))
+                    _records, jstats = tap.after_tick()
+                    ticks.append(dict(summary, journal=jstats))
+                    log("journal_tick", server="A", tick=summary["tick"],
+                        wall_ms=summary["wall_ms"],
+                        phases=summary["phases"],
+                        answer_ms=summary["answer_ms"],
+                        messages=summary["messages"],
+                        materialized=summary["materialized"],
+                        gc_ms=summary["gc_ms"], **jstats, card=card)
+                out["plane_a"] = check_plane(a, "server A", tap)
+                # kill -9, as the JAX simulator does it; the barrier first
+                # (so the journal holds every event of the 7 ticks), then
+                # the plane's thread, which holds nothing, is joined
+                a.jplane.barrier()
+                a._event_listeners.clear()
+                a._subscribers.clear()
+                a.journal.kill()
+                a.journal = None
+                a.jplane.stop()
+                a.jplane = None
+            finally:
+                h.close()
+            # what the workers held at the crash: their running tasks,
+            # by worker (the reattach claims)
+            claims = {
+                wid: [(tid, a.core.tasks[tid].instance_id,
+                       a.core.tasks[tid].assigned_variant)
+                      for tid in tids]
+                for wid, tids in h.running.items() if tids
+            }
+            row_of = {w.worker_id: row for row, w in by_row.items()}
+            return dict(ticks=ticks, dispatched=dispatched, claims=claims,
+                        row_of=row_of, solves=len(seam.calls),
+                        seq=a._event_seq)
+
+        t0 = time.perf_counter()
+        life = asyncio.run(life_a())
+        a_seconds = time.perf_counter() - t0
+        launches_a = assign.greedy_cut_scan.launches
+        resident_a = assign.greedy_cut_scan.resident_launches
+        gc.collect()
+
+        # C's journal: the pre-compaction copy plus every record of A's
+        # journal past the copy's last seq
+        full_records = list(Journal.read_all(full))
+        last_seq = full_records[-1]["seq"]
+        a_records = list(Journal.read_all(journal))
+        tail = [r for r in a_records if r.get("seq", -1) > last_seq]
+        c_journal = tmp / "c.bin"
+        shutil.copyfile(full, c_journal)
+        jw = Journal(c_journal)
+        jw.open_for_append()
+        for r in tail:
+            jw.write(r)
+        jw.close()
+        touched, finished = set(), set()
+        for r in full_records + tail:
+            if r.get("job") == 1 and r["event"] in (
+                    "task-started", "task-finished", "task-restarted",
+                    "task-failed", "task-canceled"):
+                touched.add(r["task"])
+                if r["event"] == "task-finished":
+                    finished.add(r["task"])
+        del full_records, a_records, tail
+
+        # --- server B: restore, resume on the card ---------------------
+        async def life_b():
+            b = Server(server_dir=tmp / "b", journal_path=journal,
+                       **server_kwargs)
+            await b._open_journal(uid_b)
+            # the comparator: a full replay of C's journal, booted with
+            # the same uid so both servers stand at the same boot
+            c = Server(server_dir=tmp / "c", journal_path=c_journal,
+                       **server_kwargs)
+            await c._open_journal(uid_b)
+            restore = {"B": dict(b.last_restore,
+                                 materialized=len(b.core.tasks),
+                                 job_tasks=len(b.jobs.jobs[1].tasks),
+                                 n_lazy=b.jobs.jobs[1].n_lazy),
+                       "C": dict(c.last_restore,
+                                 materialized=len(c.core.tasks),
+                                 job_tasks=len(c.jobs.jobs[1].tasks),
+                                 n_lazy=c.jobs.jobs[1].n_lazy)}
+            log("journal_restore", **restore, touched_ids=len(touched),
+                card=card)
+            if restore["B"]["snapshot"] is None \
+                    or restore["C"]["snapshot"] is not None:
+                raise AssertionError(f"journal path: restore sources "
+                                     f"{restore}")
+            fb, fc = fingerprint(b), fingerprint(c)
+            if fb != fc:
+                raise AssertionError("journal path: B's fingerprint differs "
+                                     f"from C's at {first_difference(fb, fc)}")
+            ledger_b, ledger_c = b.accounting.capture(), \
+                c.accounting.capture()
+            if ledger_b != ledger_c:
+                raise AssertionError("journal path: B's ledger differs from "
+                                     "C's")
+            c._close_journal()
+            del c, fb, fc
+            job = b.jobs.jobs[1]
+            if len(job.tasks) != len(touched) \
+                    or job.n_lazy + len(job.tasks) != n_tasks:
+                raise AssertionError(
+                    f"journal path: B materialized {len(job.tasks)} tasks "
+                    f"for {len(touched)} touched ids ({job.n_lazy} lazy of "
+                    f"{n_tasks})")
+            fence = max(b.n_boots - 1, 1) * INSTANCE_GENERATION_STRIDE
+            if b.core.instance_fence_floor != fence:
+                raise AssertionError(f"journal path: fence floor "
+                                     f"{b.core.instance_fence_floor}, "
+                                     f"expected {fence}")
+            held_at_restore = len(b.reattach_pending)
+            # the workers come back: the odd rows reattach their running
+            # tasks (the handler Server._process_reattach calls), the even
+            # rows register anew, their tasks' holds expire
+            b.comm = ReactorComm()
+            back = {}
+            for row in worker_rows:
+                back.update(register_workers(b, resources, [row]))
+            running: dict = {}
+            reattached = discarded = 0
+            uid_ok = uid_a in b.journal_uids
+            for old_wid, claims in life["claims"].items():
+                row = life["row_of"][old_wid]
+                if row % 2 == 0:
+                    continue
+                worker = back[row]
+                for tid, instance, _variant in claims:
+                    task = b.core.tasks.get(tid)
+                    claimable = (uid_ok and task is not None
+                                 and not task.is_done
+                                 and task.instance_id == instance)
+                    if claimable and b.reattach_pending.pop(tid, None) \
+                            is not None:
+                        reactor.on_task_reattached(b.core, b.events, task,
+                                                   worker)
+                        running.setdefault(worker.worker_id,
+                                           []).append(tid)
+                        reattached += 1
+                    else:
+                        discarded += 1
+            if discarded:
+                raise AssertionError(f"journal path: {discarded} reattach "
+                                     "claims discarded")
+            # the reattach window closes: Server._reattach_reaper's pass
+            tick_clock.advance(b.reattach_timeout + 1.0)
+            now = clock.monotonic()
+            expired = [tid for tid, deadline in b.reattach_pending.items()
+                       if deadline <= now]
+            requeued = 0
+            for task_id in expired:
+                del b.reattach_pending[task_id]
+                task = b.core.tasks.get(task_id)
+                if (task is None or task.is_done
+                        or task.state is not TaskState.WAITING):
+                    continue
+                reactor.requeue_reattach_expired(b.core, b.comm, task)
+                requeued += 1
+            if b.reattach_pending:
+                raise AssertionError(f"journal path: {len(b.reattach_pending)}"
+                                     " holds outlived the window")
+            b.core.sanity_check()
+            log("journal_reattach", held=held_at_restore,
+                reattached=reattached, requeued=requeued,
+                workers=len(b.core.workers), card=card)
+            tap = JournalTap(b)
+            b.jplane.barrier()
+            tap.reset()
+            seam = RecordingSeam(b.model)
+            h = ReactorHarness("journal_b", b.core, b.jobs, seam, checker,
+                               device, card, submitted, SEED + 10,
+                               events=b.events, comm=b.comm, prefill=False)
+            h.running = running
+            ticks = []
+            try:
+                for _ in range(N_JOURNAL_RESUME_TICKS):
+                    tick_clock.advance(JOURNAL_TICK_SECONDS)
+                    summary = h.tick()
+                    for _wid, batch in h.comm.compute:
+                        for m in batch:
+                            if task_id_job(m["id"]) == 1 and \
+                                    task_id_task(m["id"]) in finished:
+                                raise AssertionError(
+                                    f"journal path: B dispatched task "
+                                    f"{m['id']}, which A finished")
+                            if (m["id"], m["instance"]) in \
+                                    life["dispatched"]:
+                                raise AssertionError(
+                                    f"journal path: B dispatched {m['id']} "
+                                    f"at instance {m['instance']}, as A did")
+                    b.core.sanity_check()
+                    _records, jstats = tap.after_tick()
+                    ticks.append(dict(summary, journal=jstats))
+                    log("journal_tick", server="B", tick=summary["tick"],
+                        wall_ms=summary["wall_ms"],
+                        phases=summary["phases"],
+                        answer_ms=summary["answer_ms"],
+                        messages=summary["messages"],
+                        materialized=summary["materialized"],
+                        gc_ms=summary["gc_ms"], **jstats, card=card)
+                plane_b = check_plane(b, "server B", tap)
+                b._close_journal()
+            finally:
+                h.close()
+            return dict(restore=restore, ticks=ticks, plane=plane_b,
+                        reattached=reattached, requeued=requeued,
+                        held=held_at_restore, solves=len(seam.calls))
+
+        t0 = time.perf_counter()
+        life_b_out = asyncio.run(life_b())
+        b_seconds = time.perf_counter() - t0
+    finally:
+        clock.install(previous_clock)
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {"cut_scan": assign.greedy_cut_scan.launches,
+                "cut_scan_resident": assign.greedy_cut_scan.resident_launches,
+                "cut_scan_gang": assign.greedy_cut_scan.gang_launches,
+                "sharded_scan": solve.sharded_cut_scan.launches}
+    n_solves = life["solves"] + life_b_out["solves"]
+    if (launches["cut_scan"] != n_solves or launches["cut_scan_gang"]
+            or launches["cut_scan_resident"] != n_solves
+            or launches["sharded_scan"] or launches_a != life["solves"]
+            or resident_a != launches_a or not life_b_out["solves"]):
+        raise AssertionError(f"journal path launches {launches} for "
+                             f"{life['solves']} + {life_b_out['solves']} "
+                             "solves")
+
+    def medians(ticks):
+        steady = ticks[1:]
+        return {k: float(np.median([t[k] for t in steady]))
+                for k in ("wall_ms", "answer_ms", "messages")} | {
+            f"journal_{k}": float(np.median([t["journal"][k]
+                                             for t in steady]))
+            for k in ("records", "bytes", "barrier_ms",
+                      "encode_us_per_record", "decode_us_per_record",
+                      "encode_mb_s", "decode_mb_s")}
+
+    summary = dict(
+        ticks_a=len(life["ticks"]), ticks_b=len(life_b_out["ticks"]),
+        a_first_tick_ms=life["ticks"][0]["wall_ms"],
+        a_medians=medians(life["ticks"]),
+        b_first_tick_ms=life_b_out["ticks"][0]["wall_ms"],
+        b_steady_tick_ms=life_b_out["ticks"][-1]["wall_ms"],
+        launches=launches, launches_a=launches_a,
+        launches_b=launches["cut_scan"] - launches_a,
+        solves=n_solves, plane_a=out["plane_a"], plane_b=life_b_out["plane"],
+        compaction_phases_ms=out["compaction"]["phases_ms"],
+        restore=life_b_out["restore"], held=life_b_out["held"],
+        reattached=life_b_out["reattached"],
+        requeued=life_b_out["requeued"], touched_ids=len(touched),
+        finished_in_a=len(finished),
+        a_seconds=a_seconds, b_and_c_seconds=b_seconds,
+        seconds=time.perf_counter() - t_path,
+        peak_rss_mb=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024)
+    log("journal_summary", **summary, card=card)
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -3624,6 +4300,25 @@ def main() -> int:
     # north star held as lazy array chunks, then in fused mode
     react = reactor_path(card, device)
     react_fused = reactor_fused_path(card, device)
+
+    # phase 15: the journal, a journaled server's kill -9 and restore
+    jour = journal_path(card, device)
+    reactor_steady = react["medians"]["sync"]
+    log("journal_vs_reactor",
+        # the reactor path's workers answer through JobSink (no journal),
+        # the journal path's through the EventBridge into the journal; the
+        # journal path's ticks run without prefill
+        reactor_wall_median_ms=reactor_steady["wall_median_ms"],
+        reactor_prefill_median_ms=reactor_steady["phases_median_ms"]
+        .get("prefill"),
+        reactor_answer_median_ms=reactor_steady["answer_ms_median"],
+        reactor_messages_median=reactor_steady["messages_median"],
+        journal_wall_median_ms=jour["a_medians"]["wall_ms"],
+        journal_answer_median_ms=jour["a_medians"]["answer_ms"],
+        journal_records_median=jour["a_medians"]["journal_records"],
+        journal_answer_us_per_record=jour["a_medians"]["answer_ms"] * 1e3
+        / max(jour["a_medians"]["journal_records"], 1),
+        card=card)
     log("mapping", native=True,
         default_median_ms=ticks["phases_median_ms"]["mapping"],
         server_sync_median_ms=server_summary["sync"]["phases_median_ms"]
@@ -3672,6 +4367,9 @@ def main() -> int:
             "mu_launches": mu["launches"] if name == "cut_scan" else 0,
             "milp_launches": milp["launches"] if name == "cut_scan" else 0,
             "reactor_launches": react["launches"]["cut_scan"]
+            if name == "cut_scan" else 0,
+            # server A's ticks and the restored server B's
+            "journal_launches": jour["launches"]["cut_scan"]
             if name == "cut_scan" else 0,
             # a fused reactor tick without gang rows launches plain K1
             "reactor_fused_launches": react_fused["launches"]["cut_scan_gang"]

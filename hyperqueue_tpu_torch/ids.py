@@ -44,6 +44,9 @@ class IdCounter:
         self._next += self._stride
         return value
 
+    def peek(self) -> int:
+        return self._next
+
     def ensure_above(self, used: int) -> None:
         """Advance past `used` (an id taken elsewhere, e.g. a job created
         with an explicit id) while keeping the congruence class."""

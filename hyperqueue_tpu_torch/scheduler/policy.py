@@ -41,7 +41,7 @@ the same tables as a dict):
     enabled      = true
     max_boost    = 4
     ewma_alpha   = 0.3
-    seed_journal = "/path/to/journal"   # needs the host-plane slice
+    seed_journal = "/path/to/journal"   # optional offline seed
 
 Everything here is host-side numpy/dict work computed once per tick; the
 only thing that crosses into the kernel is the (B, W) affinity matrix and
@@ -397,10 +397,9 @@ class PolicyState:
 
 def build_policy(policy_file: str | None, ledger=None, job_name=None,
                  live_jobs=None):
-    """Parse a policy file, build the predictor, and return a PolicyState —
-    or None when no policy file is given (the flat objective). A table
-    whose prediction names an existing `seed_journal` raises
-    NotImplementedError (RuntimePredictor.seed_from_journal)."""
+    """Parse a policy file, build the predictor (seeding it offline when the
+    table names an existing `seed_journal`), and return a PolicyState — or
+    None when no policy file is given (the flat objective)."""
     if not policy_file:
         return None
     from hyperqueue_tpu_torch.scheduler.predict import RuntimePredictor

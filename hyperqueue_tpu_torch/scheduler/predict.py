@@ -8,13 +8,19 @@ accumulates across every sibling task), and the policy layer
 (scheduler/policy.py) folds the expected remaining work into the priority
 encoding as a bounded LPT boost.
 
-The live feed is `observe`, called with each finished task's runtime. The
-offline feed, `seed_from_journal`, replays the server's event journal, which
-belongs to the host-plane slice of this package; until that slice lands it
-raises NotImplementedError.
+Two feeds, same table:
+
+* LIVE: the server's EventBridge observes every task-finished runtime as it
+  commits (server/bootstrap.py), so the EWMA tracks the cluster while it
+  runs.
+* OFFLINE: `seed_from_journal` replays an event journal
+  (events/journal.py Journal.read_all) and pairs each task-started record's
+  `started_at` stamp with its task-finished commit time, so a fresh server
+  starts with the previous run's learned runtimes instead of a cold table.
 
 The predictor is deliberately tiny and deterministic: a dict of floats
-folded in event order.
+folded in event order. Both feeds produce identical tables for identical
+event streams.
 """
 
 from __future__ import annotations
@@ -78,8 +84,46 @@ class RuntimePredictor:
         return out
 
     def seed_from_journal(self, path: str) -> int:
-        """Replay a server journal into the table (not ported yet)."""
-        raise NotImplementedError(
-            "seeding the predictor from a journal needs the event journal, "
-            "which comes with the host-plane slice"
-        )
+        """Replay a journal offline and fold every completed task's runtime
+        into the table. Returns the number of samples folded.
+
+        Pairing: `job-submitted` maps job id -> class label (desc name);
+        `task-started` stamps (job, task) with its `started_at`;
+        `task-finished` closes the pair at the record's commit time. The
+        worker-side trace stamps (spawned/exited) are preferred when both
+        ride the finish record — they exclude the uplink/commit latency.
+        Unpaired or malformed records are skipped, not fatal: a salvaged
+        journal tail must not kill policy loading.
+        """
+        from hyperqueue_tpu_torch.events.journal import Journal
+
+        names: dict[int, str] = {}
+        started: dict[tuple[int, int], float] = {}
+        folded = 0
+        for rec in Journal.read_all(path, salvage=True):
+            kind = rec.get("event")
+            if kind == "job-submitted":
+                desc = rec.get("desc") or {}
+                names[rec.get("job")] = desc.get("name", "job")
+            elif kind == "task-started":
+                key = (rec.get("job"), rec.get("task"))
+                started[key] = rec.get("started_at") or rec.get("time", 0.0)
+            elif kind == "task-finished":
+                key = (rec.get("job"), rec.get("task"))
+                t0 = started.pop(key, None)
+                label = names.get(rec.get("job"))
+                trace = rec.get("trace") or {}
+                spawned = trace.get("spawned_at")
+                exited = trace.get("exited_at")
+                if spawned and exited and exited >= spawned:
+                    runtime = exited - spawned
+                elif t0 is not None:
+                    runtime = rec.get("time", 0.0) - t0
+                else:
+                    continue
+                if label and runtime >= 0:
+                    self.observe(label, runtime)
+                    folded += 1
+        self.seeded_from = str(path)
+        self.seeded_samples += folded
+        return folded

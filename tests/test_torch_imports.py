@@ -52,7 +52,11 @@ def test_port_files_exist():
                    "server/protocol.py", "server/reactor.py",
                    "scheduler/queues.py", "utils/metrics.py",
                    "utils/trace.py", "utils/flight.py",
-                   "transport/framing.py"):
+                   "transport/framing.py", "transport/codec.py",
+                   "events/journal.py", "events/outputlog.py",
+                   "events/snapshot.py", "events/restore.py",
+                   "server/journal_plane.py", "server/accounting.py",
+                   "server/bootstrap.py"):
         assert f"hyperqueue_tpu_torch/{module}" in names, module
     for source in ("csrc/cut_scan.cu", "csrc/cut_scan_step.cuh",
                    "csrc/sharded_scan.cu", "csrc/sync_probe.cu",
@@ -67,6 +71,8 @@ def test_no_jax_and_no_jax_package_imports(path):
     for name in _imported_modules(path):
         top = name.split(".")[0]
         assert top not in ("jax", "jaxlib", "flax"), f"{path}: {name}"
+        # the port's files encode with its own codec (transport/codec)
+        assert top != "msgpack", f"{path}: imports {name}"
         assert top != "hyperqueue_tpu", f"{path}: imports {name}"
         # relative imports stay inside the port's own package
         assert not name.startswith("."), f"{path}: relative {name}"
@@ -94,9 +100,10 @@ def test_card_entry_points_default_to_the_card(monkeypatch):
     from hyperqueue_tpu_torch.models.multichip import MultichipModel
     from hyperqueue_tpu_torch.ops.probe import sync_round_trip_ms
     from hyperqueue_tpu_torch.scheduler.watchdog import SolverWatchdog
+    from hyperqueue_tpu_torch.server.bootstrap import Server
 
     for fn in (GreedyCutScanModel.__init__, MultichipModel.__init__,
-               sync_round_trip_ms):
+               sync_round_trip_ms, Server.__init__):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     assert inspect.signature(GreedyCutScanModel.__init__) \
         .parameters["backend"].default == "device"
@@ -105,5 +112,7 @@ def test_card_entry_points_default_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         SolverWatchdog(GreedyCutScanModel())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Server(server_dir="/nonexistent")
     fallback = SolverWatchdog(object()).fallback
     assert (fallback.device.type, fallback.backend) == ("cpu", "numpy")

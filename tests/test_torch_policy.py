@@ -244,18 +244,48 @@ def test_observe_jain_edge_cases_match_jax():
 
 
 def test_seed_journal_raises(tmp_path):
+    """The predictor's journal seed, which raised until the journal was
+    ported: the same journal seeds the same table in both packages, and
+    `build_policy` with a `seed_journal` builds the same policy."""
+    from hyperqueue_tpu.events.journal import Journal as JaxJournal
+
     journal = tmp_path / "seed.journal"
-    journal.write_bytes(b"")
+    records = [
+        {"event": "job-submitted", "job": 1, "desc": {"name": "train"}},
+        {"event": "job-submitted", "job": 2, "desc": {"name": "etl"}},
+        {"event": "task-started", "job": 1, "task": 0, "started_at": 10.0},
+        {"event": "task-started", "job": 1, "task": 1, "time": 11.0},
+        {"event": "task-started", "job": 2, "task": 0, "started_at": 5.0},
+        {"event": "task-finished", "job": 1, "task": 0, "time": 14.5},
+        # worker stamps win over the commit time where both ride along
+        {"event": "task-finished", "job": 1, "task": 1, "time": 30.0,
+         "trace": {"spawned_at": 12.0, "exited_at": 13.25}},
+        {"event": "task-finished", "job": 2, "task": 0, "time": 9.0},
+        # unpaired: skipped, not fatal
+        {"event": "task-finished", "job": 3, "task": 0, "time": 1.0},
+    ]
+    writer = JaxJournal(journal)
+    writer.open_for_append()
+    for rec in records:
+        writer.write(rec)
+    writer.close()
+    got, want = RuntimePredictor(alpha=0.5), JaxPredictor(alpha=0.5)
+    assert got.seed_from_journal(str(journal)) == \
+        want.seed_from_journal(str(journal)) == 3
+    for label in ("train", "etl", "job"):
+        assert got.peek(label) == want.peek(label)
+    assert got.stats() == want.stats()
     path = tmp_path / "policy.toml"
-    path.write_text(f'[prediction]\nenabled = true\n'
+    path.write_text(f'[prediction]\nenabled = true\newma_alpha = 0.5\n'
                     f'seed_journal = "{journal}"\n')
-    with pytest.raises(NotImplementedError, match="host-plane"):
-        port_policy.build_policy(str(path))
-    with pytest.raises(NotImplementedError, match="host-plane"):
-        RuntimePredictor().seed_from_journal(str(journal))
+    state = port_policy.build_policy(str(path))
+    jax_state = jax_policy.build_policy(str(path))
+    assert state.predictor.stats() == jax_state.predictor.stats()
+    assert state.predictor.peek("train") == jax_state.predictor.peek("train")
+    assert state.stats() == jax_state.stats()
     # without a seed the table builds a policy with a predictor, as in JAX
     path.write_text("[prediction]\nenabled = true\newma_alpha = 0.5\n")
     state = port_policy.build_policy(str(path))
-    want = jax_policy.build_policy(str(path))
-    assert state.predictor.alpha == want.predictor.alpha == 0.5
+    want_state = jax_policy.build_policy(str(path))
+    assert state.predictor.alpha == want_state.predictor.alpha == 0.5
     assert port_policy.build_policy(None) is None
