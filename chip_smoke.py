@@ -14,7 +14,9 @@ single-block and sharded (`--scheduler multichip`), then the north star
 with min-utilization workers, then `--scheduler milp` with its degraded
 tick, then the server's tick itself (reactor.schedule) over the north star
 held as lazy array chunks, plain and fused, then a journaled server's
-kill -9 and restore at the same size, and prints timings.
+kill -9 and restore at the same size, then `hq server start` itself: the
+server in a child process, 1,024 workers and a client over TCP, and prints
+timings.
 
 Phases:
   1. the card (nvidia-smi name and power limit) and the builds, all started
@@ -88,7 +90,7 @@ Phases:
      fault raises. The sync probe is resolved first
      (device_sync_ms(wait_s=30)), then 8 synchronous ticks
      (tick_cache.sync, run_tick over the dense snapshot, a random quarter
-     of the workers finish), then 16 pipelined ticks in the server's order
+     of the workers finish), then 12 pipelined ticks in the server's order
      (take_result, sync, dispatch; a paranoid tick drains and solves
      synchronously). Every solve's counts are held against the plain
      version, every tick must solve on the device with valid assignments,
@@ -103,7 +105,7 @@ Phases:
   9. the multichip path: phase 8's seam around
      SolverWatchdog(MultichipModel(devices=[cuda] * 4)), the north star in
      4 shards of 256 workers, as `hq server start --scheduler multichip`
-     builds it: 8 synchronous and 8 pipelined ticks, every solve's counts
+     builds it: 8 synchronous and 6 pipelined ticks, every solve's counts
      held against K2's plain version; it fails on a solve whose
      backend_reason is not "multichip-mesh", a K1 launch, a K2 launch that
      did not run the cluster exchange, any watchdog failure, timeout or
@@ -143,7 +145,7 @@ Phases:
      every 4th tick, prefill on, the sync probe resolved first. A
      recording Comm and an EventSink that forwards to the JobManager; the
      workers answer between ticks (ReactorHarness). 8 synchronous ticks,
-     3 under torch.profiler (the device's idle share), then 8 pipelined
+     3 under torch.profiler (the device's idle share), then 4 pipelined
      ones. Every solve is held against the plain version; it fails on a
      Core.sanity_check failure (every 4th tick, walking every materialized
      task), a compute message for a task not ASSIGNED or prefilled on that
@@ -157,7 +159,7 @@ Phases:
  14. the reactor_fused path: the fused north star (8 jobs, 8 groups of 128
      workers) as lazy chunks, the 16 gang tasks of gang_tasks submitted as
      Tasks through on_new_tasks, core.fused_solve and the fused path's
-     policy, 8 ticks on GreedyCutScanModel(backend="device") with prefill;
+     policy, 7 ticks on GreedyCutScanModel(backend="device") with prefill;
      the checks of phase 13 (Core.sanity_check aside), K1g held against
      its plain version, every gang all-or-nothing on idle members of one
      group, no excluded (class, group) pair in the solve's placements, and
@@ -193,7 +195,42 @@ Phases:
      journal plane's commits (p50, p99), and the path's peak RSS. The
      ticks run without prefill: a snapshot keeps every materialized task
      (a prefilled backlog too) as its own record while a replay keeps the
-     untouched ones in chunks (ROADMAP Queue 3).
+     untouched ones in chunks (ROADMAP Queue 3);
+ 16. the server_start path: `hq server start` through its process
+     boundary. The port's Server runs in a child process (multiprocessing,
+     spawn; Server(server_dir=, journal_path=, metrics_port=0), every other
+     keyword at its default, so K1 on the card; start(), then
+     run_until_stopped()), its watchdog's primary wrapped in a recorder
+     and the reactor's run_tick in check_assignments. 1,024 simulated
+     workers in 4 processes connect to the worker port over TCP through
+     transport/auth (encrypted; WIRE_BACKEND printed), register with the
+     north star's resources, start each compute entry that fits (the rest
+     parked, by priority, as the worker runtime parks them), answer
+     task_running, then task_finished after a service time drawn from seed
+     42, answer retracts and heartbeat. The client submits the north
+     star's 200 arrays back to back over the client plane (the ingest
+     thread); after a 20 s window from the first submit one worker drops
+     its connection, the workers drain (no more starts; the running tasks
+     finish), the client reads server_stats, job_list, job_info,
+     worker_list and the flight recorder, /metrics and /readyz are
+     scraped, and stop_server follows. It fails unless every K1 launch of
+     the child equals its plain version (checked here afterwards, on the
+     recorded inputs), every tick's placements fit the free resources,
+     no (task, instance) pair was dispatched twice, the dropped worker's
+     tasks left it and were dispatched again under a new instance,
+     job_info's finished count equals what the workers reported,
+     Core.sanity_check passes at shutdown, the child exits 0 within 10 s
+     of stop_server with every thread the server started stopped and
+     hq-current gone, every solve ran on the card (no host or degraded
+     tick), /readyz answers with its solver, journal and ingest checks ok
+     (a paging SLO alert may make it 503), and restore_from_journal into a
+     fresh Server here gives the finished and running counts the server
+     closed its journal with. Logs registration (storm, handshake and
+     register round trip), submit acks, the ticks (tick 0, the largest,
+     steady median and p99, phases), the rates, the worker plane (frames,
+     bytes, encode and decode on both sides, fan-out), the loop lag by
+     plane from the scrape, stall captures, journal commits, K1 launches
+     and the server's peak RSS.
 
 On every path before the reactor paths the queues must be the native
 ones, and every mapping of a tick without gang rows must pop its ids
@@ -220,7 +257,7 @@ a "ptxas" line per source. The main paths (default, fused, server) must run
 every cut-scan solve in the resident instantiation.
 
 The third-to-last line is the kernels JSON (K1, K1g, K5, K2; K1's entry
-counts the journal path's launches too), the
+counts the journal and server_start paths' launches too), the
 second-to-last the card;
 the last line is {"ok": true, "device": {...}}. Exits non-zero, printing no
 result line, when there is no CUDA device or any phase fails.
@@ -228,6 +265,7 @@ result line, when there is no CUDA device or any phase fails.
 
 from __future__ import annotations
 
+import asyncio
 import gc
 import json
 import logging
@@ -253,11 +291,11 @@ THREADS = None
 
 # the server path: synchronous ticks, then pipelined ones
 N_SERVER_TICKS = 8
-N_SERVER_PIPELINED_TICKS = 16
+N_SERVER_PIPELINED_TICKS = 12
 # the multichip path: the north star over shards of one card (256 workers
 # each), 8 synchronous ticks, then pipelined ones
 N_SHARDS = 4
-N_MULTICHIP_PIPELINED_TICKS = 8
+N_MULTICHIP_PIPELINED_TICKS = 6
 
 # the mu path: the north star with N_MU_WORKERS of its workers one
 # allocation that must pack or idle (min_utilization MU), N_MU_TICKS ticks
@@ -283,8 +321,8 @@ N_GROUPS = 8
 N_GANG_TASKS = 160
 # the reactor paths (phases 13 and 14)
 N_REACTOR_TICKS = 8
-N_REACTOR_PIPELINED_TICKS = 8
-N_REACTOR_FUSED_TICKS = 8
+N_REACTOR_PIPELINED_TICKS = 4
+N_REACTOR_FUSED_TICKS = 7
 REACTOR_PAUSED_JOB = 2
 REACTOR_PAUSE_TICK = 4
 REACTOR_RESUME_TICK = 6
@@ -1507,7 +1545,9 @@ def check_assignments(assignments, rows, rq_map, seen):
         slots[worker_id] = slots.get(worker_id, 0) + 1
     for worker_id, u in used.items():
         row = by_id[worker_id]
-        if (any(a > f for a, f in zip(u, row.free))
+        # (a resource the tick assigned none of is not judged: a server
+        # worker's free may stand below zero there, see server_start_path)
+        if (any(a > f for a, f in zip(u, row.free) if a)
                 or slots[worker_id] > row.nt_free):
             raise AssertionError(f"worker {worker_id} over-committed")
 
@@ -4088,6 +4128,1123 @@ def journal_path(card, device):
     return summary
 
 
+# -- phase 16: `hq server start` over TCP --------------------------------------
+# the window the workers run tasks for, from the first array's ack
+SERVE_WINDOW_S = 20.0
+# processes the 1,024 simulated workers are spread over (decode and seal of
+# the compute frames is CPU work under one GIL each)
+SERVE_WORKER_PROCS = 4
+# a task's service time on a simulated worker, uniform in this range (s)
+SERVE_SERVICE_S = (1.0, 6.0)
+# a simulated worker batches its uplink messages for this long, as the
+# worker runtime does (`uplink_flush_secs`)
+SERVE_FLUSH_S = 0.005
+# 1,024 worker connections plus the server's own files and sockets
+SERVE_MIN_NOFILE = 4096
+# handshakes a worker process keeps in flight at once: the server listens
+# with asyncio's default backlog of 100, which 1,024 workers connecting in
+# the same instant overflow (the kernel then resets connections); a fleet
+# started by a batch system does not arrive in one instant either
+SERVE_CONNECT_CONCURRENCY = 16
+SERVE_CONNECT_ATTEMPTS = 3
+# the child server must be gone this long after `stop_server`
+SERVE_EXIT_S = 10.0
+
+
+def raise_nofile_limit():
+    """Soft RLIMIT_NOFILE up to the hard limit, before any process is
+    spawned (children inherit it): the server holds one descriptor per
+    worker connection and the workers' processes one each too. Fails,
+    with both numbers, when the hard limit is under SERVE_MIN_NOFILE."""
+    import resource
+
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    target = hard if hard != resource.RLIM_INFINITY else max(soft, 1 << 16)
+    if target < SERVE_MIN_NOFILE:
+        raise AssertionError(
+            f"RLIMIT_NOFILE: hard limit {hard}, soft {soft}; the "
+            f"server_start path needs {SERVE_MIN_NOFILE} descriptors")
+    if soft != target:
+        resource.setrlimit(resource.RLIMIT_NOFILE, (target, hard))
+    return soft, target
+
+
+def rss_mb():
+    """This process's resident set now and its peak since its exec (a
+    spawned process's ru_maxrss also counts the parent it was forked
+    from), in MB; None where /proc does not say."""
+    now = peak = None
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmHWM:"):
+                    peak = int(line.split()[1]) / 1024
+                elif line.startswith("VmRSS:"):
+                    now = int(line.split()[1]) / 1024
+    except OSError:
+        pass
+    if now is None:
+        try:
+            with open("/proc/self/statm") as f:
+                now = int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") \
+                    / 2**20
+        except (OSError, ValueError, IndexError):
+            pass
+    return now, peak
+
+
+def _timed(fn, acc, lock, key):
+    """`fn` timed into acc[key + "_n" / "_s" / "_bytes"] (the server's
+    sender threads encode concurrently, hence the lock)."""
+    def wrapped(arg):
+        t0 = time.perf_counter()
+        out = fn(arg)
+        dt = time.perf_counter() - t0
+        n = len(out) if key == "encode" else len(arg)
+        with lock:
+            acc[f"{key}_n"] += 1
+            acc[f"{key}_s"] += dt
+            acc[f"{key}_bytes"] += n
+        return out
+    return wrapped
+
+
+def serve_child(server_dir, device, result_path):
+    """The server process of the server_start path (spawned; imports only
+    the port). Builds `Server(server_dir=, journal_path=server_dir/
+    "journal", metrics_port=0)` with every other keyword at its default
+    (the default scheduler: GreedyCutScanModel on the card), wraps the
+    watchdog's primary in RecordingSeam and the reactor's run_tick in
+    check_assignments, then runs what run_server runs: start(), then
+    run_until_stopped(). At shutdown it runs Core.sanity_check, reads the
+    state of the tasks the parent names in `dropped.json`, keeps each
+    job's counters as the journal closes, and after the loop checks that
+    every thread the server started has stopped; everything goes to
+    `result_path` (JSON) and the recorded solves beside it (pickle)."""
+    import pickle
+    import threading
+    import types
+    from pathlib import Path
+
+    from hyperqueue_tpu_torch.ops import assign
+    from hyperqueue_tpu_torch.server import reactor
+    from hyperqueue_tpu_torch.server.bootstrap import Server
+    from hyperqueue_tpu_torch.transport import auth
+
+    logging.basicConfig(level=logging.WARNING, stream=sys.stderr)
+    server_dir = Path(server_dir)
+    out: dict = {"checks": {}, "failures": [], "times": {}}
+    codec_acc = {f"{k}_{s}": 0 for k in ("encode", "decode")
+                 for s in ("n", "s", "bytes")}
+    lock = threading.Lock()
+    auth.pack_payload = _timed(auth.pack_payload, codec_acc, lock, "encode")
+    auth.unpack_payload = _timed(auth.unpack_payload, codec_acc, lock,
+                                 "decode")
+    run_tick = reactor.run_tick
+    assigned = {"ticks": 0, "tasks": 0}
+
+    def checked_run_tick(*args, **kwargs):
+        dense = kwargs.get("dense")
+        if dense is not None:
+            rows = [types.SimpleNamespace(
+                worker_id=wid, free=[int(a) for a in dense.free[i]],
+                nt_free=int(dense.nt_free[i]))
+                for i, wid in enumerate(dense.worker_ids)]
+        else:
+            rows = [types.SimpleNamespace(worker_id=r.worker_id,
+                                          free=list(r.free),
+                                          nt_free=r.nt_free)
+                    for r in args[1]]
+        result = run_tick(*args, **kwargs)
+        try:
+            check_assignments(result, rows, args[2], set())
+        except AssertionError as e:
+            out["failures"].append(f"tick assignments: {e}")
+        assigned["ticks"] += 1
+        assigned["tasks"] += len(result)
+        return result
+
+    reactor.run_tick = checked_run_tick
+    # task messages the reactor drops as stale (unknown task, another
+    # instance, already done): none is expected from these workers
+    ignored = {"running": 0, "finished": 0, "examples": []}
+
+    def counted(handler, key, core_arg):
+        def wrapped(*args, **kwargs):
+            core, task_id, instance = args[0], args[core_arg], \
+                args[core_arg + 1]
+            task = core.tasks.get(task_id)
+            if task is None or task.instance_id != instance \
+                    or task.is_done:
+                ignored[key] += 1
+                if len(ignored["examples"]) < 5:
+                    ignored["examples"].append(
+                        [key, task_id, instance,
+                         None if task is None else task.instance_id,
+                         None if task is None else task.state.value])
+            return handler(*args, **kwargs)
+        return wrapped
+
+    reactor.on_task_running = counted(reactor.on_task_running,
+                                      "running", 2)
+    reactor.on_task_finished = counted(reactor.on_task_finished,
+                                       "finished", 3)
+    out["ignored"] = ignored
+    threads_before = {t.ident for t in threading.enumerate()}
+
+    async def main():
+        kwargs = {} if device == "cuda" else {"device": device}
+        server = Server(server_dir=server_dir,
+                        journal_path=server_dir / "journal",
+                        metrics_port=0, **kwargs)
+        # the watchdog's primary records every solve's inputs and counts
+        recorder = RecordingSeam(server.model.model)
+        server.model.model = recorder
+        server.model._last_ran = recorder
+        out["recorder"] = recorder
+        shutdown, close_journal = server.shutdown, server._close_journal
+
+        async def checked_shutdown():
+            checks = out["checks"]
+            out["times"]["shutdown"] = time.time()
+            t0 = time.perf_counter()
+            try:
+                server.core.sanity_check()
+                checks["sanity"] = "ok"
+            except Exception as e:  # noqa: BLE001 - reported, fails the run
+                checks["sanity"] = repr(e)
+            checks["sanity_ms"] = (time.perf_counter() - t0) * 1e3
+            checks["dropped"] = dropped_state(server, server_dir)
+            checks["watchdog"] = server.model.stats()
+            checks["stalls"] = server.stalls_captured
+            # the server's whole state is still live here
+            out["rss_at_stop_mb"], _ = rss_mb()
+            out["times"]["checks"] = time.time()
+            await shutdown()
+            out["times"]["shutdown_done"] = time.time()
+
+        def checked_close_journal():
+            out["close_counters"] = {
+                str(jid): dict(job.counters)
+                for jid, job in server.jobs.jobs.items()}
+            close_journal()
+            if server.jplane is not None:
+                out["commit_ms"] = server.jplane.commit_ms()
+                out["journal_plane"] = server.jplane.stats()
+
+        server.shutdown = checked_shutdown
+        server._close_journal = checked_close_journal
+        await server.start()
+        await server.run_until_stopped()
+        out["tick_counter"] = server.core.tick_counter
+
+    asyncio.run(main())
+    out["times"]["loop_done"] = time.time()
+    deadline = time.monotonic() + 5.0
+    while True:
+        left = sorted(t.name for t in threading.enumerate()
+                      if t.ident not in threads_before and t.is_alive())
+        if not left or time.monotonic() > deadline:
+            break
+        time.sleep(0.05)
+    recorder = out.pop("recorder")
+    with open(str(result_path) + ".solves", "wb") as f:
+        pickle.dump(recorder.calls, f, protocol=pickle.HIGHEST_PROTOCOL)
+    out.update(
+        threads_left=left,
+        hq_current=(server_dir / "hq-current").is_symlink(),
+        solves=len(recorder.calls),
+        launches=assign.greedy_cut_scan.launches,
+        resident_launches=assign.greedy_cut_scan.resident_launches,
+        gang_launches=assign.greedy_cut_scan.gang_launches,
+        assigned=assigned, codec=codec_acc, peak_rss_mb=rss_mb()[1])
+    out["times"]["written"] = time.time()
+    with open(result_path, "w") as f:
+        json.dump(out, f)
+    # the server has stopped and everything is written: the interpreter's
+    # teardown would free the server's multi-GB heap object by object
+    # (4 s at the north star); the OS takes it back at once
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
+
+
+def dropped_state(server, server_dir):
+    """Where each task the parent names in `dropped.json` (the running and
+    queued tasks of the worker it dropped, with their instances) stands
+    now: it must have left that worker, and a new dispatch must carry a
+    new instance."""
+    from hyperqueue_tpu_torch.server.task import TaskState
+
+    path = server_dir / "dropped.json"
+    if not path.exists():
+        return {"error": "no dropped.json"}
+    dropped = json.loads(path.read_text())
+    wid = dropped["worker_id"]
+    states: dict = {}
+    bad = []
+    for task_id, instance in dropped["tasks"]:
+        task = server.core.tasks.get(task_id)
+        if task is None:
+            bad.append((task_id, "gone"))
+            continue
+        states[task.state.value] = states.get(task.state.value, 0) + 1
+        on_dropped = (task.state in (TaskState.ASSIGNED, TaskState.RUNNING)
+                      and task.assigned_worker == wid)
+        if on_dropped or (task.state is not TaskState.READY
+                          and not task.is_done
+                          and task.instance_id <= instance):
+            bad.append((task_id, task.state.value, task.instance_id))
+    return {"worker_id": wid, "tasks": len(dropped["tasks"]),
+            "states": states, "bad": bad[:10], "n_bad": len(bad)}
+
+
+class SimWorker:
+    """One simulated worker on a `transport/auth` connection: registers,
+    starts each compute entry that fits its free resources (the rest
+    waits in a backlog ordered by priority, as the worker runtime parks
+    tasks), answers task_running at the start and task_finished after a
+    service time, answers retracts from the backlog, drops canceled
+    tasks, heartbeats every heartbeat_secs and stops on `stop`."""
+
+    def __init__(self, proc, config):
+        self.proc = proc
+        self.config = config
+        self.free = {it["name"]: int(it["sum_size"])
+                     for it in config["descriptor"]["items"]}
+        self.wid = 0
+        self.conn = None
+        self.running: dict = {}     # task id -> (instance, amounts)
+        self.backlog: list = []     # entries, by priority (desc), FIFO
+        self.outbox: list = []
+        self.entries = 0
+        self.first_compute = None
+        self.stopped = False      # told to stop, or dropped
+        self.gone = False         # a send found the connection closed
+
+    async def connect(self, access):
+        from hyperqueue_tpu_torch.transport import auth
+
+        t0 = time.perf_counter()
+        reader, writer = await asyncio.open_connection(
+            "127.0.0.1", access.worker_port)
+        self.conn = await auth.do_authentication(
+            reader, writer, auth.ROLE_WORKER, auth.ROLE_SERVER,
+            access.worker_key_bytes())
+        t1 = time.perf_counter()
+        await self.conn.send({"op": "register", "config": self.config})
+        reply = await self.conn.recv()
+        if reply.get("op") != "registered":
+            raise AssertionError(f"register answered {reply}")
+        self.wid = reply["worker_id"]
+        return t1 - t0, time.perf_counter() - t0
+
+    def fits(self, amounts):
+        return all(self.free.get(name, 0) >= a for name, a in amounts)
+
+    def start(self, entry, amounts):
+        for name, a in amounts:
+            self.free[name] -= a
+        task_id, instance = entry["id"], entry["instance"]
+        self.running[task_id] = (instance, amounts)
+        self.outbox.append({"op": "task_running", "id": task_id,
+                            "instance": instance})
+        self.proc.started += 1
+        self.proc.loop.call_later(self.proc.service(), self.finish, task_id,
+                                  instance)
+
+    def finish(self, task_id, instance):
+        if self.stopped:
+            return
+        held = self.running.get(task_id)
+        if held is None or held[0] != instance:
+            return  # canceled meanwhile
+        del self.running[task_id]
+        for name, a in held[1]:
+            self.free[name] += a
+        self.outbox.append({"op": "task_finished", "id": task_id,
+                            "instance": instance})
+        self.start_backlog()
+
+    def start_backlog(self):
+        if self.proc.frozen:
+            return
+        kept = []
+        for entry in self.backlog:
+            amounts = entry["_amounts"]
+            if self.fits(amounts):
+                self.start(entry, amounts)
+            else:
+                kept.append(entry)
+        self.backlog = kept
+
+    def on_message(self, msg):
+        op = msg.get("op")
+        if op == "compute":
+            now = time.time()
+            if self.first_compute is None:
+                self.first_compute = now
+            for entry in msg["tasks"]:
+                self.entries += 1
+                self.proc.dispatched.append((entry["id"],
+                                             entry["instance"]))
+                amounts = [(e["name"], e["amount"])
+                           for e in entry["entries"]]
+                if not self.proc.frozen and self.fits(amounts):
+                    self.start(entry, amounts)
+                    continue
+                entry["_amounts"] = amounts
+                prio = tuple(entry.get("priority") or (0, 0))
+                entry["_prio"] = prio
+                idx = len(self.backlog)
+                while idx > 0 and self.backlog[idx - 1]["_prio"] < prio:
+                    idx -= 1
+                self.backlog.insert(idx, entry)
+        elif op == "retract":
+            for task_id, instance in msg["tasks"]:
+                before = len(self.backlog)
+                self.backlog = [e for e in self.backlog
+                                if e["id"] != task_id]
+                self.outbox.append({"op": "retract_response", "id": task_id,
+                                    "instance": instance,
+                                    "ok": len(self.backlog) < before})
+                self.proc.retracts += 1
+        elif op == "cancel":
+            for task_id in msg["task_ids"]:
+                self.backlog = [e for e in self.backlog
+                                if e["id"] != task_id]
+                held = self.running.pop(task_id, None)
+                if held is not None:
+                    for name, a in held[1]:
+                        self.free[name] += a
+                self.proc.cancels += 1
+        elif op == "stop":
+            self.stopped = True
+            self.proc.stops += 1
+        elif op != "set_overview_override":
+            raise AssertionError(f"worker {self.wid}: unexpected {op!r}")
+
+    async def read_loop(self):
+        from hyperqueue_tpu_torch.transport import framing
+
+        conn, proc = self.conn, self.proc
+        try:
+            while not self.stopped:
+                raw = await framing.read_frame(conn.reader)
+                t0 = time.perf_counter()
+                data = conn._opener.open(raw) if conn._opener else raw
+                t1 = time.perf_counter()
+                frame = framing.unpack_payload(data)
+                t2 = time.perf_counter()
+                proc.frames_in += 1
+                proc.bytes_in += len(raw)
+                proc.open_s += t1 - t0
+                proc.decode_s += t2 - t1
+                msgs = frame["msgs"] if frame.get("op") == "batch" \
+                    else [frame]
+                for msg in msgs:
+                    self.on_message(msg)
+        except (asyncio.IncompleteReadError, ConnectionError, OSError):
+            if not self.stopped and not proc.closing:
+                proc.lost.append(self.wid)
+            self.gone = True
+        except Exception as e:  # noqa: BLE001 - reported, fails the run
+            proc.errors.append(f"worker {self.wid}: {e!r}")
+        finally:
+            if self.stopped:
+                conn.close()
+
+    async def flush(self):
+        if not self.outbox or self.conn is None or self.gone:
+            return
+        msgs, self.outbox = self.outbox, []
+        payload = msgs[0] if len(msgs) == 1 else {"op": "batch",
+                                                  "msgs": msgs}
+        t0 = time.perf_counter()
+        data = self.conn.encode(payload)
+        self.proc.encode_s += time.perf_counter() - t0
+        self.proc.frames_out += 1
+        self.proc.bytes_out += len(data)
+        try:
+            await self.conn.send_bytes(data)
+        except (ConnectionError, OSError):
+            # the connection went away: a stop, or a loss the read loop
+            # reports
+            self.gone = True
+            return
+        self.proc.finished += sum(1 for m in msgs
+                                  if m["op"] == "task_finished")
+
+
+class SimWorkerProc:
+    """The simulated workers of one process and its counters."""
+
+    def __init__(self, index, seed):
+        self.index = index
+        self.rng = np.random.default_rng([seed, index])
+        self.loop = None
+        self.frozen = False
+        self.closing = False
+        self.dispatched: list = []
+        self.lost: list = []
+        self.errors: list = []
+        self.started = self.finished = self.retracts = self.cancels = 0
+        self.stops = 0
+        self.connect_retries = 0
+        self.frames_in = self.bytes_in = self.frames_out = self.bytes_out = 0
+        self.decode_s = self.open_s = self.encode_s = 0.0
+
+    def service(self):
+        return float(self.rng.uniform(*SERVE_SERVICE_S))
+
+
+def serve_worker_proc(index, server_dir, configs, seed, conn):
+    """A process of simulated workers (spawned; imports only the port's
+    transport): connects `configs` to the worker port named by the access
+    record, then runs their tasks until the parent asks it, over `conn`,
+    to drop its busiest worker, to freeze (no more starts or finishes) and
+    to report."""
+    from pathlib import Path
+
+    from hyperqueue_tpu_torch.utils import serverdir
+
+    proc = SimWorkerProc(index, seed)
+
+    async def main():
+        proc.loop = asyncio.get_running_loop()
+        deadline = time.monotonic() + 120.0
+        while True:
+            try:
+                access = serverdir.load_access(Path(server_dir),
+                                               retry_secs=0.0)
+                break
+            except (FileNotFoundError, ValueError, KeyError, TypeError):
+                if time.monotonic() > deadline:
+                    raise
+                await asyncio.sleep(0.02)
+        workers = [SimWorker(proc, cfg) for cfg in configs]
+        gate = asyncio.Semaphore(SERVE_CONNECT_CONCURRENCY)
+
+        async def connect(w):
+            async with gate:
+                for attempt in range(SERVE_CONNECT_ATTEMPTS):
+                    try:
+                        return await w.connect(access)
+                    except (asyncio.IncompleteReadError, ConnectionError):
+                        if attempt + 1 == SERVE_CONNECT_ATTEMPTS:
+                            raise
+                        proc.connect_retries += 1
+                        await asyncio.sleep(0.2)
+
+        t0 = time.perf_counter()
+        times = await asyncio.gather(*(connect(w) for w in workers))
+        storm_s = time.perf_counter() - t0
+        readers = [asyncio.ensure_future(w.read_loop()) for w in workers]
+        conn.send(("registered", {
+            "storm_s": storm_s, "retries": proc.connect_retries,
+            "handshake_s": [h for h, _ in times],
+            "register_s": [r for _, r in times],
+            "worker_ids": [w.wid for w in workers]}))
+        commands: asyncio.Queue = asyncio.Queue()
+        proc.loop.add_reader(conn.fileno(),
+                             lambda: commands.put_nowait(conn.recv()))
+        last_beat = time.monotonic()
+        beat = min(float(c.get("heartbeat_secs", 8.0)) for c in configs)
+        while True:
+            try:
+                cmd = await asyncio.wait_for(commands.get(), SERVE_FLUSH_S)
+            except asyncio.TimeoutError:
+                cmd = None
+            if time.monotonic() - last_beat >= beat:
+                last_beat = time.monotonic()
+                for w in workers:
+                    if not w.stopped:
+                        w.outbox.append({"op": "heartbeat"})
+            await asyncio.gather(*(w.flush() for w in workers
+                                   if w.outbox and not w.stopped))
+            if cmd is None:
+                continue
+            op = cmd[0]
+            if op == "drop":
+                victim = max(workers, key=lambda w: (len(w.running), w.wid))
+                # a dropped connection loses what was not sent yet: the
+                # finishes in its outbox leave those tasks running on the
+                # server, so they requeue with the rest
+                tasks = [(tid, inst) for tid, (inst, _a)
+                         in victim.running.items()]
+                tasks += [(m["id"], m["instance"]) for m in victim.outbox
+                          if m["op"] == "task_finished"]
+                tasks += [(e["id"], e["instance"]) for e in victim.backlog]
+                victim.outbox = []
+                victim.stopped = True
+                victim.conn.close()
+                workers.remove(victim)
+                conn.send(("dropped", {"worker_id": victim.wid,
+                                       "tasks": tasks,
+                                       "running": len(victim.running)}))
+            elif op == "freeze":
+                # no more starts; what runs finishes and is reported
+                proc.frozen = True
+                deadline = time.monotonic() + SERVE_SERVICE_S[1] + 10.0
+                while any(w.running for w in workers) \
+                        and time.monotonic() < deadline:
+                    await asyncio.sleep(SERVE_FLUSH_S)
+                    await asyncio.gather(*(w.flush() for w in workers
+                                           if w.outbox and not w.stopped))
+                await asyncio.gather(*(w.flush() for w in workers
+                                       if w.outbox and not w.stopped))
+                conn.send(("frozen", {
+                    "finished": proc.finished, "started": proc.started,
+                    "running": sum(len(w.running) for w in workers)}))
+            elif op == "closing":
+                # the server is about to be stopped: a connection that
+                # ends from here on is not a lost one
+                proc.closing = True
+                conn.send(("closing", None))
+            elif op == "report":
+                proc.closing = True
+                ids = np.array([d[0] for d in proc.dispatched],
+                               dtype=np.int64)
+                inst = np.array([d[1] for d in proc.dispatched],
+                                dtype=np.int64)
+                firsts = [w.first_compute for w in workers
+                          if w.first_compute is not None]
+                conn.send(("report", {
+                    "workers": len(workers), "stops": proc.stops,
+                    "lost": proc.lost, "errors": proc.errors,
+                    "entries": len(proc.dispatched),
+                    "ids": ids, "instances": inst,
+                    "started": proc.started, "finished": proc.finished,
+                    "retracts": proc.retracts, "cancels": proc.cancels,
+                    "frames_in": proc.frames_in, "bytes_in": proc.bytes_in,
+                    "frames_out": proc.frames_out,
+                    "bytes_out": proc.bytes_out,
+                    "decode_s": proc.decode_s, "open_s": proc.open_s,
+                    "encode_s": proc.encode_s,
+                    "first_compute": (min(firsts), max(firsts))
+                    if firsts else None}))
+                for r in readers:
+                    r.cancel()
+                for w in workers:
+                    if w.conn is not None:
+                        w.conn.close()
+                return
+
+    asyncio.run(main())
+
+
+def _pctl(values, q):
+    return float(np.percentile(np.asarray(values, dtype=np.float64), q)) \
+        if len(values) else None
+
+
+def serve_summary_ticks(records):
+    """The server's ticks from the flight recorder's dump: tick 0 (the
+    first that placed or prefilled a task), the largest one (most tasks
+    placed and prefilled), the median and p99 of the wall ms (the
+    `total` phase) and each phase's median over the ticks after tick 0,
+    and every tick as [tick, wall ms, placed, prefilled]."""
+    ticks = sorted(records, key=lambda r: r["tick"])
+    busy = [r for r in ticks if r["counts"]["assigned"]
+            + r["counts"]["prefilled"] > 0]
+    if not busy:
+        return {"ticks": 0}
+    t0 = busy[0]
+    big = max(busy, key=lambda r: r["counts"]["assigned"]
+              + r["counts"]["prefilled"])
+    steady = [r for r in ticks if r["tick"] > t0["tick"]]
+    totals = [r["phases"].get("total", 0.0) for r in steady]
+    names = sorted({k for r in steady for k in r["phases"]})
+    return {
+        "ticks": len(ticks), "tick0": t0["tick"],
+        "tick0_ms": t0["phases"].get("total"),
+        "tick0_counts": t0["counts"],
+        "largest": big["tick"], "largest_ms": big["phases"].get("total"),
+        "largest_phases_ms": big["phases"],
+        "largest_counts": big["counts"],
+        "steady_ticks": len(steady),
+        "steady_median_ms": _pctl(totals, 50),
+        "steady_p99_ms": _pctl(totals, 99),
+        "steady_phases_median_ms": {
+            k: _pctl([r["phases"].get(k, 0.0) for r in steady], 50)
+            for k in names},
+        "every_tick": [[r["tick"], r["phases"].get("total"),
+                        r["counts"]["assigned"], r["counts"]["prefilled"]]
+                       for r in ticks],
+    }
+
+
+def lag_p99_by_plane(parsed):
+    """hq_reactor_lag_seconds per plane from a parsed scrape: count and
+    the upper bucket edge under which 50% and 99% of the observations
+    fall."""
+    entry = parsed.get("hq_reactor_lag_seconds")
+    if not entry:
+        return {}
+    planes: dict = {}
+    for (name, labels), value in entry["samples"].items():
+        labels = dict(labels)
+        plane = labels.get("plane")
+        if name.endswith("_bucket"):
+            le = labels["le"]
+            edge = float("inf") if le == "+Inf" else float(le)
+            planes.setdefault(plane, {"b": []})["b"].append((edge, value))
+        elif name.endswith("_count"):
+            planes.setdefault(plane, {"b": []})["count"] = value
+    out = {}
+    for plane, d in planes.items():
+        buckets, count = sorted(d["b"]), d.get("count", 0)
+
+        def q(frac):
+            for edge, cum in buckets:
+                if cum >= frac * count:
+                    return None if edge == float("inf") else edge
+            return None
+        out[plane] = {"count": int(count), "p50_le_s": q(0.5) if count
+                      else None, "p99_le_s": q(0.99) if count else None}
+    return out
+
+
+def server_start_path(card, device, n_procs=SERVE_WORKER_PROCS,
+                      window_s=SERVE_WINDOW_S, state=None):
+    """Phase 16: the north star through `hq server start`'s process
+    boundary. The port's Server runs in a child process (serve_child),
+    1,024 simulated workers in `n_procs` processes (serve_worker_proc)
+    speak the worker plane over TCP through transport/auth, and the
+    client here submits the north star's 200 arrays (1M tasks, lazy above
+    the server's lazy_array_threshold) over the client plane (the ingest
+    thread), then the workers run tasks for `window_s` seconds. One
+    worker drops its connection, the workers drain (no more starts; the
+    running tasks finish), the client reads
+    server_stats, job_list, job_info, worker_list and the flight recorder,
+    the script scrapes /metrics and /readyz, and stop_server follows.
+    Every K1 launch of the child is held against its plain version here
+    afterwards, and the journal is restored into a fresh Server. Returns
+    the path's summary."""
+    import multiprocessing
+    import pickle
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from hyperqueue_tpu_torch.models.greedy import GreedyCutScanModel
+    from hyperqueue_tpu_torch.server.bootstrap import Server
+    from hyperqueue_tpu_torch.transport import auth
+    from hyperqueue_tpu_torch.transport.aead import WIRE_BACKEND
+    from hyperqueue_tpu_torch.transport.framing import attach_trace
+    from hyperqueue_tpu_torch.utils import metrics, serverdir
+
+    t_path = time.perf_counter()
+    marks: dict = {}
+
+    def mark(name):
+        marks[name] = time.perf_counter() - t_path
+
+    resources, worker_rows, submits, n_tasks = state or journal_state()
+    mark("state")
+    configs = [cfg.to_wire() for _wid, cfg, _free, _nt in worker_rows]
+    tmp = Path(tempfile.mkdtemp(prefix="hq-serve-"))
+    server_dir = tmp / "server"
+    result_path = tmp / "child.json"
+    ctx = multiprocessing.get_context("spawn")
+    child = ctx.Process(target=serve_child, name="hq-server",
+                        args=(str(server_dir), device.type,
+                              str(result_path)))
+    procs, pipes = [], []
+    out: dict = {}
+    try:
+        child.start()
+        # the workers' processes start with the server (they wait for its
+        # access record), so their imports overlap the server's start
+        split = np.array_split(np.arange(len(configs)), n_procs)
+        for i, part in enumerate(split):
+            parent_end, child_end = ctx.Pipe()
+            p = ctx.Process(target=serve_worker_proc, name=f"hq-workers-{i}",
+                            args=(i, str(server_dir),
+                                  [configs[j] for j in part], SEED,
+                                  child_end))
+            p.start()
+            procs.append(p)
+            pipes.append(parent_end)
+        t0 = time.perf_counter()
+        while True:
+            try:
+                access = serverdir.load_access(server_dir, retry_secs=0.0)
+                break
+            except (FileNotFoundError, ValueError, KeyError, TypeError):
+                if not child.is_alive():
+                    raise AssertionError("server_start: the server child "
+                                         f"exited ({child.exitcode})")
+                if time.perf_counter() - t0 > 120:
+                    raise AssertionError("server_start: no access record")
+                time.sleep(0.05)
+        out["server_start_s"] = time.perf_counter() - t0
+        mark("server_started")
+
+        def recv(pipe, what, timeout=120.0):
+            if not pipe.poll(timeout):
+                raise AssertionError(f"server_start: no {what} from a "
+                                     "worker process")
+            tag, body = pipe.recv()
+            if tag != what:
+                raise AssertionError(f"server_start: {tag} for {what}")
+            return body
+
+        t0 = time.perf_counter()
+        regs = [recv(p, "registered") for p in pipes]
+        storm_s = time.perf_counter() - t0
+        mark("registered")
+        handshake = [h for r in regs for h in r["handshake_s"]]
+        register = [h for r in regs for h in r["register_s"]]
+        out["registration"] = {
+            "workers": len(register), "storm_s": storm_s,
+            "storm_s_by_process": [r["storm_s"] for r in regs],
+            "connect_retries": sum(r["retries"] for r in regs),
+            "handshake_ms_p50": _pctl(handshake, 50) * 1e3,
+            "handshake_ms_p99": _pctl(handshake, 99) * 1e3,
+            "register_rtt_ms_p50": _pctl(register, 50) * 1e3,
+            "register_rtt_ms_p99": _pctl(register, 99) * 1e3}
+        log("server_start_registration", **out["registration"],
+            wire_backend=WIRE_BACKEND, card=card)
+        if len({w for r in regs for w in r["worker_ids"]}) != len(configs):
+            raise AssertionError("server_start: worker ids repeat")
+
+        async def client_side():
+            reader, writer = await asyncio.open_connection(
+                "127.0.0.1", access.client_port)
+            conn = await auth.do_authentication(
+                reader, writer, auth.ROLE_CLIENT, auth.ROLE_SERVER,
+                access.client_key_bytes())
+
+            async def request(msg, timeout=120.0):
+                await conn.send(msg)
+                return await asyncio.wait_for(conn.recv(), timeout)
+
+            info = await request({"op": "server_info"})
+            # the 200 arrays go out back to back (the ingest thread's
+            # per-client window holds the rest on the socket) and each
+            # ack is timed from its own send; the window runs from the
+            # first submit
+            sent: list = []
+            t_window = t_sub = time.perf_counter()
+
+            async def send_all():
+                for i, desc in enumerate(submits):
+                    if i:
+                        desc = dict(desc, job_id=1)
+                    sent.append(time.perf_counter())
+                    await conn.send(attach_trace(
+                        {"op": "submit", "job": desc}, f"serve{i:04d}",
+                        sent_at=time.time()))
+
+            async def read_acks():
+                out = []
+                for i in range(len(submits)):
+                    reply = await asyncio.wait_for(conn.recv(), 300.0)
+                    out.append(time.perf_counter() - sent[i])
+                    if reply.get("op") != "submit_response":
+                        raise AssertionError(f"server_start: submit {i}: "
+                                             f"{reply}")
+                return out
+
+            _, acks = await asyncio.gather(send_all(), read_acks())
+            submit_s = time.perf_counter() - t_sub
+            mark("submitted")
+            await asyncio.sleep(max(window_s - submit_s, 0.0))
+            loop = asyncio.get_running_loop()
+            # one worker drops its connection: its tasks must requeue
+            pipes[0].send(("drop", None))
+            dropped = await loop.run_in_executor(None, recv, pipes[0],
+                                                 "dropped")
+            (server_dir / "dropped.json").write_text(json.dumps(dropped))
+            await asyncio.sleep(2.0)
+            for p in pipes:
+                p.send(("freeze", None))
+            mark("window_end")
+            frozen = [await loop.run_in_executor(None, recv, p, "frozen")
+                      for p in pipes]
+            mark("drained")
+            window = time.perf_counter() - t_window
+            finished = sum(f["finished"] for f in frozen)
+            # the server works through its backlog of worker frames (and
+            # the ticks and fan-out the drain's finishes cause) before its
+            # counts reach what the workers sent: tens of seconds here
+            t0 = time.perf_counter()
+            catch_up = []
+            while True:
+                job = (await request({"op": "job_info",
+                                      "job_ids": [1]}))["jobs"][0]
+                done = job["counters"]["finished"]
+                if not catch_up or time.perf_counter() - t0 \
+                        >= catch_up[-1][0] + 2.0:
+                    catch_up.append((round(time.perf_counter() - t0, 1),
+                                     done))
+                if done >= finished or time.perf_counter() - t0 > 300:
+                    break
+                await asyncio.sleep(0.2)
+            counts_s = time.perf_counter() - t0
+            mark("counts_equal")
+            stats = await request({"op": "server_stats"})
+            job_list = await request({"op": "job_list"})
+            workers = await request({"op": "worker_list"})
+            flight = await request({"op": "flight_recorder_dump"})
+            scrape_text = await loop.run_in_executor(
+                None, metrics.scrape, "127.0.0.1", info["metrics_port"])
+            ready = await loop.run_in_executor(
+                None, metrics.probe, "127.0.0.1", info["metrics_port"],
+                "/readyz")
+            mark("read")
+            for p in pipes:
+                p.send(("closing", None))
+            for p in pipes:
+                await loop.run_in_executor(None, recv, p, "closing")
+            t_stop = time.perf_counter()
+            t_stop_wall = time.time()
+            stop = await request({"op": "stop_server"})
+            t_stopped = time.perf_counter()
+            conn.close()
+            return dict(info=info, acks=acks, submit_s=submit_s,
+                        window_s=window, dropped=dropped, frozen=frozen,
+                        finished_sent=finished, counts_s=counts_s,
+                        catch_up=catch_up, job=job,
+                        stats=stats,
+                        job_list=job_list, workers=workers, flight=flight,
+                        scrape=scrape_text, ready=ready, stop=stop,
+                        t_stop=t_stop, t_stop_wall=t_stop_wall,
+                        stop_rtt_s=t_stopped - t_stop)
+
+        c = asyncio.run(client_side())
+        child.join(SERVE_EXIT_S - (time.perf_counter() - c["t_stop"]))
+        exit_s = time.perf_counter() - c["t_stop"]
+        mark("child_exited")
+        if child.is_alive() or child.exitcode != 0:
+            raise AssertionError(f"server_start: the server child did not "
+                                 f"exit 0 within {SERVE_EXIT_S} s of "
+                                 f"stop_server ({child.exitcode}, "
+                                 f"{exit_s:.2f} s)")
+        reports = []
+        for p in pipes:
+            p.send(("report", None))
+            reports.append(recv(p, "report"))
+        for p in procs:
+            p.join(30)
+            if p.exitcode != 0:
+                raise AssertionError(f"server_start: {p.name} exited "
+                                     f"{p.exitcode}")
+        mark("reports")
+        res = json.loads(result_path.read_text())
+        with open(str(result_path) + ".solves", "rb") as f:
+            solves = pickle.load(f)
+
+        # --- checks --------------------------------------------------------
+        fails = list(res["failures"])
+        if res["checks"].get("sanity") != "ok":
+            fails.append(f"Core.sanity_check: {res['checks'].get('sanity')}")
+        if res["threads_left"]:
+            fails.append(f"server threads left: {res['threads_left']}")
+        if res["hq_current"] or (server_dir / "hq-current").is_symlink():
+            fails.append("hq-current outlived the server")
+        wd = res["checks"]["watchdog"]
+        if wd["failures"] or wd["timeouts"] or wd["degraded_ticks"]:
+            fails.append(f"watchdog {wd}")
+        records = c["flight"].get("ticks") or []
+        solvers = {(r["solver"].get("status"), r["solver"].get("backend"))
+                   for r in records if r.get("solver")}
+        if not any(status == "ok" for status, _b in solvers) or any(
+                status not in ("ok", "idle")
+                or (status == "ok" and backend != f"device-{device.type}")
+                for status, backend in solvers):
+            fails.append(f"tick solvers {sorted(solvers, key=str)}")
+        if device.type == "cuda" and (
+                res["launches"] != res["solves"]
+                or res["resident_launches"] != res["solves"]
+                or res["gang_launches"] or not res["solves"]):
+            fails.append(f"K1 launches {res['launches']} "
+                         f"({res['resident_launches']} resident, "
+                         f"{res['gang_launches']} gang) for "
+                         f"{res['solves']} solves")
+        dropped_check = res["checks"]["dropped"]
+        if dropped_check.get("n_bad") or dropped_check.get("error") \
+                or not dropped_check.get("tasks"):
+            fails.append(f"dropped worker's tasks: {dropped_check}")
+        ids = np.concatenate([r["ids"] for r in reports])
+        inst = np.concatenate([r["instances"] for r in reports])
+        pairs = np.unique(np.stack([ids, inst]), axis=1)
+        if pairs.shape[1] != ids.size:
+            fails.append(f"{ids.size - pairs.shape[1]} (task, instance) "
+                         "pairs dispatched twice")
+        moved = {tid: i for tid, i in c["dropped"]["tasks"]}
+        redispatched = sum(1 for t, i in zip(ids.tolist(), inst.tolist())
+                           if t in moved and i > moved[t])
+        if any(f["running"] for f in c["frozen"]):
+            fails.append("the workers did not drain: "
+                         f"{[f['running'] for f in c['frozen']]}")
+        if c["job"]["counters"]["finished"] != c["finished_sent"]:
+            fails.append(f"job_info finished "
+                         f"{c['job']['counters']['finished']}, the workers "
+                         f"finished {c['finished_sent']} "
+                         f"({[f['finished'] for f in c['frozen']]}, "
+                         f"polled {c['counts_s']:.1f} s; "
+                         f"ignored by the reactor {res['ignored']})")
+        if res["ignored"]["running"] or res["ignored"]["finished"]:
+            fails.append(f"task messages ignored as stale: "
+                         f"{res['ignored']}")
+        lost = [w for r in reports for w in r["lost"]]
+        if lost:
+            fails.append(f"workers lost their connection: {lost[:5]}")
+        errors = [e for r in reports for e in r["errors"]]
+        if errors:
+            fails.append(f"simulated workers failed: {errors[:3]}")
+        # /readyz may answer 503 for a paging SLO alert (a multi-second
+        # tick 0 pages tick-latency): every other check must be ok
+        ready_checks = c["ready"][1].get("checks", {})
+        if c["stop"].get("op") != "ok" or c["ready"][0] not in (200, 503) \
+                or any(ready_checks.get(k) != "ok"
+                       for k in ("solver", "journal_plane", "ingest")):
+            fails.append(f"stop {c['stop']}, readyz {c['ready']}")
+        # every K1 launch against its plain version, on the same inputs
+        checker = GreedyCutScanModel(device=device.type, backend="device")
+        t0 = time.perf_counter()
+        for n, (kwargs, counts) in enumerate(solves):
+            try:
+                check_tick_against_plain(checker, kwargs, counts, device, n)
+            except AssertionError as e:
+                fails.append(f"solve {n}: {e}")
+                break
+        plain_check_s = time.perf_counter() - t0
+        mark("plain_checked")
+        del solves
+
+        # restore the child's journal into a fresh Server
+        async def restore():
+            kwargs = {} if device.type == "cuda" else {"device": device.type}
+            r = Server(server_dir=tmp / "restored",
+                       journal_path=server_dir / "journal", **kwargs)
+            t0 = time.perf_counter()
+            await r._open_journal()
+            seconds = time.perf_counter() - t0
+            counters = {str(jid): dict(job.counters)
+                        for jid, job in r.jobs.jobs.items()}
+            r._close_journal()
+            r.model.close()
+            return counters, seconds, r.last_restore
+
+        # the script's own heap (the earlier paths') frozen out of the
+        # collector, as a fresh `hq server start` process would not have it
+        gc.collect()
+        gc.freeze()
+        try:
+            counters, restore_s, last_restore = asyncio.run(restore())
+        finally:
+            gc.unfreeze()
+        mark("restored")
+        for jid, live in res["close_counters"].items():
+            got = counters.get(jid, {})
+            if (got.get("finished"), got.get("running")) != (
+                    live.get("finished"), live.get("running")):
+                fails.append(f"restored job {jid}: {got}, the server "
+                             f"closed its journal at {live}")
+        if fails:
+            raise AssertionError("server_start: " + "; ".join(fails))
+
+        # --- what the run shows -------------------------------------------
+        stats = c["stats"]
+        ticks = serve_summary_ticks(records)
+        window = c["window_s"]
+        fan = stats["fanout"]
+        firsts = [r["first_compute"] for r in reports if r["first_compute"]]
+        codec_server = res["codec"]
+        worker_plane = {
+            "compute_entries": int(ids.size),
+            "frames_in": sum(r["frames_in"] for r in reports),
+            "bytes_in": sum(r["bytes_in"] for r in reports),
+            "frames_out": sum(r["frames_out"] for r in reports),
+            "bytes_out": sum(r["bytes_out"] for r in reports),
+            "decode_us_per_frame": sum(r["decode_s"] for r in reports)
+            / max(sum(r["frames_in"] for r in reports), 1) * 1e6,
+            "decode_us_per_entry": sum(r["decode_s"] for r in reports)
+            / max(ids.size, 1) * 1e6,
+            "aead_open_us_per_frame": sum(r["open_s"] for r in reports)
+            / max(sum(r["frames_in"] for r in reports), 1) * 1e6,
+            "encode_us_per_frame": sum(r["encode_s"] for r in reports)
+            / max(sum(r["frames_out"] for r in reports), 1) * 1e6,
+            "first_compute_spread_s": (max(f[1] for f in firsts)
+                                       - min(f[0] for f in firsts))
+            if firsts else None,
+            "server_fanout": fan,
+            "server_encode_us_per_frame": codec_server["encode_s"]
+            / max(codec_server["encode_n"], 1) * 1e6,
+            "server_encode_bytes_per_frame": codec_server["encode_bytes"]
+            / max(codec_server["encode_n"], 1),
+            "server_decode_us_per_frame": codec_server["decode_s"]
+            / max(codec_server["decode_n"], 1) * 1e6,
+            "server_decode_bytes_per_frame": codec_server["decode_bytes"]
+            / max(codec_server["decode_n"], 1),
+            "server_frames": {"encoded": codec_server["encode_n"],
+                              "decoded": codec_server["decode_n"]},
+        }
+        lag = lag_p99_by_plane(metrics.parse_exposition(c["scrape"]))
+        summary = dict(
+            workers=len(configs), worker_processes=n_procs,
+            tasks=n_tasks, arrays=len(submits),
+            wire_backend=c["info"]["wire_backend"],
+            server_start_s=out["server_start_s"],
+            registration=out["registration"],
+            submit={"arrays": len(c["acks"]), "total_s": c["submit_s"],
+                    "ack_ms_p50": _pctl(c["acks"], 50) * 1e3,
+                    "ack_ms_p99": _pctl(c["acks"], 99) * 1e3,
+                    "ack_ms_max": max(c["acks"]) * 1e3},
+            ticks=ticks,
+            tick_stats=stats["tick"],
+            window_s=window,
+            dispatched_per_s=ids.size / window,
+            finished_per_s=c["finished_sent"] / window,
+            finished=c["finished_sent"],
+            # the server's counts behind the drained workers' reports:
+            # [seconds after the drain, finished] every 2 s
+            counts_caught_up_s=c["counts_s"], catch_up=c["catch_up"],
+            worker_plane=worker_plane,
+            lag=lag,
+            readyz={"status": c["ready"][0], "checks": ready_checks},
+            stalls=stats["stalls"]["captured"],
+            journal_commits=res.get("commit_ms"),
+            journal_plane=res.get("journal_plane"),
+            launches=res["launches"], solves=res["solves"],
+            tick_solvers=sorted(f"{s}/{b}" for s, b in solvers),
+            resident_launches=res["resident_launches"],
+            plain_check_s=plain_check_s,
+            dropped={"worker_id": c["dropped"]["worker_id"],
+                     "tasks": len(c["dropped"]["tasks"]),
+                     "running": c["dropped"]["running"],
+                     "states_at_stop": dropped_check["states"],
+                     "redispatched": redispatched},
+            job_counters=c["job"]["counters"],
+            sanity_ms=res["checks"]["sanity_ms"],
+            exit_s=exit_s, stop_rtt_s=c["stop_rtt_s"],
+            child_exit_phases_s={k: v - c["t_stop_wall"]
+                                 for k, v in res["times"].items()},
+            restore_s=restore_s,
+            restore_events=(last_restore or {}).get("tail_events"),
+            restore_held=(last_restore or {}).get("held_for_reattach"),
+            restored=counters, retracts=sum(r["retracts"] for r in reports),
+            stops_received=sum(r["stops"] for r in reports),
+            server_peak_rss_mb=res["peak_rss_mb"],
+            server_rss_at_stop_mb=res.get("rss_at_stop_mb"),
+            path_phases_s=marks,
+            seconds=time.perf_counter() - t_path)
+        log("server_start_summary", **summary, card=card)
+        return summary
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+        if child.is_alive():
+            child.kill()
+            child.join(5)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -4109,12 +5266,16 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     install_native_takes()
+    # before any process is spawned (the builds, then the server_start
+    # path's server and workers inherit it)
+    nofile_soft, nofile = raise_nofile_limit()
 
     # phase 1: the card and the builds, all started together
     card = card_info()
     kind = torch.cuda.get_device_name(0)
     log("card", card=card, kind=kind, torch=torch.__version__,
-        cuda=torch.version.cuda)
+        cuda=torch.version.cuda, nofile_soft_was=nofile_soft,
+        nofile_soft=nofile)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=4) as pool:
         builds = {name: pool.submit(load_library, name)
@@ -4319,6 +5480,19 @@ def main() -> int:
         journal_answer_us_per_record=jour["a_medians"]["answer_ms"] * 1e3
         / max(jour["a_medians"]["journal_records"], 1),
         card=card)
+    # phase 16: `hq server start` over TCP: the server in a child process,
+    # 1,024 workers and the client over the wire
+    serve = server_start_path(card, device)
+    log("server_start_vs_reactor",
+        # the reactor path drives reactor.schedule from this process with
+        # the workers' answers between ticks; here the server's own loop
+        # ticks while the workers' frames arrive
+        reactor_wall_median_ms=reactor_steady["wall_median_ms"],
+        reactor_tick0_ms=react["first_tick"]["wall_ms"],
+        server_start_tick0_ms=serve["ticks"].get("tick0_ms"),
+        server_start_steady_median_ms=serve["ticks"].get("steady_median_ms"),
+        server_start_steady_p99_ms=serve["ticks"].get("steady_p99_ms"),
+        card=card)
     log("mapping", native=True,
         default_median_ms=ticks["phases_median_ms"]["mapping"],
         server_sync_median_ms=server_summary["sync"]["phases_median_ms"]
@@ -4370,6 +5544,9 @@ def main() -> int:
             if name == "cut_scan" else 0,
             # server A's ticks and the restored server B's
             "journal_launches": jour["launches"]["cut_scan"]
+            if name == "cut_scan" else 0,
+            # the server child's scheduler loop (phase 16)
+            "server_start_launches": serve["launches"]
             if name == "cut_scan" else 0,
             # a fused reactor tick without gang rows launches plain K1
             "reactor_fused_launches": react_fused["launches"]["cut_scan_gang"]

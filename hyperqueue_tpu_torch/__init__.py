@@ -13,5 +13,13 @@ Layout (mirrors the JAX package's):
   models/           — the greedy cut-scan model (padding, residency) and
                       its sharded form (multichip)
   convert           — tick state from plain data
+  server/           — the server: data model, reactor, journal, planes
+  transport/        — frames, the msgpack codec, auth and the wire AEAD
   csrc/             — CUDA C++ sources, built at first use into _build/
 """
+
+# the handshake and `hq server info` send these; a JAX worker or client
+# checks them against its own (the same values as the JAX package's)
+__version__ = "0.3.0"
+
+PROTOCOL_VERSION = 2  # v2: shared compute-message bodies + never-restart=-1

@@ -383,7 +383,7 @@ class Journal:
                 out.write(_frame(payload, 2))
                 kept += 1
                 # the chaos plane's "mid-gc" kill site goes here; it comes
-                # with `hq server start` (ROADMAP Queue 1 item 8)
+                # with ROADMAP Queue 1 item 10
             out.flush()
             os.fsync(out.fileno())
         return kept, dropped

@@ -317,17 +317,17 @@ def write_snapshot(journal_path: Path, state: dict) -> Path:
         half = len(payload) // 2
         f.write(payload[:half])
         # the chaos plane's "mid-snapshot-write" kill site goes here
-        # (ROADMAP Queue 1 item 8)
+        # (ROADMAP Queue 1 item 10)
         f.write(payload[half:])
         f.write(_LEN.pack(zlib.crc32(payload)))
         f.flush()
         os.fsync(f.fileno())
-    # the "pre-rename" kill site (ROADMAP Queue 1 item 8)
+    # the "pre-rename" kill site (ROADMAP Queue 1 item 10)
     if snap.exists():
         os.replace(snap, prev)
     os.replace(tmp, snap)
     fsync_dir(snap.parent)
-    # the "post-rename" kill site (ROADMAP Queue 1 item 8)
+    # the "post-rename" kill site (ROADMAP Queue 1 item 10)
     return snap
 
 

@@ -67,8 +67,22 @@ class _SolveWorker:
         self._thread.start()
 
     def _loop(self) -> None:
+        from hyperqueue_tpu_torch.utils import profiler
+
+        # sampling-profiler plane label: deadlined solves run here, so
+        # solver CPU attributes to the `solve` plane even while the
+        # reactor thread is parked in done.wait(). The label is not
+        # unregistered when a worker is abandoned — a stranded worker
+        # keeps soaking CPU inside the solve, and THAT is what the
+        # profile must show; the thread-name prefix fallback re-labels any
+        # replacement worker anyway. A stopped worker drops its label.
+        profiler.register_plane("solve")
         while True:
-            fn, box, done = self._requests.get()
+            request = self._requests.get()
+            if request is None:
+                profiler.unregister_plane()
+                return
+            fn, box, done = request
             try:
                 box["result"] = fn()
             except BaseException as e:  # noqa: BLE001 - ferried to the caller
@@ -87,6 +101,12 @@ class _SolveWorker:
         if "error" in box:
             raise box["error"]
         return box["result"]
+
+    def stop(self, timeout: float = 5.0) -> None:
+        """End the thread after the solve it runs, if any (a thread
+        wedged inside a solve stays abandoned, as a daemon)."""
+        self._requests.put(None)
+        self._thread.join(timeout)
 
 
 class SolverWatchdog:
@@ -166,6 +186,13 @@ class SolverWatchdog:
         self.degraded_ticks = 0
         self.rearms = 0
         self.skipped_ticks = 0
+
+    def close(self) -> None:
+        """Stop the solve thread (the server's shutdown); a later solve
+        starts a fresh one."""
+        if self._worker is not None:
+            self._worker.stop()
+            self._worker = None
 
     def __getattr__(self, name):
         # only reached for attributes not set on the watchdog itself

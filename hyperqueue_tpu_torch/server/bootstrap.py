@@ -1,23 +1,25 @@
-"""Server process: the parts that feed and read the event journal.
+"""Server process: bootstrap, RPC planes, scheduler loop, event bridge.
 
-The port's copy of the JAX package's `server/bootstrap.py`, so far its
-durability plane: `CommSender` (the reactor's Comm), `EventBridge` (the
-reactor's EventSink, which folds every task and worker event into the jobs
-layer, the trace store, the usage ledger and the journal),
-`Server.__init__` with the planes the port holds, `emit_event` and the
-journal's group commit, `compact_journal` (snapshot + GC), the submit path
-(`_client_submit`, lazy array chunks at or above `lazy_array_threshold`)
-and the journal's open and close (`_open_journal`, `_close_journal`: the
-journal blocks of the JAX `start()` and `stop()`).
+The port's copy of the JAX package's `server/bootstrap.py`: the listeners
+(the worker plane on the loop, the client plane on the ingest thread or
+in the loop), the fan-out sender pool, the loops (scheduler, ingest
+drain, reapers, journal flush and compaction, SLO, loop lag), every
+client RPC of a single server, the metrics endpoint, the SLO engine and
+the sampling profiler. The journal's open and close are `_open_journal`
+and `_close_journal`, which `start()` and `shutdown()` call.
 
-The network planes, the loops, `start()` and the rest of `Server` come
-with `hq server start` (ROADMAP Queue 1 item 8); `start()` raises until
-then, and so does a constructor keyword whose plane is not here yet.
+What belongs to autoalloc, federation, leases, ownership and the chaos
+plane waits for ROADMAP Queue 1 item 10: those RPCs answer an error
+naming it, and a constructor keyword (or an `HQ_FAULT_PLAN` at start)
+that needs it refuses. The in-memory transport of the simulator waits
+for item 11.
 
-Reference: crates/hyperqueue/src/server/bootstrap.rs (init_hq_server).
-The whole server is one asyncio event loop: state is mutated only from
-reactor handlers running on this loop, so the scheduler snapshot needs no
-locks.
+Reference: crates/hyperqueue/src/server/bootstrap.rs (init_hq_server),
+crates/tako/src/internal/server/rpc.rs (connection handling) and
+scheduler/main.rs (Notify-woken, min-delay-throttled scheduler loop). The
+whole server is one asyncio event loop — the reference's deliberately
+single-threaded design carried over: state is mutated only from reactor
+handlers running on this loop, so the scheduler snapshot needs no locks.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import socket
 import time
 from pathlib import Path
 
+from hyperqueue_tpu_torch import __version__
 from hyperqueue_tpu_torch.events.journal import Journal
 from hyperqueue_tpu_torch.ids import task_id_job, task_id_task, make_task_id
 from hyperqueue_tpu_torch.models.greedy import GreedyCutScanModel
@@ -41,23 +44,50 @@ from hyperqueue_tpu_torch.server.accounting import (
     AccountingLedger,
 )
 from hyperqueue_tpu_torch.server.core import Core
+from hyperqueue_tpu_torch.server.ingest import (
+    INGEST_CHUNKS,
+    INGEST_TASKS,
+    IngestPlane,
+)
+from hyperqueue_tpu_torch.server.fanout import SendPool
 from hyperqueue_tpu_torch.server.jobs import JobManager, JobTaskInfo
 from hyperqueue_tpu_torch.server.journal_plane import JournalPlane
 from hyperqueue_tpu_torch.server.lazy import ArrayChunk
 from hyperqueue_tpu_torch.server.protocol import rqv_from_wire, submit_record
 from hyperqueue_tpu_torch.scheduler.queues import encode_sched_priority
 from hyperqueue_tpu_torch.scheduler.watchdog import SolverWatchdog
-from hyperqueue_tpu_torch.server.task import Task
+from hyperqueue_tpu_torch.server.task import Task, TaskState
+from hyperqueue_tpu_torch.server.worker import Worker, WorkerConfiguration
+from hyperqueue_tpu_torch.transport.aead import WIRE_BACKEND
+from hyperqueue_tpu_torch.utils import profiler
 from hyperqueue_tpu_torch.utils.metrics import REGISTRY
+from hyperqueue_tpu_torch.utils.slo import SloEngine
+from hyperqueue_tpu_torch.utils.trace import TRACER
+from hyperqueue_tpu_torch.transport.auth import (
+    ROLE_CLIENT,
+    ROLE_SERVER,
+    ROLE_WORKER,
+    AuthError,
+    Connection,
+    do_authentication,
+)
+from hyperqueue_tpu_torch.utils import serverdir
 from hyperqueue_tpu_torch.utils import clock
 
 logger = logging.getLogger("hq.server")
 
 SCHEDULE_MIN_DELAY = 0.01  # seconds; reference msd: 500ms prod / 20ms in benches
+# forced worker overview cadence while a dashboard/stream listens
+# (reference DEFAULT_WORKER_OVERVIEW_INTERVAL, server/worker.rs:63)
+OVERVIEW_OVERRIDE_INTERVAL = 2.0
 
-# the item of ROADMAP Queue 1 that brings the rest of the server
-_ITEM_8 = "ROADMAP Queue 1 item 8 (`hq server start`)"
-
+# module-level instrument: _process_worker_message is the server's hottest
+# message path, so the get-or-create lookup must not run per message
+_WORKER_MESSAGES_TOTAL = REGISTRY.counter(
+    "hq_worker_messages_total",
+    "uplink messages processed on the worker plane",
+    labels=("op",),
+)
 _SUBSCRIBERS_DROPPED = REGISTRY.counter(
     "hq_subscribers_dropped_total",
     "subscribe-RPC consumers dropped because their bounded event queue "
@@ -67,10 +97,35 @@ _SUB_EVENTS_DROPPED = REGISTRY.counter(
     "hq_sub_events_dropped_total",
     "events not delivered to subscribers whose queue had overflowed",
 )
-# queue-age distribution backing the queue-age SLO: how long each
-# dispatched task sat READY before being assigned. Buckets stretch past the
-# default latency decades — queue ages are minutes on a saturated cluster,
-# not milliseconds.
+_REACTOR_STALLS = REGISTRY.counter(
+    "hq_reactor_stalls_total",
+    "reactor stall-watchdog captures: a work class held the event loop "
+    "past --stall-budget (flight recorder + trace dumped)",
+    labels=("plane",),
+)
+# graceful drain: counted under the autoalloc family because the
+# elasticity controller is the main driver; `source` separates manual
+# `hq worker stop --drain` from controller scale-down
+_DRAINS_TOTAL = REGISTRY.counter(
+    "hq_autoalloc_drains_total",
+    "graceful worker drains initiated (masked from the solve, running "
+    "tasks allowed to finish)",
+    labels=("source",),
+)
+_DRAIN_ESCALATIONS_TOTAL = REGISTRY.counter(
+    "hq_autoalloc_drain_escalations_total",
+    "drains that hit --drain-timeout and escalated to a clean stop "
+    "(running tasks requeue without a crash charge — zero task loss)",
+)
+_DRAIN_SECONDS = REGISTRY.histogram(
+    "hq_autoalloc_drain_seconds",
+    "drain latency: drain start to the worker being told to stop",
+    buckets=(0.1, 0.5, 1.0, 2.0, 5.0, 10.0, 30.0, 60.0, 300.0),
+)
+# queue-age distribution backing the queue-age SLO (utils/slo.py): how
+# long each dispatched task sat READY before being assigned. Buckets
+# stretch past the default latency decades — queue ages are minutes on
+# a saturated cluster, not milliseconds.
 _TASK_QUEUE_AGE = REGISTRY.histogram(
     "hq_task_queue_age_seconds",
     "ready -> assigned latency of dispatched tasks",
@@ -78,6 +133,15 @@ _TASK_QUEUE_AGE = REGISTRY.histogram(
              1800.0, 7200.0),
 )
 
+# default deadline for a drain nobody bounded explicitly
+DRAIN_TIMEOUT_DEFAULT = 120.0
+
+# the items of ROADMAP Queue 1 that bring what this server refuses
+_ITEM_10 = (
+    "ROADMAP Queue 1 item 10 (autoalloc, federation, leases, ownership "
+    "and the chaos plane)"
+)
+_ITEM_11 = "ROADMAP Queue 1 item 11 (the deterministic simulator)"
 
 # reusable/stateless, so one instance serves every frame
 _NOOP_BATCH = contextlib.nullcontext()
@@ -202,6 +266,28 @@ class CommSender:
     def ask_for_scheduling(self) -> None:
         self.scheduling_event.set()
 
+
+
+class _Subscriber:
+    """One subscribe-RPC consumer: a BOUNDED event queue plus its filter.
+
+    The reactor never blocks on a subscriber: events are put_nowait into
+    the queue, and a full queue marks the subscriber dead (dropped with a
+    counter) instead of growing without bound — the backpressure contract
+    the autoscaler feed and `hq top` rely on.
+    """
+
+    __slots__ = ("queue", "prefixes", "sample_interval", "dropped", "dead")
+
+    def __init__(self, prefixes: tuple, sample_interval: float,
+                 buffer: int = 4096):
+        self.queue: asyncio.Queue = asyncio.Queue(
+            maxsize=min(max(int(buffer), 64), 65536)
+        )
+        self.prefixes = prefixes
+        self.sample_interval = sample_interval
+        self.dropped = 0
+        self.dead = False
 
 
 class EventBridge:
@@ -566,21 +652,23 @@ class Server:
         # caller asks for the CPU, as everywhere in the port).
         #
         # Keywords whose plane is not ported yet are stored as the JAX
-        # server stores them; a value that would need that plane before
-        # start() refuses here instead of being ignored.
+        # server stores them; a value that would need that plane refuses
+        # here instead of being ignored.
         unported = {
-            "metrics_port": metrics_port is not None,
             "federation_root": federation_root is not None,
             "shard_count": shard_count > 1,
             "promoted": bool(promoted),
             "failover_watch": bool(failover_watch),
-            "memory_transport": bool(memory_transport),
         }
         refused = [name for name, used in unported.items() if used]
         if refused:
             raise NotImplementedError(
                 f"Server({', '.join(refused)}=...) needs a plane that comes "
-                f"with {_ITEM_8}"
+                f"with {_ITEM_10}"
+            )
+        if memory_transport:
+            raise NotImplementedError(
+                f"Server(memory_transport=...) comes with {_ITEM_11}"
             )
         self.server_dir = Path(server_dir)
         self.host = host or socket.gethostname()
@@ -641,20 +729,26 @@ class Server:
 
             self.core.tick_pipeline = TickPipeline()
         # flight recorder: ring of the last N per-tick DecisionRecords +
-        # control-plane events (`--flight-recorder-ticks`, 0 = off)
+        # control-plane events (`--flight-recorder-ticks`, 0 = off),
+        # dumped by `hq server flight-recorder dump` and joined by
+        # `hq task explain` / `hq server trace export`
         from hyperqueue_tpu_torch.utils.flight import FlightRecorder
-        from hyperqueue_tpu_torch.utils.trace import TaskTraceStore
+        from hyperqueue_tpu_torch.utils.trace import LagTracker, TaskTraceStore
 
         self.core.flight = FlightRecorder(flight_recorder_ticks)
         # per-task distributed traces (`hq task trace`): bounded store,
         # `--task-trace-capacity 0` disables the whole plane (no store, no
         # trace headers on compute messages, no worker stamps)
         self.core.traces = TaskTraceStore(task_trace_capacity)
-        # reactor loop-lag tracking + stall watchdog: the loop-lag tracker
-        # comes with the server loop (ROADMAP Queue 1 item 8); until then
-        # the journal plane gets lag=None
-        self.lag = None
-        # continuous profiling plane (its sampler is item 8's)
+        # reactor loop-lag tracking + stall watchdog: every work class
+        # (rpc/journal/solve/fanout) and the loop's own sleep-overshoot
+        # feed hq_reactor_lag_seconds; an observation over --stall-budget
+        # seconds auto-captures a flight-recorder + trace dump
+        # (`--stall-budget 0` keeps the histograms but never captures)
+        self.lag = LagTracker()
+        # continuous profiling plane: always-on sampling profiler at
+        # --profile-hz (0 = off); the profiler itself refuses simulated
+        # clocks
         self.profile_hz = float(profile_hz)
         self._profiler_started = False
         self.stall_budget = float(stall_budget)
@@ -662,16 +756,23 @@ class Server:
         self.stalls_captured = 0
         self.last_stall: dict | None = None
         self._last_stall_capture = 0.0
-        # subscribe-RPC consumers: bounded per-subscriber queues (the
-        # subscribe plane is item 8's; emit_event already delivers to them)
-        self._subscribers: list = []
-        # client-connection plane (server/ingest.py in the JAX package):
-        # "thread" moves accept/auth/framing/decode off the reactor loop;
-        # "reactor" keeps the in-loop handling
+        # subscribe-RPC consumers: bounded per-subscriber queues; slow
+        # consumers are dropped (counter), never allowed to grow the queue
+        # without bound (the autoscaler/`hq top` feed)
+        self._subscribers: list[_Subscriber] = []
+        # client-connection plane (server/ingest.py): "thread" (default)
+        # moves accept/auth/framing/decode off the reactor loop onto a
+        # dedicated thread with a batched handoff; "reactor" keeps the
+        # in-loop handling (operational escape hatch)
         if client_plane not in ("thread", "reactor"):
             raise ValueError(f"unknown client plane {client_plane!r}")
         self.client_plane = client_plane
-        self.memory_transport = bool(memory_transport)
+        # in-memory transport (the simulator's, ROADMAP item 11): refused
+        # above, so always False here; kept for the JAX package's guards
+        self.memory_transport = False
+        # connection-handler tasks spawned by accept_worker/accept_client
+        # (TCP handlers belong to asyncio.Server), tracked so they can be
+        # cancelled at shutdown
         self._conn_tasks: set = set()
         # journal plane (server/journal_plane.py): "thread" (default)
         # moves group commit + fsync onto a commit thread with
@@ -681,14 +782,18 @@ class Server:
             raise ValueError(f"unknown journal plane {journal_plane!r}")
         self.journal_plane = journal_plane
         self.jplane: JournalPlane | None = None
-        # fan-out plane: N sender threads running the encode + AEAD-seal
-        # half of every downlink send (its SendPool is item 8's)
+        # fan-out plane (server/fanout.py): N sender threads running the
+        # msgpack-encode + AEAD-seal half of every downlink send; 0 keeps
+        # encodes inline on the owning loop
         self.fanout_senders = max(int(fanout_senders), 0)
-        self.sendpool = None
+        self.sendpool = SendPool(self.fanout_senders)
         self.ingest_window = ingest_window
         self.ingest_handoff_max = ingest_handoff_max
-        self.ingest_plane = None
+        self.ingest_plane: IngestPlane | None = None
         self._handoff_wake = asyncio.Event()
+        # streaming-op tasks spawned by the ingest drain loop, cancelled
+        # at shutdown (the in-loop plane ties their lifetime to the conn
+        # task)
         self._client_tasks: set = set()
         # arrays at/above this size are stored as lazy chunks
         # (server/lazy.py) instead of per-task records; 0 disables
@@ -700,7 +805,8 @@ class Server:
         self._stream_jobs: dict[str, int] = {}
         # federation: this server owns shard `shard_id` of a
         # `shard_count`-way static job-id partition rooted at
-        # `federation_root` (None = classic standalone server)
+        # `federation_root` (None = classic standalone server; the only
+        # kind the port runs until item 10, see the refusal above)
         if not (0 <= shard_id < max(shard_count, 1)):
             raise ValueError(
                 f"shard id {shard_id} outside 0..{shard_count - 1}"
@@ -712,11 +818,10 @@ class Server:
         )
         self.lease_timeout = float(lease_timeout)
         self.promoted = promoted
-        self.lease = None
-        self.fenced = False
         self.failover_watch = failover_watch
-        self._watcher = None
-        # graceful drains in flight: wid -> {deadline, started, source}
+        # graceful drains in flight: wid -> {deadline, started, source};
+        # the drain reaper stops each worker once it settles idle or the
+        # deadline escalates the drain to a clean stop
         self._draining: dict[int, dict] = {}
         # cross-shard worker lending: wid -> target shard
         self._lent_workers: dict[int, int] = {}
@@ -732,12 +837,13 @@ class Server:
         self.jobs = JobManager()
         self.comm = CommSender()
         self.events = EventBridge(self)
-        # the usage ledger folds the SAME records the journal persists
-        # (live emit, replay, and migration import all call observe —
-        # bit-equal by construction); the SLO engine that judges the
-        # metrics registry is item 8's
+        # production health plane: the usage ledger folds the SAME
+        # records the journal persists (live emit, replay, and migration
+        # import all call observe — bit-equal by construction); the SLO
+        # engine judges the metrics registry on sliding windows from
+        # _slo_loop and journals alert transitions
         self.accounting = AccountingLedger()
-        self.slo = None
+        self.slo = SloEngine()
         # lazy materialization needs the CURRENT job manager (restore may
         # swap it out on a snapshot fallback): bind a getter, not the object
         self.core.lazy.jobs_getter = lambda: self.jobs
@@ -802,7 +908,9 @@ class Server:
             rearm_ticks=solver_rearm_ticks,
         )
         self.scheduler_kind = scheduler
-        self.access = None
+        self.access: serverdir.AccessRecord | None = None
+        # the allocation service comes with item 10; the worker plane and
+        # the debug dump read it as absent
         self.autoalloc = None
         self.journal = None
         self.journal_path = journal_path
@@ -810,34 +918,199 @@ class Server:
         self._job_waiters: dict[int, list[asyncio.Event]] = {}
         self._event_listeners: list[asyncio.Queue] = []
         self._event_seq = 0
+        # dashboards/streams that asked for live hardware overviews; while
+        # any is attached, workers are forced onto a 2 s overview interval
+        # (reference SetOverviewIntervalOverride, control.rs:180-203,
+        # DEFAULT_WORKER_OVERVIEW_INTERVAL server/worker.rs:63)
         self._overview_listeners = 0
-        self._worker_conns: dict = {}
+        self._worker_conns: dict[int, Connection] = {}
         self._tasks: list[asyncio.Task] = []
-        self._servers: list = []
+        self._servers: list[asyncio.base_events.Server] = []
         self.started_at = clock.now()
-        # Prometheus exposition endpoint (its server is item 8's)
+        # Prometheus exposition endpoint (utils/metrics.py): None = off
+        # (the default — recording still happens, it is just not served),
+        # 0 = ephemeral port, resolved into self.metrics_port at start()
+        # and surfaced through `hq server info`. The endpoint is
+        # UNAUTHENTICATED (Prometheus convention) — metrics_host lets a
+        # deployment bind 127.0.0.1 behind a scraping sidecar.
         self.requested_metrics_port = metrics_port
         self.metrics_host = metrics_host
         self.metrics_port: int | None = None
         self._metrics_server = None
         self._metrics_hook = None
+        # hq_worker_* metric names currently fanned out from piggybacked
+        # worker samples (cleared + rebuilt on every scrape)
         self._piggyback_names: set[str] = set()
 
     # ------------------------------------------------------------------
-    async def start(self):
-        """The listeners, the loops and the access record come with
-        `hq server start`; until then a caller opens the journal with
-        `_open_journal` and drives the reactor itself."""
-        raise NotImplementedError(f"Server.start() comes with {_ITEM_8}")
+    async def start(self) -> serverdir.AccessRecord:
+        if os.environ.get("HQ_FAULT_PLAN"):
+            # a fault plan names chaos rules this server cannot run (item 10);
+            # running without them would pass off a clean run as a chaos
+            # run, so refuse before anything of the process changes
+            raise NotImplementedError(
+                f"HQ_FAULT_PLAN (the chaos plane) comes with {_ITEM_10}"
+            )
 
-    async def _open_journal(self, server_uid: str) -> None:
-        """The journal block of the JAX `start()`: restore from the
-        snapshot + journal pair when there is one (off the event loop),
-        open the appender, start the commit thread (`journal_plane=
-        "thread"`), and journal this boot's `server-uid` record (the JAX
-        `start()` writes it once the access record names the uid; item 8's
-        `start()` calls this at that point). Must run on the loop that will
-        run the server: the journal plane releases its callbacks there."""
+        # GC tuning: a tick allocates tens of thousands of short-lived
+        # objects (assignments, messages); default thresholds fire gen-0
+        # collections mid-tick and add ~30 ms pauses (measured as 20 ms ->
+        # 50 ms tick spikes at 1M x 1k). Raised thresholds collect cycles in
+        # bigger, rarer batches; startup state (including a restored
+        # journal's task graph) is frozen at the END of start().
+        import gc
+
+        gc.set_threshold(100_000, 50, 25)
+
+        # the journal block: restore, appender, commit thread (the uid
+        # record is journaled below, once the access record names it)
+        await self._open_journal()
+
+        # pre-shared deployment (reference generate-access + serverdir.rs):
+        # an access file pins ports and both plane keys so workers/clients on
+        # other sites can be configured before the server starts
+        preshared: serverdir.AccessRecord | None = None
+        if self.access_file is not None:
+            import json as _json
+
+            with open(self.access_file) as f:
+                raw = _json.load(f)
+            # the server needs BOTH planes: a split client-only/worker-only
+            # file (generate-access --client-file/--worker-file) would
+            # silently disable auth + bind an ephemeral port on the missing
+            # plane — reject it loudly (reference: only FullAccessRecord is
+            # accepted by server start)
+            missing = [p for p in ("client", "worker") if p not in raw]
+            if missing:
+                raise ValueError(
+                    f"access file {self.access_file} is a split "
+                    f"{'/'.join(sorted(set(('client', 'worker')) - set(missing)))}"
+                    f"-only record; `server start --access-file` needs the "
+                    f"full record (missing plane: {', '.join(missing)})"
+                )
+            preshared = serverdir.AccessRecord.from_json(raw)
+            self.client_port = preshared.client_port
+            self.worker_port = preshared.worker_port
+
+        worker_srv = await asyncio.start_server(
+            self._handle_worker_conn, "0.0.0.0", self.worker_port
+        )
+        self._servers = [worker_srv]
+        self.worker_port = worker_srv.sockets[0].getsockname()[1]
+        if self.client_plane == "thread":
+            # decoupled connection plane (server/ingest.py): client
+            # sockets live on their own thread; decoded messages cross
+            # into this loop through the batched handoff drained by
+            # _ingest_drain_loop
+            self.ingest_plane = IngestPlane(
+                lambda: (
+                    self.access.client_key_bytes() if self.access else None
+                ),
+                window=self.ingest_window,
+                handoff_max=self.ingest_handoff_max,
+                sendpool=self.sendpool,
+            )
+            self.client_port = self.ingest_plane.start(
+                "0.0.0.0", self.client_port,
+                asyncio.get_running_loop(), self._handoff_wake.set,
+            )
+        else:
+            client_srv = await asyncio.start_server(
+                self._handle_client_conn, "0.0.0.0", self.client_port
+            )
+            self._servers.append(client_srv)
+            self.client_port = client_srv.sockets[0].getsockname()[1]
+
+        self._metrics_hook = self._collect_metrics
+        REGISTRY.add_collect_hook(self._metrics_hook)
+        if self.requested_metrics_port is not None:
+            from hyperqueue_tpu_torch.utils.metrics import start_metrics_server
+
+            self._metrics_server, self.metrics_port = (
+                await start_metrics_server(
+                    REGISTRY, self.requested_metrics_port,
+                    host=self.metrics_host,
+                    probes={"/healthz": self._probe_healthz,
+                            "/readyz": self._probe_readyz},
+                )
+            )
+            logger.info(
+                "metrics endpoint on http://%s:%d/metrics "
+                "(+ /healthz /readyz)",
+                self.metrics_host, self.metrics_port,
+            )
+
+        # continuous profiling plane: the reactor thread labels itself,
+        # then the sampler starts. The profiler is real-wall-clock
+        # telemetry and must stay inert under a virtual clock (its own
+        # is_simulated() guard refuses to start there).
+        if self.profile_hz > 0:
+            profiler.register_plane("reactor")
+            self._profiler_started = profiler.start_profiler(self.profile_hz)
+            if self._profiler_started:
+                logger.info(
+                    "sampling profiler on at %.3g Hz (--profile-hz)",
+                    self.profile_hz,
+                )
+
+        instance_dir = serverdir.create_instance_dir(self.server_dir)
+        self._instance_dir = instance_dir
+        if preshared is not None:
+            self.access = preshared
+        else:
+            self.access = serverdir.generate_access(
+                self.host,
+                self.client_port,
+                self.worker_port,
+                disable_client_auth=self.disable_client_auth,
+                disable_worker_auth=self.disable_worker_auth,
+            )
+        serverdir.store_access(instance_dir, self.access)
+        self._journal_server_uid(self.access.server_uid)
+
+        self._tasks.append(self._spawn_loop(self._scheduler_loop))
+        self._tasks.append(self._spawn_loop(self._heartbeat_reaper))
+        self._tasks.append(self._spawn_loop(self._drain_reaper))
+        self._tasks.append(self._spawn_loop(self._loop_lag_monitor))
+        self._tasks.append(self._spawn_loop(self._slo_loop))
+        if self.ingest_plane is not None:
+            self._tasks.append(self._spawn_loop(self._ingest_drain_loop))
+        if self.journal is not None and (
+            self.journal_flush_period > 0 or self.journal_fsync == "periodic"
+        ):
+            self._tasks.append(self._spawn_loop(self._journal_flush_loop))
+        if self.journal is not None and (
+            self.journal_compact_interval > 0
+            or self.journal_compact_threshold > 0
+        ):
+            self._tasks.append(self._spawn_loop(self._journal_compact_loop))
+        if self.reattach_pending:
+            # journal restore held maybe-running tasks for their pre-crash
+            # workers; requeue whatever is unclaimed when the window closes
+            self._tasks.append(self._spawn_loop(self._reattach_reaper))
+        logger.info(
+            "server started uid=%s client=%s:%d worker=%s:%d",
+            self.access.server_uid,
+            self.host,
+            self.client_port,
+            self.host,
+            self.worker_port,
+        )
+        # freeze everything allocated so far (including a restored journal's
+        # task graph) out of the GC generations: old-gen collections then
+        # never re-traverse startup state mid-tick
+        gc.collect()
+        gc.freeze()
+        return self.access
+
+    async def _open_journal(self, server_uid: str | None = None) -> None:
+        """The journal block of `start()`: restore from the snapshot +
+        journal pair when there is one (off the event loop), open the
+        appender and start the commit thread (`journal_plane="thread"`).
+        With `server_uid`, also journal this boot's `server-uid` record
+        (`start()` does that later, once the access record names the uid).
+        Must run on the loop that will run the server: the journal plane
+        releases its callbacks there."""
         if self.journal_path is None:
             return
         from hyperqueue_tpu_torch.events import snapshot as snapshot_mod
@@ -857,7 +1130,7 @@ class Server:
                 None, restore_from_journal, self
             )
             # the promoted successor's failover annotation on open traces
-            # comes with the federation plane (item 8)
+            # comes with the federation plane (item 10)
         self.journal.open_for_append()
         if self.journal_plane == "thread":
             self.jplane = JournalPlane(
@@ -869,24 +1142,516 @@ class Server:
                 on_fatal=self.stop,
             )
             self.jplane.start()
-        # record this instance's uid in the journal so a future restore
-        # can verify that reattaching workers come from this lineage
+        if server_uid is not None:
+            self._journal_server_uid(server_uid)
+
+    def _journal_server_uid(self, server_uid: str) -> None:
+        """Record this instance's uid in the journal so a future restore
+        can verify that reattaching workers come from this lineage."""
+        if self.journal is None:
+            return
         self.journal_uids.add(server_uid)
         self.n_boots += 1
         self.emit_event("server-uid", {"server_uid": server_uid})
 
     def _close_journal(self) -> None:
-        """The journal block of the JAX `stop()` (its shutdown): drain +
-        join the commit thread, then close the appender; a plane that
-        failed to drain keeps the appender open rather than closing the
-        file under a still-writing thread."""
+        """The journal block of `shutdown()`: drain + join the commit
+        thread, then close the appender; a plane that failed to drain
+        keeps the appender open rather than closing the file under a
+        still-writing thread."""
         plane_drained = self.jplane.stop() if self.jplane is not None \
             else True
         if self.journal is not None and plane_drained:
             self.journal.close()
 
+    # --- memory transport (deterministic simulator) ---------------------
+    def accept_worker(self, reader, writer) -> "asyncio.Task":
+        """Inject a worker connection over an in-memory stream pair —
+        the memory-transport equivalent of a TCP accept on the worker
+        port.  Runs the REAL connection handler (auth handshake,
+        register/reattach, sender + recv loops)."""
+        return self._track_conn(self._handle_worker_conn(reader, writer))
+
+    def accept_client(self, reader, writer) -> "asyncio.Task":
+        """Inject a client connection (memory-transport equivalent of a
+        TCP accept on the client port; in-loop plane)."""
+        return self._track_conn(self._handle_client_conn(reader, writer))
+
+    def _track_conn(self, coro) -> "asyncio.Task":
+        task = asyncio.get_running_loop().create_task(coro)
+        self._conn_tasks.add(task)
+        task.add_done_callback(self._conn_tasks.discard)
+        return task
+
+    async def run_until_stopped(self) -> None:
+        await self._stop_event.wait()
+        await self.shutdown()
+
     def stop(self) -> None:
         self._stop_event.set()
+
+    async def shutdown(self) -> None:
+        # (the allocation service, the failover watcher and the lease
+        # of item 10 stop here in the JAX package; a standalone server
+        # holds none of them)
+        for wid in list(self._worker_conns):
+            self.comm.send_stop(wid)
+        await asyncio.sleep(0.05)
+        for t in self._tasks:
+            t.cancel()
+        for t in list(self._client_tasks):
+            t.cancel()
+        for t in list(self._conn_tasks):
+            t.cancel()
+        for srv in self._servers:
+            srv.close()
+        if self.ingest_plane is not None:
+            self.ingest_plane.stop()
+        if self._metrics_server is not None:
+            self._metrics_server.close()
+        if self._metrics_hook is not None:
+            REGISTRY.remove_collect_hook(self._metrics_hook)
+        if self._profiler_started:
+            profiler.stop_profiler()
+            self._profiler_started = False
+        for conn in self._worker_conns.values():
+            conn.close()
+        self.sendpool.stop()
+        # the solve thread ends with the server (the JAX package leaves it
+        # parked as a daemon)
+        self.model.close()
+        self._close_journal()
+        # a clean stop retires the hq-current symlink so clients see "no
+        # server" instead of a dead address (reference server stop removes
+        # the symlink; test_server.py delete_symlink_after_server_stop).
+        # Only if it still points at THIS instance — a newer server owns it
+        # otherwise.
+        link = self.server_dir / serverdir.CURRENT_LINK
+        try:
+            instance_dir = getattr(self, "_instance_dir", None)
+            if (
+                instance_dir is not None
+                and link.is_symlink()
+                and (self.server_dir / os.readlink(link)).resolve()
+                == instance_dir.resolve()
+            ):
+                link.unlink()
+        except OSError:
+            pass  # cleanup is best-effort; a dead link is still harmless
+
+    def _federation_block(self) -> dict | None:
+        """The federation section of `hq server info`/`stats`: None on a
+        standalone server, the only kind the port runs (item 10)."""
+        return None
+
+    def _waits_for_item_10(self, msg: dict) -> dict:
+        """The answer of an RPC whose plane comes with item 10 (alloc
+        queues, worker lending, live migration)."""
+        return {"op": "error",
+                "message": f"{msg.get('op')!r} comes with {_ITEM_10}"}
+
+    # --- health plane ---------------------------------------------------
+    async def _slo_loop(self) -> None:
+        """Periodic SLO evaluation (utils/slo.py): judge the metrics
+        registry on sliding windows and JOURNAL every alert transition —
+        firing/resolved ride the subscribe plane and the FleetFeed like
+        any other event, and a restored server re-derives alert state
+        from fresh windows rather than trusting stale ones."""
+        while True:
+            await asyncio.sleep(self.slo.interval)
+            for transition in self.slo.evaluate():
+                self.emit_event("slo-alert", transition)
+
+    def _probe_healthz(self) -> tuple[bool, dict]:
+        """Liveness: the probe answering at all IS the signal (it runs
+        on the reactor loop — a wedged loop cannot reply). Only a fatal
+        journal-plane death marks a live process unhealthy: the process
+        exists but has lost its durability guarantee."""
+        if self.jplane is not None and self.jplane._thread is not None \
+                and not self.jplane._thread.is_alive():
+            return False, {"reason": "journal plane dead"}
+        return True, {"uptime": round(clock.now() - self.started_at, 3)}
+
+    def _probe_readyz(self) -> tuple[bool, dict]:
+        """Readiness: should an orchestrator (or the standby/rebalancer)
+        route work here? Every check is O(1) reads of live state."""
+        checks: dict[str, str] = {}
+        ok = True
+        if self.jplane is not None:
+            alive = (
+                self.jplane._thread is not None
+                and self.jplane._thread.is_alive()
+            )
+            checks["journal_plane"] = "ok" if alive else "dead"
+            ok = ok and alive
+        armed = bool(self.model.stats().get("armed"))
+        checks["solver"] = "ok" if armed else "degraded"
+        ok = ok and armed
+        if self.ingest_plane is not None:
+            depth = len(self.ingest_plane.handoff)
+            below = depth < self.ingest_handoff_max
+            checks["ingest"] = (
+                "ok" if below else f"backpressure ({depth})"
+            )
+            ok = ok and below
+        paging = self.slo.paging_alerts()
+        checks["slo"] = (
+            "ok" if not paging else
+            "paging: " + ",".join(a["alert"] for a in paging)
+        )
+        ok = ok and not paging
+        return ok, {"checks": checks}
+
+    async def _client_accounting(self, msg: dict) -> dict:
+        """Usage ledger query (`hq job accounting` / `hq fleet
+        accounting`): per-job rows for an explicit selection, or the
+        per-label rollup when none is given."""
+        job_ids = msg.get("job_ids")
+        out: dict = {"op": "accounting", "shard": self.shard_id}
+        if job_ids:
+            report = self.accounting.job_report(
+                [int(j) for j in job_ids]
+            )
+            # a LIST (each row carries its job id): the federated client
+            # splits a selector across shards and merges responses by
+            # list concatenation — a dict keyed by job id would silently
+            # keep only the first shard's rows
+            out["jobs"] = [
+                {"job": j, **row} for j, row in sorted(report.items())
+            ]
+        else:
+            out["rollup"] = self.accounting.rollup()
+        return out
+
+    async def _client_alerts(self, msg: dict) -> dict:
+        """`hq alerts`: currently-firing SLO alerts + recent transitions
+        (fan-out across shards happens client-side, like server_stats)."""
+        return {"op": "alerts", "shard": self.shard_id,
+                **self.slo.alerts()}
+
+    def _alert_badge(self) -> dict:
+        return self.slo.badge()
+
+    async def _client_worker_lend(self, msg: dict) -> dict:
+        return self._waits_for_item_10(msg)
+
+
+    def _owned_elsewhere(self, job_id, rid=None) -> dict | None:
+        """wrong-shard / migrating guard: an error dict when this shard
+        no longer (or not currently) serves the job, else None. `code`
+        lets clients tell a redirect (wrong-shard, with the owner hint)
+        from a transient seal (migrating — retry here shortly)."""
+        if job_id is None:
+            return None
+        owner = self.migrated_out.get(job_id)
+        if owner is not None:
+            err = {"op": "error", "code": "wrong-shard", "owner": owner,
+                   "message": f"job {job_id} migrated to shard {owner}"}
+            if rid is not None:
+                err["rid"] = rid
+            return err
+        if job_id in self.migrating_out:
+            err = {"op": "error", "code": "migrating",
+                   "message": f"job {job_id} is migrating; retry shortly"}
+            if rid is not None:
+                err["rid"] = rid
+            return err
+        return None
+
+    def _guard_job_ids(self, job_ids) -> dict | None:
+        """Job-op guard: redirect only when EVERY requested job moved
+        (mixed batches fall through — absent jobs are simply omitted
+        from the reply, exactly like unknown ids always were)."""
+        guards = [self._owned_elsewhere(j) for j in job_ids]
+        if guards and all(g is not None for g in guards):
+            return guards[0]
+        return None
+
+    async def _client_migration_export(self, msg: dict) -> dict:
+        return self._waits_for_item_10(msg)
+
+    async def _client_migration_import(self, msg: dict) -> dict:
+        return self._waits_for_item_10(msg)
+
+    async def _client_migration_finalize(self, msg: dict) -> dict:
+        return self._waits_for_item_10(msg)
+
+    # --- metrics --------------------------------------------------------
+    def _collect_metrics(self) -> None:
+        """Refresh cluster-state gauges at scrape time (utils/metrics.py
+        collect hook): nothing here runs on a hot path, and everything is
+        O(workers + queues), never O(tasks) — walking a million-task map
+        per scrape would make the scrape itself a perturbation."""
+        core = self.core
+        REGISTRY.gauge(
+            "hq_workers_connected", "workers currently registered"
+        ).set(len(core.workers))
+        REGISTRY.gauge(
+            "hq_tasks_known", "tasks in the server core (all states)"
+        ).set(len(core.tasks))
+        REGISTRY.gauge(
+            "hq_tasks_ready_queued", "single-node tasks in the ready queues"
+        ).set(core.queues.total_ready())
+        REGISTRY.gauge(
+            "hq_tasks_mn_queued", "multi-node gang tasks awaiting workers"
+        ).set(len(core.mn_queue))
+        REGISTRY.gauge(
+            "hq_jobs_known", "jobs known to the server"
+        ).set(len(self.jobs.jobs))
+        REGISTRY.gauge(
+            "hq_reattach_pending_tasks",
+            "restored maybe-running tasks held for worker reattach",
+        ).set(len(self.reattach_pending))
+        # event stream backpressure: listeners and the deepest unsent queue
+        REGISTRY.gauge(
+            "hq_event_listeners", "attached event-stream clients"
+        ).set(len(self._event_listeners))
+        # subscription plane (subscribe RPC) + per-task trace store health
+        REGISTRY.gauge(
+            "hq_event_subscribers", "attached subscribe-RPC consumers"
+        ).set(len(self._subscribers))
+        REGISTRY.gauge(
+            "hq_sub_queue_depth",
+            "deepest per-subscriber backlog of undelivered events",
+        ).set(
+            max((s.queue.qsize() for s in self._subscribers), default=0)
+        )
+        # ingest plane + lazy store: depth/client gauges are read here at
+        # scrape time (single-writer rule: the counters are bumped by the
+        # reactor/ingest threads, never from the scrape)
+        lazy_stats = core.lazy.stats()
+        REGISTRY.gauge(
+            "hq_tasks_lazy",
+            "unmaterialized lazy array tasks (registered as chunks, "
+            "per-task records deferred to dispatch)",
+        ).set(lazy_stats["unmaterialized"])
+        if self.jplane is not None:
+            REGISTRY.gauge(
+                "hq_journal_plane_depth",
+                "journal records enqueued to the commit thread, not yet "
+                "committed (sustained growth = the disk is the bottleneck)",
+            ).set(self.jplane.depth())
+        REGISTRY.gauge(
+            "hq_fanout_plane_senders",
+            "sender-pool threads running the downlink encode+seal "
+            "(--fanout-senders; 0 = inline on the owning loop)",
+        ).set(self.fanout_senders)
+        if self.ingest_plane is not None:
+            REGISTRY.gauge(
+                "hq_ingest_handoff_depth",
+                "decoded client messages queued between the connection "
+                "plane and the reactor",
+            ).set(len(self.ingest_plane.handoff))
+            REGISTRY.gauge(
+                "hq_ingest_clients",
+                "client connections held by the connection plane",
+            ).set(len(self.ingest_plane.clients))
+        # usage accounting rollup: per-label resource-time
+        # totals from the ledger, rebuilt each scrape so labels whose jobs
+        # all migrated away vanish instead of lingering at stale values
+        rollup = self.accounting.rollup()
+        acct_jobs = REGISTRY.gauge(
+            "hq_accounting_jobs",
+            "jobs with accrued usage in the ledger, by job label",
+            labels=("label",), max_series=256,
+        )
+        acct_task = REGISTRY.counter(
+            "hq_accounting_task_seconds_total",
+            "wall-clock task execution seconds accrued, by job label",
+            labels=("label",), max_series=256,
+        )
+        acct_cpu = REGISTRY.counter(
+            "hq_accounting_cpu_seconds_total",
+            "cpu-seconds accrued (amount x run seconds), by job label",
+            labels=("label",), max_series=256,
+        )
+        acct_gpu = REGISTRY.counter(
+            "hq_accounting_gpu_seconds_total",
+            "gpu-seconds accrued (amount x run seconds), by job label",
+            labels=("label",), max_series=256,
+        )
+        acct_wait = REGISTRY.counter(
+            "hq_accounting_wait_seconds_total",
+            "ready -> running wait seconds accrued, by job label",
+            labels=("label",), max_series=256,
+        )
+        acct_crash = REGISTRY.counter(
+            "hq_accounting_crash_retries_total",
+            "crash-charged task retries, by job label",
+            labels=("label",), max_series=256,
+        )
+        for metric in (acct_jobs, acct_task, acct_cpu, acct_gpu,
+                       acct_wait, acct_crash):
+            metric.clear()
+        for label, agg in rollup["labels"].items():
+            acct_jobs.labels(label).set(agg["jobs"])
+            acct_task.labels(label).set_total(agg["task_seconds"])
+            acct_cpu.labels(label).set_total(agg["cpu_seconds"])
+            acct_gpu.labels(label).set_total(agg["gpu_seconds"])
+            acct_wait.labels(label).set_total(agg["wait_seconds"])
+            acct_crash.labels(label).set_total(agg["crash_retries"])
+        trace_stats = core.traces.stats()
+        REGISTRY.gauge(
+            "hq_task_traces", "tasks with spans in the bounded trace store"
+        ).set(trace_stats["tasks"])
+        REGISTRY.counter(
+            "hq_task_trace_evictions_total",
+            "task traces evicted from the bounded store",
+        ).set_total(trace_stats["evictions"])
+        REGISTRY.gauge(
+            "hq_event_stream_depth",
+            "deepest per-listener backlog of undelivered events",
+        ).set(
+            max((q.qsize() for q in self._event_listeners), default=0)
+        )
+        REGISTRY.counter(
+            "hq_events_emitted_total", "server events emitted (journal seq)"
+        ).set_total(self._event_seq)
+        # solver watchdog: adopt its externally-tracked monotonic counters
+        wd = self.model.stats()
+        REGISTRY.gauge(
+            "hq_solver_armed",
+            "1 while the primary solver is armed, 0 while degraded to the "
+            "host-greedy fallback",
+        ).set(1.0 if wd.get("armed") else 0.0)
+        for key in ("failures", "timeouts", "degraded_ticks", "rearms",
+                    "skipped_ticks"):
+            REGISTRY.counter(
+                f"hq_solver_{key}_total",
+                f"solver watchdog {key.replace('_', ' ')} "
+                "(scheduler/watchdog.py)",
+            ).set_total(wd.get(key, 0))
+        if self.journal_path is not None:
+            # durability-plane gauges: both are one stat() each — the
+            # scrape must never walk the journal
+            try:
+                journal_bytes = float(self.journal_path.stat().st_size)
+            except OSError:
+                journal_bytes = 0.0
+            REGISTRY.gauge(
+                "hq_journal_size_bytes",
+                "event journal file size (compaction bounds this)",
+            ).set(journal_bytes)
+            from hyperqueue_tpu_torch.events import snapshot as snapshot_mod
+
+            snap_stats = snapshot_mod.snapshot_stats(self.journal_path)
+            REGISTRY.gauge(
+                "hq_snapshot_age_seconds",
+                "age of the newest journal snapshot (-1 = no snapshot yet)",
+            ).set(
+                snap_stats["age_seconds"]
+                if snap_stats["age_seconds"] is not None
+                else -1.0
+            )
+        cache = core.tick_cache.counters()
+        for key in ("full_rebuilds", "incremental_syncs"):
+            REGISTRY.counter(
+                f"hq_tick_cache_{key}_total",
+                f"tick snapshot cache {key.replace('_', ' ')}",
+            ).set_total(cache.get(key, 0))
+        # solve backend + device-resident state (parallel/resident.py):
+        # which backend the last solve ran, how many bytes the device path
+        # uploaded (full + delta), and how many rows were dirty last tick
+        resident = {}
+        get_resident = getattr(self.model, "resident_stats", None)
+        if get_resident is not None:
+            try:
+                resident = get_resident()
+            except Exception:  # noqa: BLE001 - metrics must never break
+                resident = {}
+        backend_gauge = REGISTRY.gauge(
+            "hq_solve_backend",
+            "1 for the backend the last solve ran on "
+            "(host-native/host-numpy/device-cuda/device-sharded)",
+            labels=("backend",), max_series=8,
+        )
+        backend_gauge.clear()
+        if resident.get("backend"):
+            backend_gauge.labels(resident["backend"]).set(1.0)
+        if resident:
+            REGISTRY.counter(
+                "hq_device_upload_bytes_total",
+                "bytes uploaded to the solve device (full uploads + "
+                "dirty-row deltas + replicated-input placements)",
+            ).set_total(resident.get("upload_bytes_total", 0))
+            REGISTRY.gauge(
+                "hq_tick_dirty_rows",
+                "worker rows the device path uploaded last solve "
+                "(delta size; W on a full upload)",
+            ).set(resident.get("dirty_rows_last", 0))
+            for key in ("full_uploads", "delta_uploads", "invalidations",
+                        "rep_cache_hits"):
+                REGISTRY.counter(
+                    f"hq_resident_{key}_total",
+                    f"device-resident tick state {key.replace('_', ' ')}",
+                ).set_total(resident.get(key, 0))
+        pipeline = core.tick_pipeline
+        if pipeline is not None:
+            ps = pipeline.stats()
+            REGISTRY.gauge(
+                "hq_tick_pipeline_depth",
+                "solves currently in flight in the async tick pipeline "
+                "(0 or 1)",
+            ).set(ps["depth"])
+            for key in ("dispatched", "mapped", "drains"):
+                REGISTRY.counter(
+                    f"hq_tick_pipeline_{key}_total",
+                    f"async tick pipeline: solves {key}",
+                ).set_total(ps[key])
+        # per-worker gauges: the server's own accounting, plus whatever
+        # gauges/counters the worker piggybacked on its last overview
+        # message (cluster-wide re-export under a `worker` label)
+        assigned = REGISTRY.gauge(
+            "hq_worker_assigned_tasks",
+            "tasks with accounted resources on each worker",
+            labels=("worker",), max_series=4096,
+        )
+        prefilled = REGISTRY.gauge(
+            "hq_worker_prefilled_tasks",
+            "tasks queued on each worker beyond current capacity",
+            labels=("worker",), max_series=4096,
+        )
+        assigned.clear()  # departed workers' series must not linger
+        prefilled.clear()
+        # piggybacked metric series are rebuilt from scratch each scrape so
+        # a departed worker's samples vanish with it
+        for name in self._piggyback_names:
+            metric = REGISTRY.get(name)
+            if metric is not None:
+                metric.clear()
+        self._piggyback_names = set()
+        piggybacked = self._piggyback_names
+        for w in core.workers.values():
+            assigned.labels(w.worker_id).set(len(w.assigned_tasks))
+            prefilled.labels(w.worker_id).set(len(w.prefilled_tasks))
+            for sample in w.last_metrics:
+                name = sample.get("name", "")
+                if not name.startswith("hq_worker_"):
+                    continue  # only the worker-runtime namespace fans out
+                labels = sample.get("labels") or {}
+                label_names = (*sorted(labels), "worker")
+                make = (
+                    REGISTRY.counter
+                    if sample.get("type") == "counter"
+                    else REGISTRY.gauge
+                )
+                try:
+                    metric = make(
+                        name, sample.get("help", ""),
+                        labels=label_names, max_series=4096,
+                    )
+                except ValueError:
+                    continue  # type conflict with an existing metric
+                if metric.label_names != label_names:
+                    continue  # conflicting shape from an older worker
+                piggybacked.add(name)
+                series = metric.labels(
+                    *(labels[k] for k in sorted(labels)), w.worker_id
+                )
+                if sample.get("type") == "counter":
+                    series.set_total(sample.get("value", 0.0))
+                else:
+                    series.set(sample.get("value", 0.0))
 
 
     # control-plane event kinds mirrored into the flight recorder so a
@@ -967,7 +1732,7 @@ class Server:
                     self.journal.flush()
         # the chaos plane's kill-at-event-K injection site (after the
         # journal write + flush, behind a durability barrier) comes with
-        # `hq server start` (ROADMAP Queue 1 item 8)
+        # ROADMAP Queue 1 item 10
         if self.jplane is not None and (
             self._event_listeners or self._subscribers
         ):
@@ -1067,35 +1832,264 @@ class Server:
     LOOP_CRASH_RESTARTS = 3
     LOOP_HEALTHY_SECS = 60.0
 
+    def _spawn_loop(self, factory, _restarts: int = 0) -> "asyncio.Task":
+        """Background loops must never die silently: an unhandled exception
+        in an asyncio task is held unreported while the server keeps a
+        reference — the server would turn into a zombie that accepts
+        submits but never schedules. Log the crash loudly, restart the loop
+        up to LOOP_CRASH_RESTARTS consecutive times, then stop the
+        server."""
+        started = clock.now()
+        task = asyncio.create_task(factory())
+        name = getattr(factory, "__name__", repr(factory))
 
-    def _owned_elsewhere(self, job_id, rid=None) -> dict | None:
-        """wrong-shard / migrating guard: an error dict when this shard
-        no longer (or not currently) serves the job, else None. `code`
-        lets clients tell a redirect (wrong-shard, with the owner hint)
-        from a transient seal (migrating — retry here shortly)."""
-        if job_id is None:
-            return None
-        owner = self.migrated_out.get(job_id)
-        if owner is not None:
-            err = {"op": "error", "code": "wrong-shard", "owner": owner,
-                   "message": f"job {job_id} migrated to shard {owner}"}
-            if rid is not None:
-                err["rid"] = rid
-            return err
-        if job_id in self.migrating_out:
-            err = {"op": "error", "code": "migrating",
-                   "message": f"job {job_id} is migrating; retry shortly"}
-            if rid is not None:
-                err["rid"] = rid
-            return err
-        return None
+        def _report(t: "asyncio.Task") -> None:
+            if t.cancelled():
+                return
+            exc = t.exception()
+            if exc is None:
+                return
+            logger.critical(
+                "server background loop %s crashed", name, exc_info=exc,
+            )
+            if self._stop_event.is_set():
+                # shutting down: a respawn would run against resources
+                # shutdown() is already closing
+                return
+            restarts = (
+                0 if clock.now() - started >= self.LOOP_HEALTHY_SECS
+                else _restarts
+            )
+            if restarts < self.LOOP_CRASH_RESTARTS:
+                logger.critical(
+                    "restarting %s (attempt %d/%d)",
+                    name, restarts + 1, self.LOOP_CRASH_RESTARTS,
+                )
+                self._tasks.append(self._spawn_loop(factory, restarts + 1))
+            else:
+                logger.critical(
+                    "%s exceeded its restart budget; stopping the server",
+                    name,
+                )
+                self.stop()
+
+        task.add_done_callback(_report)
+        return task
+
+    # --- scheduler loop ------------------------------------------------
+    async def _scheduler_loop(self) -> None:
+        while True:
+            await self.comm.scheduling_event.wait()
+            await asyncio.sleep(self.schedule_min_delay)
+            self.comm.scheduling_event.clear()
+            t0 = time.perf_counter()
+            n = reactor.schedule(self.core, self.comm, self.events, self.model)
+            TRACER.record("scheduler/tick", time.perf_counter() - t0)
+            # the tick runs synchronously on the loop: its duration IS the
+            # solve plane's loop occupancy (stall watchdog included)
+            self.note_plane("solve", time.perf_counter() - t0)
+            if n:
+                logger.debug(
+                    "tick assigned %d tasks in %.2f ms",
+                    n,
+                    (time.perf_counter() - t0) * 1e3,
+                    extra={"tick": self.core.tick_counter},
+                )
+
+    # --- ingest drain loop (client-connection plane handoff) ------------
+    # max handoff items consumed per drain pass: bounds the reactor hold
+    # (one pass is one `ingest` lag-plane observation) while still
+    # amortizing journal group commits across a burst of submit chunks
+    INGEST_DRAIN_BATCH = 256
+
+    async def _ingest_drain_loop(self) -> None:
+        """Consume batches of decoded client messages from the connection
+        plane (server/ingest.py). Runs of consecutive `submit_chunk`
+        messages — across ALL clients — are applied under ONE journal
+        group commit, and their acks are queued only after that commit
+        lands (durability-before-visibility across chunk boundaries)."""
+        plane = self.ingest_plane
+        # with the journal plane on, chunk acks (and every other reply)
+        # ride the durability watermark instead of an inline group-commit
+        # block: the commit thread batches whole runs of chunks on its
+        # own, and reply_visible releases the acks in FIFO order once
+        # the covering commit lands
+        gated = self.jplane is not None
+        while True:
+            await self._handoff_wake.wait()
+            self._handoff_wake.clear()
+            while plane.handoff:
+                items = plane.pop_batch(self.INGEST_DRAIN_BATCH)
+                t0 = time.perf_counter()
+                acks: list = []
+                batch = None
+
+                def flush_chunks() -> None:
+                    nonlocal batch
+                    if batch is not None:
+                        batch.__exit__(None, None, None)
+                        batch = None
+                    for ch, resp in acks:
+                        ch.reply(resp)
+                    acks.clear()
+
+                try:
+                    for channel, msg in items:
+                        if msg is None:
+                            flush_chunks()
+                            self._on_channel_gone(channel)
+                            continue
+                        if not isinstance(msg, dict):
+                            # a malformed frame answers THAT client; it
+                            # must never crash the drain loop every
+                            # other client shares
+                            channel.reply({
+                                "op": "error",
+                                "message": "malformed request frame",
+                            })
+                            continue
+                        op = msg.get("op")
+                        if op == "submit_chunk":
+                            if batch is None and not gated:
+                                batch = self._journal_group_commit()
+                                batch.__enter__()
+                            try:
+                                resp = self._apply_submit_chunk(msg)
+                            except Exception as e:  # noqa: BLE001
+                                logger.exception("submit_chunk failed")
+                                resp = {"op": "error", "message": str(e),
+                                        "rid": msg.get("rid")}
+                            if gated:
+                                self.reply_visible(channel, resp)
+                            else:
+                                acks.append((channel, resp))
+                            continue
+                        # any non-chunk op is a durability barrier: commit
+                        # the open chunk batch and release its acks first,
+                        # preserving per-connection FIFO
+                        flush_chunks()
+                        if op in ("stream_events", "subscribe"):
+                            self._spawn_client_stream(channel, op, msg)
+                            continue
+                        if op in self._RPC_LAG_EXEMPT:
+                            # ops that await external progress (job_wait,
+                            # compaction, manager dry-runs) must not stall
+                            # the drain loop for every other client
+                            self._spawn_client_request(channel, msg)
+                            continue
+                        response = await self._handle_client_message(msg)
+                        if response is not None:
+                            self.reply_visible(channel, response)
+                finally:
+                    flush_chunks()
+                self.note_plane("ingest", time.perf_counter() - t0)
+                plane.notify_drained()
+                # yield between batches: a sustained multi-client flood
+                # must round-robin with the scheduler tick and the worker
+                # plane, not hold the loop until the handoff runs dry
+                await asyncio.sleep(0)
+
+    def _spawn_client_request(self, channel, msg: dict) -> None:
+        async def run() -> None:
+            response = await self._handle_client_message(msg)
+            if response is not None:
+                self.reply_visible(channel, response)
+
+        task = asyncio.ensure_future(run())
+        self._client_tasks.add(task)
+        task.add_done_callback(self._client_tasks.discard)
+
+    def _spawn_client_stream(self, channel, op: str, msg: dict) -> None:
+        handler = (
+            self._stream_events if op == "stream_events" else self._subscribe
+        )
+        gone = channel.reactor_gone_event()
+
+        async def run() -> None:
+            try:
+                await handler(channel.stream_send, gone, msg)
+            except (ConnectionError, OSError):
+                pass  # consumer went away mid-send
+            except Exception:  # noqa: BLE001 - never kill the drain plane
+                logger.exception("client stream handler crashed")
+            finally:
+                # the stream is this connection's terminal op (the legacy
+                # plane breaks out of its recv loop the same way)
+                channel.close()
+
+        task = asyncio.ensure_future(run())
+        channel.stream_task = task
+        self._client_tasks.add(task)
+        task.add_done_callback(self._client_tasks.discard)
+
+    def _on_channel_gone(self, channel) -> None:
+        channel.is_gone = True
+        if channel.gone is not None:
+            channel.gone.set()
+
+    async def _journal_flush_loop(self) -> None:
+        """Flush the journal on --journal-flush-period instead of per event
+        (reference bootstrap.rs journal_flush_period, default 30 s there);
+        with --journal-fsync periodic/always the periodic flush also
+        fsyncs, bounding the OS-crash loss window to one period."""
+        period = self.journal_flush_period or 30.0
+        while True:
+            await asyncio.sleep(period)
+            if self.jplane is not None:
+                # non-blocking: the commit thread flushes when it drains
+                self.jplane.request_flush(
+                    sync=self.journal_fsync != "never"
+                )
+            else:
+                self.journal.flush(sync=self.journal_fsync != "never")
+
+    async def _journal_compact_loop(self) -> None:
+        """Compact on --journal-compact-interval and/or whenever the
+        journal grows past --journal-compact-threshold bytes. The size
+        check is a cheap stat on a 5 s poll; compaction itself runs
+        through compact_journal (snapshot + GC, heavy work off-loop)."""
+        poll = 5.0
+        if self.journal_compact_interval > 0:
+            poll = min(poll, self.journal_compact_interval)
+        last = clock.monotonic()
+        while True:
+            await asyncio.sleep(poll)
+            due = (
+                self.journal_compact_interval > 0
+                and clock.monotonic() - last >= self.journal_compact_interval
+            )
+            if not due and self.journal_compact_threshold > 0:
+                # a journal whose LIVE-work floor exceeds the threshold
+                # must not be recompacted every poll: require the file to
+                # have doubled past the last compaction's result before the
+                # size trigger fires again (geometric backoff)
+                floor = (
+                    self.last_compaction["journal_bytes_after"]
+                    if self.last_compaction
+                    else 0
+                )
+                try:
+                    size = self.journal_path.stat().st_size
+                except OSError:
+                    size = 0
+                due = (
+                    size >= self.journal_compact_threshold
+                    and size >= 2 * floor
+                )
+            if not due:
+                continue
+            try:
+                await self.compact_journal(reason="auto")
+            except Exception:
+                logger.exception("journal compaction failed")
+            last = clock.monotonic()
 
 
     async def compact_journal(self, reason: str = "manual") -> dict:
         """One snapshot + journal-GC cycle.
 
         Phases (each kill -9-survivable; the chaos site `server.compact` that
-        tests it comes with item 8):
+        tests it comes with item 10):
 
         1. **barrier** (sync on the reactor loop): commit + fsync any open
            group-commit batch so every acknowledged event is durable, then
@@ -1182,7 +2176,7 @@ class Server:
                     stop_at,
                     self.journal_salvage,
                 )
-                # the "pre-swap" kill site (ROADMAP Queue 1 item 8)
+                # the "pre-swap" kill site (ROADMAP Queue 1 item 10)
                 t_swap = time.perf_counter()
                 # phase 4: synchronous swap — no awaits, so no event can
                 # be appended between close and reopen; the journal
@@ -1204,7 +2198,7 @@ class Server:
             except BaseException:
                 tmp.unlink(missing_ok=True)
                 raise
-            # the "post-swap" kill site (ROADMAP Queue 1 item 8)
+            # the "post-swap" kill site (ROADMAP Queue 1 item 10)
             t_end = time.perf_counter()
             stats = {
                 "reason": reason,
@@ -1247,6 +2241,905 @@ class Server:
             return stats
         finally:
             self._compacting = False
+
+    async def _reattach_reaper(self) -> None:
+        """Requeue restored maybe-running tasks whose pre-crash worker did
+        not reconnect within --reattach-timeout: fence the dead incarnation
+        (instance bump) and make the task schedulable again."""
+        while True:
+            await asyncio.sleep(0.5)
+            if not self.reattach_pending:
+                continue
+            now = clock.monotonic()
+            expired = [
+                tid for tid, deadline in self.reattach_pending.items()
+                if deadline <= now
+            ]
+            for task_id in expired:
+                del self.reattach_pending[task_id]
+                task = self.core.tasks.get(task_id)
+                if (
+                    task is None
+                    or task.is_done
+                    or task.state is not TaskState.WAITING
+                ):
+                    continue
+                logger.warning(
+                    "task %d: no worker reclaimed it within the %.0fs "
+                    "reattach window; requeueing",
+                    task_id, self.reattach_timeout,
+                    extra={"job": task_id_job(task_id),
+                           "task": task_id_task(task_id)},
+                )
+                reactor.requeue_reattach_expired(self.core, self.comm, task)
+
+    # --- graceful drain --------------------------------------
+    def start_drain(
+        self, worker_ids, timeout: float | None = None, source: str = "cli"
+    ) -> list[int]:
+        """Begin a graceful drain of `worker_ids`: each worker is masked
+        out of the solve/prefill/gang selection (Worker.draining — a
+        membership mask like the gang reservation), its queued-but-not-
+        started prefilled backlog is retracted, and the drain reaper stops
+        it once its running tasks finish — or, past the deadline, stops it
+        anyway with clean_stop so anything still running requeues without
+        a crash charge (zero task loss either way)."""
+        window = float(timeout) if timeout and timeout > 0 \
+            else DRAIN_TIMEOUT_DEFAULT
+        now = clock.monotonic()
+        started: list[int] = []
+        for wid in worker_ids:
+            worker = self.core.workers.get(wid)
+            if worker is None or worker.draining:
+                continue
+            worker.draining = True
+            self.core.bump_membership()
+            # retract the queued backlog so the drain is bounded by the
+            # currently RUNNING tasks only (same move as the gang drain)
+            refs = []
+            for tid in sorted(worker.prefilled_tasks):
+                task = self.core.tasks[tid]
+                if task.retract_pending:
+                    continue
+                task.retract_pending = True
+                refs.append((tid, task.instance_id))
+            if refs:
+                self.comm.send_retract(wid, refs)
+            self._draining[wid] = {
+                "deadline": now + window, "started": now, "source": source,
+            }
+            _DRAINS_TOTAL.labels(source).inc()
+            self.emit_event(
+                "worker-draining",
+                {"id": wid, "timeout": window, "source": source,
+                 "running": len(worker.assigned_tasks)},
+            )
+            started.append(wid)
+        return started
+
+    async def _drain_reaper(self) -> None:
+        """Stop each draining worker once it settles idle; past the drain
+        deadline, escalate to an immediate clean stop (running tasks take
+        the normal worker-lost requeue path, no crash charge)."""
+        while True:
+            await asyncio.sleep(0.2)
+            if not self._draining:
+                continue
+            now = clock.monotonic()
+            for wid, rec in list(self._draining.items()):
+                worker = self.core.workers.get(wid)
+                if worker is None:
+                    self._draining.pop(wid, None)
+                    continue
+                settled = (
+                    not worker.assigned_tasks
+                    and not worker.prefilled_tasks
+                    and worker.mn_task == 0
+                )
+                escalated = not settled and now >= rec["deadline"]
+                if not (settled or escalated):
+                    continue
+                self._draining.pop(wid, None)
+                worker.clean_stop = True
+                self.comm.send_stop(wid)
+                drain_s = now - rec["started"]
+                _DRAIN_SECONDS.observe(drain_s)
+                if escalated:
+                    _DRAIN_ESCALATIONS_TOTAL.inc()
+                    logger.warning(
+                        "drain of worker %d hit its %.0fs deadline with %d "
+                        "task(s) still running; escalating to stop "
+                        "(tasks requeue, no crash charge)",
+                        wid, rec["deadline"] - rec["started"],
+                        len(worker.assigned_tasks),
+                        extra={"worker": wid},
+                    )
+                self.emit_event(
+                    "worker-drained",
+                    {"id": wid, "escalated": escalated,
+                     "drain_s": round(drain_s, 3), "source": rec["source"]},
+                )
+
+    async def _heartbeat_reaper(self) -> None:
+        """Drop workers whose heartbeats stopped (beyond TCP-close detection;
+        reference server/rpc.rs per-connection heartbeat timeout). The
+        timeout is heartbeat_secs x --heartbeat-timeout-factor (floored at
+        2 s so one delayed frame never reaps a fast-heartbeat worker)."""
+        while True:
+            before = clock.monotonic()
+            await asyncio.sleep(0.5)
+            now = clock.monotonic()
+            if now - before > 2.0:
+                # the event loop itself stalled (e.g. a solve held at the
+                # watchdog deadline): heartbeats are sitting unprocessed in
+                # the recv buffers, not missing. Give the recv loops one
+                # pass before judging anyone silent.
+                continue
+            for worker in list(self.core.workers.values()):
+                limit = max(
+                    worker.configuration.heartbeat_secs
+                    * self.heartbeat_timeout_factor,
+                    2.0,
+                )
+                if now - worker.last_heartbeat > limit:
+                    logger.warning(
+                        "worker %d heartbeat timeout (%.0fs)",
+                        worker.worker_id,
+                        now - worker.last_heartbeat,
+                        extra={"worker": worker.worker_id},
+                    )
+                    conn = self._worker_conns.pop(worker.worker_id, None)
+                    if conn is not None:
+                        conn.close()
+                    self.comm.unregister_worker(worker.worker_id)
+                    self._record_past_worker(
+                        worker.worker_id, "heartbeat timeout"
+                    )
+                    reactor.on_remove_worker(
+                        self.core,
+                        self.comm,
+                        self.events,
+                        worker.worker_id,
+                        "heartbeat timeout",
+                    )
+
+    # --- worker plane ---------------------------------------------------
+    async def _handle_worker_conn(self, reader, writer) -> None:
+        worker_id = 0
+        try:
+            conn = await do_authentication(
+                reader,
+                writer,
+                ROLE_SERVER,
+                ROLE_WORKER,
+                self.access.worker_key_bytes() if self.access else None,
+            )
+            register = await conn.recv()
+            if register.get("op") != "register":
+                raise AuthError("expected register message")
+            config = WorkerConfiguration.from_wire(register["config"])
+            worker = Worker.create(
+                self.core.worker_id_counter.next(), config, self.core.resource_map
+            )
+            worker_id = worker.worker_id
+            queue = self.comm.register_worker(worker_id)
+            self._worker_conns[worker_id] = conn
+            # a reconnecting worker reclaims the restored maybe-running
+            # tasks it still executes; everything it reports that the
+            # server cannot verify (instance mismatch, already terminal,
+            # never held) is echoed back for the worker to kill — both
+            # sides agree on exactly one live incarnation per task.
+            # Processed BEFORE on_new_worker wakes the scheduler, so a held
+            # task can never race onto another worker.
+            reattached, discard = self._process_reattach(
+                register.get("reattach"), worker
+            )
+            reactor.on_new_worker(self.core, self.comm, self.events, worker)
+            await conn.send(
+                {
+                    "op": "registered",
+                    "worker_id": worker_id,
+                    "server_uid": self.access.server_uid if self.access else "",
+                    "heartbeat_secs": config.heartbeat_secs,
+                    # workers with no own idle timeout adopt the server's
+                    # default (reference sync_worker_configuration)
+                    "server_idle_timeout": self.idle_timeout,
+                    "reattached": reattached,
+                    "discard": discard,
+                }
+            )
+            if self._overview_listeners > 0:
+                # a dashboard is attached: the new worker starts under the
+                # forced overview cadence too
+                self.comm.send_overview_override(
+                    worker_id, OVERVIEW_OVERRIDE_INTERVAL
+                )
+            if config.alloc_id and getattr(self, "autoalloc", None):
+                self.autoalloc.on_worker_connected(worker_id, config.alloc_id)
+
+            sender = asyncio.create_task(self._worker_sender(conn, queue))
+            try:
+                await self._worker_recv_loop(conn, worker)
+            finally:
+                sender.cancel()
+        except (
+            AuthError,
+            asyncio.IncompleteReadError,
+            ConnectionError,
+            OSError,
+        ) as e:
+            logger.info("worker connection ended: %s", e)
+        finally:
+            if worker_id:
+                self._worker_conns.pop(worker_id, None)
+                self.comm.unregister_worker(worker_id)
+                worker = self.core.workers.get(worker_id)
+                if worker is not None:
+                    # a requested stop disconnects too — record the true
+                    # reason, not a generic connection loss (reference
+                    # LostWorkerReason::Stopped vs ConnectionLost); a
+                    # redirect-ordered departure is a lend, not a loss
+                    lent_to = self._lent_workers.pop(worker_id, None)
+                    if worker.clean_stop:
+                        reason = "stopped"
+                        lent_to = None
+                    elif lent_to is not None and not worker.assigned_tasks:
+                        # only an IDLE departure is the lend completing; a
+                        # worker that picked up work in the lend window
+                        # aborts the redirect, so a busy disconnect here
+                        # is a genuine loss (its tasks requeue/reattach).
+                        # The human string stays for logs; `lent_to` is
+                        # the structured field the fleet feed renders
+                        # lending flows from
+                        reason = f"lent to shard {lent_to}"
+                    else:
+                        reason = "connection lost"
+                        lent_to = None
+                    self._record_past_worker(worker_id, reason,
+                                             lent_to=lent_to)
+                    reactor.on_remove_worker(
+                        self.core, self.comm, self.events, worker_id, reason
+                    )
+            writer.close()
+
+    def _process_reattach(
+        self, reattach: dict | None, worker: Worker
+    ) -> tuple[list[int], list[int]]:
+        """Reclaim a reconnecting worker's still-running tasks.
+
+        A task is reattached iff the journal restore held it for exactly
+        this incarnation (server.reattach_pending + matching instance id):
+        it becomes RUNNING on the new worker record with resources
+        accounted — NOT requeued, no crash-counter charge. Anything else
+        the worker reports is stale (already terminal, requeued under a
+        newer instance, or this server never knew it) and is returned in
+        `discard` for the worker to kill; its messages would be fenced by
+        the instance check anyway, but killing stops the side effects.
+        """
+        if not reattach:
+            return [], []
+        reattached: list[int] = []
+        discard: list[int] = []
+        # lineage fence: the claimed server_uid must have written this
+        # journal, or the worker's task ids belong to a different server's
+        # numbering (same server dir reused with another --journal) and
+        # could collide at the common instance 0
+        claimed_uid = reattach.get("server_uid") or ""
+        uid_ok = claimed_uid in self.journal_uids
+        if not uid_ok and reattach.get("running"):
+            logger.warning(
+                "reconnecting worker claims unknown server lineage %r; "
+                "discarding its %d running task(s)",
+                claimed_uid, len(reattach.get("running", ())),
+            )
+        for entry in reattach.get("running", ()):
+            task_id = entry.get("id")
+            instance = entry.get("instance", 0)
+            task = self.core.tasks.get(task_id)
+            claimable = (
+                uid_ok
+                and task is not None
+                and not task.is_done
+                and task.instance_id == instance
+            )
+            if claimable and self.reattach_pending.pop(task_id, None) is not None:
+                reactor.on_task_reattached(self.core, self.events, task, worker)
+                reattached.append(task_id)
+            elif (
+                claimable
+                and task.state is TaskState.READY
+                and not self.core.rq_map.get_variants(task.rq_id).is_multi_node
+            ):
+                # a ready task whose claimed instance matches EXACTLY what
+                # the server would re-issue. Since restore fences re-issues
+                # to the boot's generation base (core.instance_fence_floor)
+                # a prior boot's incarnation can no longer collide here;
+                # this branch stays as a safety net — if a matching claim
+                # ever does arrive, adopting it out of the ready queue is
+                # strictly safer than racing a second execution under the
+                # same instance id, invisible to the fence. The journal
+                # never saw this start, so the worker's reported variant is
+                # the only truth about which resources it occupies.
+                variant = int(entry.get("variant", 0))
+                if variant < len(
+                    self.core.rq_map.get_variants(task.rq_id).variants
+                ):
+                    task.assigned_variant = variant
+                self.core.queues.remove(task.rq_id, task_id)
+                reactor.on_task_reattached(self.core, self.events, task, worker)
+                reattached.append(task_id)
+            else:
+                discard.append(task_id)
+        # parked-but-never-started tasks are NEVER kept: the server
+        # re-issues them (restore saw no task-started), so a silently kept
+        # local copy would run alongside the re-issue under one instance id
+        for entry in reattach.get("blocked", ()):
+            discard.append(entry.get("id"))
+        if reattached or discard:
+            logger.info(
+                "worker %d reconnected from old worker %s: reattached %d "
+                "task(s), discarded %d stale",
+                worker.worker_id, reattach.get("worker_id"),
+                len(reattached), len(discard),
+                extra={"worker": worker.worker_id},
+            )
+        return reattached, discard
+
+    async def _worker_sender(self, conn: Connection, queue: asyncio.Queue):
+        """Drain the per-worker queue into batch frames: a tick's burst
+        (compute batches, retract fan-out, cancels) leaves as one
+        encryption + one syscall instead of one per message — the downlink
+        half of the pipelined assignment delivery. The encryption half
+        runs on the fan-out sender pool (server/fanout.py) when enabled,
+        so N workers' downlinks seal on N threads instead of serializing
+        on this loop. (The chaos plane's per-message send actions come
+        with item 10.)"""
+        loop = asyncio.get_running_loop()
+        pool = self.sendpool
+        while True:
+            enq_ts, msg = await queue.get()
+            batch = [msg]
+            while len(batch) < 256:
+                try:
+                    batch.append(queue.get_nowait()[1])
+                except asyncio.QueueEmpty:
+                    break
+            t0 = time.perf_counter()
+            payload = (
+                batch[0] if len(batch) == 1
+                else {"op": "batch", "msgs": batch}
+            )
+            data = await pool.encode(loop, conn, payload)
+            await conn.send_bytes(data)
+            dt = time.perf_counter() - t0
+            pool.note_send(len(batch), len(data), dt)
+            # re-pointed `fanout` lag probe: handoff latency —
+            # reactor enqueue to frame-on-the-wire — not loop hold time
+            # (the encode no longer holds the loop at all)
+            self.lag.observe("fanout", clock.monotonic() - enq_ts)
+            if self.stall_budget > 0 and dt >= self.stall_budget:
+                self._capture_stall("fanout", dt)
+
+    async def _worker_recv_loop(self, conn: Connection, worker: Worker) -> None:
+        while True:
+            msg = await conn.recv()
+            worker.last_heartbeat = clock.monotonic()
+            subs = msg["msgs"] if msg.get("op") == "batch" else [msg]
+            # batched completion plane: the whole frame is processed
+            # synchronously (no awaits). With the journal plane on, the
+            # events it produced are enqueued to the commit thread and
+            # every CLIENT-visible effect (acks, replies, listener/
+            # subscriber deliveries) is watermark-gated. Worker-bound
+            # messages (cancels/retracts this frame may trigger) are
+            # deliberately NOT gated: dispatches were never journaled —
+            # the tick already sends compute messages with no durability
+            # coupling — and a pre-durable incarnation that dies with
+            # the server is fenced + killed at reattach (instance
+            # fencing), the same crash semantics as before. With
+            # --journal-plane reactor the inline group commit covers the
+            # frame as it always did (ONE write + fsync per batch).
+            t0 = time.perf_counter()
+            if self.jplane is not None:
+                for sub in subs:
+                    self._process_worker_message(worker, sub)
+                # in-loop completion processing (sans journal I/O) is its
+                # own lag plane now; `journal` measures handoff latency
+                # on the commit thread (see JournalPlane)
+                self.note_plane("completion", time.perf_counter() - t0)
+            else:
+                with self._journal_group_commit():
+                    for sub in subs:
+                        self._process_worker_message(worker, sub)
+                # frame processing + group commit hold the loop
+                # synchronously: the journal plane's loop occupancy
+                self.note_plane("journal", time.perf_counter() - t0)
+
+    def _process_worker_message(self, worker: Worker, msg: dict) -> None:
+            op = msg.get("op")
+            _WORKER_MESSAGES_TOTAL.labels(str(op)).inc()
+            if op == "task_running":
+                reactor.on_task_running(
+                    self.core, self.events, msg["id"], msg["instance"],
+                    wtrace=msg.get("trace"),
+                )
+            elif op == "task_finished":
+                reactor.on_task_finished(
+                    self.core, self.comm, self.events, msg["id"],
+                    msg["instance"], wtrace=msg.get("trace"),
+                )
+            elif op == "task_failed":
+                reactor.on_task_failed(
+                    self.core,
+                    self.comm,
+                    self.events,
+                    msg["id"],
+                    msg["instance"],
+                    msg.get("error", "task failed"),
+                    wtrace=msg.get("trace"),
+                )
+            elif op == "retract_response":
+                reactor.on_retract_response(
+                    self.core, self.comm, msg["id"], msg.get("ok", False),
+                    instance_id=msg.get("instance", -1),
+                )
+            elif op == "heartbeat":
+                pass
+            elif op == "goodbye":
+                # deliberate worker exit (idle/time limit): its running
+                # tasks requeue without a crash-counter charge
+                worker.clean_stop = True
+            elif op == "task_notify":
+                task_id = msg.get("id", 0)
+                self.emit_event(
+                    "task-notify",
+                    {
+                        "job": task_id_job(task_id),
+                        "task": task_id_task(task_id),
+                        "payload": msg.get("payload", ""),
+                    },
+                )
+            elif op == "overview":
+                worker.last_overview = {
+                    "hw": msg.get("hw", {}),
+                    "n_running": msg.get("n_running", 0),
+                }
+                # piggybacked gauge/counter samples feed the cluster-wide
+                # Prometheus view (collect hook) and the dashboard stream
+                worker.last_metrics = msg.get("metrics") or []
+                self.emit_event(
+                    "worker-overview",
+                    {"id": worker.worker_id, "hw": msg.get("hw", {}),
+                     "n_running": msg.get("n_running", 0),
+                     "metrics": worker.last_metrics},
+                )
+            else:
+                logger.warning("unknown worker message %r", op)
+
+    # --- client plane ---------------------------------------------------
+    async def _handle_client_conn(self, reader, writer) -> None:
+        try:
+            conn = await do_authentication(
+                reader,
+                writer,
+                ROLE_SERVER,
+                ROLE_CLIENT,
+                self.access.client_key_bytes() if self.access else None,
+            )
+            while True:
+                msg = await conn.recv()
+                if msg.get("op") in ("stream_events", "subscribe"):
+                    # adapt the connection to the sink interface shared
+                    # with the threaded plane: send = conn.send, and a
+                    # watcher task turns the read side's EOF into `gone`
+                    gone = asyncio.Event()
+
+                    async def _watch_eof() -> None:
+                        try:
+                            await conn.recv()
+                        except Exception:  # noqa: BLE001 - any end is EOF
+                            pass
+                        gone.set()
+
+                    watcher = asyncio.ensure_future(_watch_eof())
+                    handler = (
+                        self._stream_events
+                        if msg.get("op") == "stream_events"
+                        else self._subscribe
+                    )
+                    try:
+                        await handler(conn.send, gone, msg)
+                    finally:
+                        if not watcher.done():
+                            watcher.cancel()
+                            try:
+                                await watcher
+                            except (asyncio.CancelledError, Exception):
+                                pass
+                    break
+                response = await self._handle_client_message(msg)
+                if response is not None:
+                    # durability gate (journal plane): the reply leaves
+                    # only at/below the committed watermark
+                    await self._visibility_barrier()
+                    await conn.send(response)
+        except (
+            AuthError,
+            asyncio.IncompleteReadError,
+            ConnectionError,
+            OSError,
+        ) as e:
+            logger.debug("client connection ended: %s", e)
+        finally:
+            writer.close()
+
+    # client ops that legitimately await external progress (job completion,
+    # executor-offloaded compaction, manager dry-runs): their wall time is
+    # waiting, not loop occupancy, so they stay out of the rpc lag plane
+    _RPC_LAG_EXEMPT = frozenset({
+        "job_wait", "journal_compact", "journal_prune", "alloc_add",
+        "alloc_dry_run", "alloc_remove",
+    })
+
+    async def _handle_client_message(self, msg: dict) -> dict | None:
+        if not isinstance(msg, dict):
+            return {"op": "error", "message": "malformed request frame"}
+        op = msg.get("op")
+        if not isinstance(op, str):
+            return {"op": "error", "message": f"malformed operation {op!r}"}
+        handler = getattr(self, f"_client_{op.replace('-', '_')}", None)
+        if handler is None:
+            return {"op": "error", "message": f"unknown operation {op!r}"}
+        t0 = time.perf_counter()
+        try:
+            return await handler(msg)
+        except Exception as e:  # noqa: BLE001 - client errors must not kill the server
+            logger.exception("error handling client %r", op)
+            return {"op": "error", "message": str(e)}
+        finally:
+            if op not in self._RPC_LAG_EXEMPT:
+                self.note_plane("rpc", time.perf_counter() - t0)
+
+    async def _client_server_info(self, msg: dict) -> dict:
+        return {
+            "op": "server_info",
+            "server_uid": self.access.server_uid if self.access else "",
+            "version": __version__,
+            "host": self.host,
+            "server_dir": str(self.server_dir),
+            "client_port": self.client_port,
+            "worker_port": self.worker_port,
+            "started_at": self.started_at,
+            "n_workers": len(self.core.workers),
+            "n_jobs": len(self.jobs.jobs),
+            "scheduler": self.scheduler_kind,
+            "metrics_port": self.metrics_port,
+            "federation": self._federation_block(),
+            # which AEAD implementation seals this server's
+            # wire, and where the journal/fan-out work runs
+            "wire_backend": WIRE_BACKEND,
+            "journal_plane": (
+                self.journal_plane if self.journal is not None else None
+            ),
+            "fanout_senders": self.fanout_senders,
+        }
+
+    async def _client_server_stats(self, msg: dict) -> dict:
+        """Scheduler telemetry: per-phase tick latency breakdown plus the
+        incremental snapshot-cache counters (`hq server stats`).  The
+        phase split attributes a tick-latency regression to batches /
+        assemble / solve-dispatch / device-sync / mapping instead of one
+        opaque number."""
+        return {
+            "op": "server_stats",
+            "tick": self.core.tick_stats.snapshot(),
+            # phase -> fraction of tick time: the blame denominator bench
+            # smokes store next to the profiler's plane shares
+            "tick_shares": self.core.tick_stats.shares(),
+            "tick_cache": self.core.tick_cache.counters(),
+            "paranoid_tick": self.core.paranoid_tick,
+            "scheduler": self.scheduler_kind,
+            # active weighted-objective policy (None = flat
+            # placement-count objective)
+            "policy": (
+                self.core.policy.stats()
+                if self.core.policy is not None else None
+            ),
+            "solve_backend": getattr(self.model, "last_backend", None),
+            "solve_backend_reason": getattr(
+                self.model, "last_backend_reason", None
+            ),
+            "shape_allocations": getattr(
+                self.model, "shape_allocations", None
+            ),
+            "resident": (
+                self.model.resident_stats()
+                if hasattr(self.model, "resident_stats") else None
+            ),
+            "pipeline": (
+                self.core.tick_pipeline.stats()
+                if self.core.tick_pipeline is not None else None
+            ),
+            "watchdog": self.model.stats(),
+            "reattach_pending": len(self.reattach_pending),
+            "journal": await self._journal_stats_brief(),
+            "trace": TRACER.snapshot(recent=0),
+            # loop-lag per plane, stall captures, trace store +
+            # subscription plane health
+            "lag": self.lag.snapshot(),
+            "stalls": {
+                "budget_s": self.stall_budget,
+                "captured": self.stalls_captured,
+                "last": self.last_stall,
+            },
+            "task_traces": self.core.traces.stats(),
+            # per-plane CPU attribution from the sampling
+            # profiler (the CPU twin of the lag block above)
+            "profile": profiler.PROFILER.snapshot(),
+            "subscribers": len(self._subscribers),
+            # connection-plane + lazy-materialization health
+            "ingest": self._ingest_stats(),
+            # shard identity, lease health, lending counters
+            "federation": self._federation_block(),
+            # journal commit thread + fan-out sender pool
+            "journal_plane": (
+                self.jplane.stats() if self.jplane is not None
+                else {"mode": self.journal_plane}
+            ),
+            "fanout": self._fanout_stats(),
+        }
+
+    def _fanout_stats(self) -> dict:
+        from hyperqueue_tpu_torch.server.fanout import (
+            FANOUT_BYTES,
+            FANOUT_FRAMES,
+            FANOUT_STALLS,
+        )
+
+        return {
+            "senders": self.fanout_senders,
+            "wire_backend": WIRE_BACKEND,
+            "frames_total": int(FANOUT_FRAMES.labels().value),
+            "bytes_total": int(FANOUT_BYTES.labels().value),
+            "send_stalls": int(FANOUT_STALLS.labels().value),
+        }
+
+    def _ingest_stats(self) -> dict:
+        plane = self.ingest_plane
+        out = {
+            "plane": self.client_plane,
+            "lazy": self.core.lazy.stats(),
+            "open_streams": sum(
+                j.open_streams for j in self.jobs.jobs.values()
+            ),
+        }
+        if plane is not None:
+            out.update(
+                clients=len(plane.clients),
+                handoff_depth=len(plane.handoff),
+                window=plane.window,
+                chunks_total=int(INGEST_CHUNKS.labels().value),
+                tasks_total=int(INGEST_TASKS.labels().value),
+            )
+        return out
+
+    async def _journal_stats_brief(self) -> dict | None:
+        """Compact journal/snapshot block for `hq server stats` (stat-only;
+        `hq journal info` is the full view)."""
+        if self.journal_path is None:
+            return None
+        from hyperqueue_tpu_torch.events import snapshot as snapshot_mod
+
+        try:
+            journal_bytes = self.journal_path.stat().st_size
+        except OSError:
+            journal_bytes = 0
+        snap = snapshot_mod.snapshot_stats(self.journal_path)
+        return {
+            "journal_bytes": journal_bytes,
+            "segments": int(journal_bytes > 0) + int(snap["bytes"] > 0)
+            + int(snap["prev_bytes"] > 0),
+            "snapshot_bytes": snap["bytes"],
+            "snapshot_age_seconds": (
+                round(snap["age_seconds"], 1)
+                if snap["age_seconds"] is not None
+                else None
+            ),
+            "last_compaction": self.last_compaction,
+            "last_restore": self.last_restore,
+        }
+
+    async def _client_reset_metrics(self, msg: dict) -> dict:
+        """Zero the metrics plane (registry values, tracer spans, tick-phase
+        aggregates) so benchmarks can measure a steady-state window:
+        reset, run, scrape. Registrations survive — only values clear.
+        Externally-tracked telemetry the collect hook re-adopts (watchdog
+        counters, tick-cache counters) is zeroed at its source too;
+        hq_events_emitted_total is exempt — it mirrors the journal seq,
+        which is functional state."""
+        from hyperqueue_tpu_torch.scheduler.tick_cache import TickPhaseStats
+
+        REGISTRY.reset()
+        TRACER.reset()
+        # the rolling per-plane lag SpanStats live OUTSIDE the registry
+        # (they feed `hq server stats` + stall dumps) and must clear with
+        # the rest of the window, like the hq_span_seconds SpanStats do —
+        # a steady-state measurement must not inherit startup lag maxima
+        self.lag.reset()
+        self.core.tick_stats = TickPhaseStats()
+        self.model.reset_stats()
+        self.core.tick_cache.full_rebuilds = 0
+        self.core.tick_cache.incremental_syncs = 0
+        # SLO windows + alert state clear with the measurement window
+        #: steady-state burn rates must not inherit a breach
+        # that happened before the reset
+        self.slo.reset()
+        # profiler aggregates: folded trie, CPU-share window
+        # and the stall sample ring all belong to the measurement window
+        profiler.PROFILER.reset()
+        return {"op": "ok"}
+
+    async def _client_profile(self, msg: dict) -> dict:
+        """Folded stacks + per-plane CPU shares from the sampling
+        profiler (`hq server profile [--seconds N]`). With the
+        continuous sampler on, `--seconds N` diffs the folded trie
+        across the window (the cumulative view is seconds 0); on a
+        `--profile-hz 0` server a throwaway burst sampler covers the
+        window instead, so the command always answers."""
+        seconds = min(max(float(msg.get("seconds") or 0.0), 0.0), 120.0)
+        prof = profiler.PROFILER
+        if prof.running:
+            if seconds > 0:
+                before = prof.folded_counts()
+                passes0 = prof.passes
+                await asyncio.sleep(seconds)
+                counts = profiler.diff_counts(prof.folded_counts(), before)
+                window_passes = prof.passes - passes0
+            else:
+                counts = prof.folded_counts()
+                window_passes = prof.passes
+            return {
+                "op": "profile",
+                "mode": "continuous",
+                "shard": self.shard_id,
+                "hz": prof.hz,
+                "seconds": seconds,
+                "passes": window_passes,
+                "folded": profiler.render_folded(counts),
+                "profile": prof.snapshot(),
+            }
+        if self.memory_transport or clock.is_simulated():
+            return {"op": "error",
+                    "message": "profiling is unavailable on a simulated "
+                               "server (real wall-clock telemetry only)"}
+        # --profile-hz 0: sample a temporary burst for the window
+        seconds = seconds or 2.0
+        burst = profiler.SamplingProfiler(hz=max(self.profile_hz, 0)
+                                          or profiler.DEFAULT_HZ)
+        if not burst.start():
+            return {"op": "error", "message": "profiler failed to start"}
+        try:
+            await asyncio.sleep(seconds)
+        finally:
+            burst.stop()
+        return {
+            "op": "profile",
+            "mode": "burst",
+            "shard": self.shard_id,
+            "hz": burst.hz,
+            "seconds": seconds,
+            "passes": burst.passes,
+            "folded": burst.folded(),
+            "profile": burst.snapshot(),
+        }
+
+    async def _client_metrics_render(self, msg: dict) -> dict:
+        """The full Prometheus exposition over the client plane — the
+        fleet metrics proxy scrapes shards through this RPC so
+        one federated scrape needs no per-shard --metrics-port wiring."""
+        return {"op": "metrics", "text": REGISTRY.render()}
+
+    async def _client_job_timeline(self, msg: dict) -> dict:
+        """Per-task lifecycle timeline of one job, aggregated server-side:
+        submit -> queued -> assigned -> spawned -> finished timestamps
+        folded into per-phase percentiles plus a slowest-task drill-down
+        (`hq job timeline`). Phase chains are clamped monotonic, so the
+        four phase durations of a finished task sum EXACTLY to its
+        finished-submitted wall time."""
+        job = self.jobs.jobs.get(msg["job_id"])
+        if job is None:
+            return {"op": "error", "message": f"job {msg['job_id']} not found"}
+        rows = []
+        for info in job.tasks.values():
+            task = self.core.tasks.get(
+                make_task_id(job.job_id, info.job_task_id)
+            )
+            pts = [
+                info.submitted_at,
+                task.t_ready if task else 0.0,
+                task.t_assigned if task else 0.0,
+                info.started_at,
+                info.finished_at,
+            ]
+            # forward-clamp the chain: a missing middle stamp (e.g. a
+            # restore dropped t_ready for a reattached task) collapses its
+            # phase to zero instead of corrupting the neighbours
+            for i in range(1, len(pts)):
+                if pts[i] <= 0 or pts[i] < pts[i - 1]:
+                    pts[i] = pts[i - 1]
+            rows.append({
+                "id": info.job_task_id,
+                "status": info.status,
+                "submitted": pts[0],
+                "queued": pts[1],
+                "assigned": pts[2],
+                "started": pts[3],
+                "finished": pts[4] if info.finished_at else 0.0,
+                "phases": {
+                    "pending": pts[1] - pts[0],
+                    "queued": pts[2] - pts[1],
+                    "dispatch": pts[3] - pts[2],
+                    "run": pts[4] - pts[3],
+                } if info.finished_at else None,
+            })
+        # unmaterialized lazy array tasks: pending since their CHUNK's
+        # submit stamp (per-chunk clocks keep phase sums exact for open
+        # jobs appending chunks over time)
+        for seg in self.core.lazy.segments_of(job.job_id):
+            chunk_submitted = seg.chunk.submitted_at
+            for tid in seg.remaining_ids():
+                rows.append({
+                    "id": tid, "status": "waiting",
+                    "submitted": chunk_submitted,
+                    "queued": chunk_submitted, "assigned": 0.0,
+                    "started": 0.0, "finished": 0.0, "phases": None,
+                })
+        finished = [r for r in rows if r["phases"] is not None]
+
+        def pct(sorted_vals: list, q: float) -> float:
+            if not sorted_vals:
+                return 0.0
+            idx = min(
+                len(sorted_vals) - 1,
+                int(q * (len(sorted_vals) - 1) + 0.5),
+            )
+            return sorted_vals[idx]
+
+        phases_out = {}
+        for name in ("pending", "queued", "dispatch", "run"):
+            values = sorted(r["phases"][name] for r in finished)
+            phases_out[name] = {
+                "count": len(values),
+                "total": round(sum(values), 6),
+                "mean": round(sum(values) / len(values), 6) if values else 0.0,
+                "p50": round(pct(values, 0.50), 6),
+                "p95": round(pct(values, 0.95), 6),
+                "max": round(values[-1], 6) if values else 0.0,
+            }
+        makespan = 0.0
+        if finished:
+            makespan = max(r["finished"] for r in finished) - min(
+                r["submitted"] for r in finished
+            )
+        slowest = sorted(
+            finished, key=lambda r: r["finished"] - r["submitted"],
+            reverse=True,
+        )[:5]
+        out = {
+            "op": "job_timeline",
+            "job": job.job_id,
+            "n_tasks": len(rows),
+            "n_finished": len(finished),
+            "makespan": round(makespan, 6),
+            "phases": phases_out,
+            "slowest": slowest,
+        }
+        if msg.get("detail"):
+            out["tasks"] = rows
+        return out
+
+    async def _client_stop_server(self, msg: dict) -> dict:
+        asyncio.get_running_loop().call_soon(self.stop)
+        return {"op": "ok"}
 
     async def _client_submit(self, msg: dict) -> dict:
         recv_at = clock.now()
@@ -1436,6 +3329,142 @@ class Server:
         reactor.on_new_tasks(self.core, self.comm, new_tasks)
         return len(new_tasks)
 
+    def _apply_submit_chunk(self, msg: dict) -> dict:
+        """One streamed submit chunk (op=submit_chunk), applied
+        synchronously so the ingest drain loop can group-commit a whole
+        run of chunks as ONE journal append+fsync.
+
+        Exactly-once across retries and restarts: every chunk is keyed
+        (stream uid, chunk index); applied indexes are journaled with the
+        chunk's job-submitted event and replayed into Job.streams, so a
+        client re-sending an unacked chunk after a server crash gets an
+        idempotent duplicate ack instead of duplicate tasks."""
+        from hyperqueue_tpu_torch.transport.framing import read_trace
+        from hyperqueue_tpu_torch.utils.trace import new_trace_id
+
+        recv_at = clock.now()
+        uid = msg.get("uid")
+        rid = msg.get("rid")
+        if not isinstance(uid, str) or not uid:
+            return {"op": "error", "rid": rid,
+                    "message": "submit_chunk requires a stream uid"}
+        index = int(msg.get("i", 0))
+        header = msg.get("job") or {}
+        # elastic resharding: a stream whose job moved (or is
+        # mid-move) answers a coded error — the client re-resolves the
+        # owner and replays its unacked chunks there (the destination
+        # imported the stream's applied-index set, so the replay dedups)
+        probe_id = self._stream_jobs.get(uid)
+        if probe_id is None:
+            probe_id = header.get("job_id")
+        guard = self._owned_elsewhere(probe_id, rid=rid)
+        if guard is not None:
+            return guard
+        job_id = self._stream_jobs.get(uid)
+        if job_id is not None:
+            job = self.jobs.jobs.get(job_id)
+            if job is None:
+                return {"op": "error", "rid": rid,
+                        "message": f"stream {uid}: job {job_id} vanished"}
+        else:
+            jid = header.get("job_id")
+            if jid is not None and jid in self.jobs.jobs:
+                job = self.jobs.jobs[jid]
+                if not job.is_open and uid not in job.streams:
+                    return {"op": "error", "rid": rid,
+                            "message": f"job {jid} is not open"}
+            else:
+                job = self.jobs.create_job(
+                    name=header.get("name", "job"),
+                    submit_dir=header.get("submit_dir", os.getcwd()),
+                    max_fails=header.get("max_fails"),
+                    is_open=bool(header.get("open", False)),
+                    job_id=jid,
+                )
+            self._stream_jobs[uid] = job.job_id
+        stream = job.streams.get(uid)
+        if stream is None:
+            stream = job.streams[uid] = {"applied": set(), "sealed": False}
+            job.open_streams += 1
+        if index in stream["applied"]:
+            # ack replay (client retry after a lost ack): idempotent
+            return {"op": "chunk_ack", "rid": rid, "job_id": job.job_id,
+                    "i": index, "n_tasks": 0, "dup": True}
+        if stream["sealed"]:
+            return {"op": "error", "rid": rid,
+                    "message": f"stream {uid} is already sealed"}
+        tctx = read_trace(msg) or {}
+        trace = {
+            "id": tctx.get("id") or new_trace_id(),
+            "sent_at": float(tctx.get("sent_at") or 0.0),
+            "recv_at": recv_at,
+            "commit_at": clock.now(),
+        }
+        desc: dict = {
+            "name": job.name, "submit_dir": job.submit_dir,
+            "max_fails": job.max_fails, "open": job.is_open,
+        }
+        array = msg.get("array")
+        graph_tasks = msg.get("tasks")
+        n_new = 0
+        try:
+            if array:
+                n_new = self._ingest_array_desc(
+                    job, array, submitted_at=recv_at, trace=trace
+                )
+                desc["array"] = array
+            elif graph_tasks:
+                new_tasks = self._build_tasks(job, {"tasks": graph_tasks})
+                n_new = len(new_tasks)
+                desc["tasks"] = graph_tasks
+                self._begin_submit_traces(new_tasks, trace)
+                reactor.on_new_tasks(self.core, self.comm, new_tasks)
+        except Exception as e:  # noqa: BLE001 - bad chunk answers the client
+            # a rejected chunk BREAKS the stream: seal it (journaled, so
+            # restore cannot resurrect it open) so the job can still
+            # terminate — the client aborts on the error and must
+            # restart with a fresh stream uid
+            if not stream["sealed"]:
+                stream["sealed"] = True
+                job.open_streams = max(job.open_streams - 1, 0)
+                self.emit_event(
+                    "job-streams-sealed",
+                    {"job": job.job_id, "uids": [uid]},
+                )
+                self.check_job_completion(job.job_id)
+            return {"op": "error", "rid": rid,
+                    "message": f"chunk {index} rejected: {e}"}
+        stream["applied"].add(index)
+        last = bool(msg.get("last"))
+        if last:
+            stream["sealed"] = True
+            job.open_streams = max(job.open_streams - 1, 0)
+        if n_new:
+            job.submits.append(submit_record(desc, n_new))
+        self.emit_event(
+            "job-submitted",
+            {"job": job.job_id, "desc": desc, "n_tasks": n_new,
+             "chunk": {"uid": uid, "i": index, "last": last},
+             "trace": {"id": trace["id"], "sent_at": trace["sent_at"],
+                       "recv_at": recv_at}},
+        )
+        INGEST_CHUNKS.inc()
+        if n_new:
+            INGEST_TASKS.inc(n_new)
+        if last:
+            # the stream seal may be what lets the job terminate
+            self.check_job_completion(job.job_id)
+        return {"op": "chunk_ack", "rid": rid, "job_id": job.job_id,
+                "i": index, "n_tasks": n_new, "dup": False}
+
+    async def _client_submit_chunk(self, msg: dict) -> dict:
+        """submit_chunk over the legacy in-loop client plane
+        (--client-plane reactor): apply one chunk under its own group
+        commit. The threaded plane batches chunk runs in the drain loop
+        instead and never reaches this handler."""
+        with self._journal_group_commit():
+            return self._apply_submit_chunk(msg)
+
     def _build_tasks(self, job, job_desc: dict) -> list[Task]:
         """Convert a GRAPH submit description into core tasks (arrays go
         through _ingest_array_desc).
@@ -1476,3 +3505,1263 @@ class Server:
                 )
             )
         return new_tasks
+
+    def _job_pending_reasons(self, job_id: int) -> dict[str, int]:
+        """Reason-code -> pending-task count for one job, joined from the
+        latest DecisionRecord plus the pause ledger (`hq job info`
+        "37 tasks waiting: 30 insufficient-capacity, 7 gang-incomplete")."""
+        from hyperqueue_tpu_torch.scheduler import decision as decision_mod
+
+        reasons: dict[str, int] = {}
+        held = self.core.paused_held.get(job_id)
+        if held:
+            reasons[decision_mod.REASON_QUEUE_PAUSED] = len(held)
+        if job_id in self.core.paused_jobs:
+            # the pause supersedes whatever the last pre-pause tick said
+            return reasons
+        latest = self.core.flight.latest()
+        if latest:
+            for entry in latest.get("unplaced") or ():
+                if (
+                    entry.get("job") == job_id
+                    and entry.get("reason")
+                    != decision_mod.REASON_QUEUE_PAUSED
+                ):
+                    reasons[entry["reason"]] = (
+                        reasons.get(entry["reason"], 0) + entry["count"]
+                    )
+        return reasons
+
+    async def _client_job_list(self, msg: dict) -> dict:
+        jobs = []
+        for j in self.jobs.jobs.values():
+            info = j.to_info()
+            info["paused"] = j.job_id in self.core.paused_jobs
+            jobs.append(info)
+        return {"op": "job_list", "jobs": jobs}
+
+    def _job_detail(self, job) -> dict:
+        """job.to_detail() plus synthesized rows for unmaterialized lazy
+        array tasks (status "waiting" — they have no per-task state yet,
+        which is the point)."""
+        detail = job.to_detail()
+        if job.n_lazy:
+            rows = detail["tasks"]
+            for seg in self.core.lazy.segments_of(job.job_id):
+                for tid in seg.remaining_ids():
+                    rows.append({
+                        "id": tid, "status": "waiting", "error": "",
+                        "workers": [], "started_at": 0.0,
+                        "finished_at": 0.0,
+                    })
+            rows.sort(key=lambda r: r["id"])
+        return detail
+
+    async def _client_job_info(self, msg: dict) -> dict:
+        guard = self._guard_job_ids(msg["job_ids"])
+        if guard is not None:
+            return guard
+        out = []
+        for job_id in msg["job_ids"]:
+            job = self.jobs.jobs.get(job_id)
+            if job is not None:
+                detail = self._job_detail(job)
+                detail["paused"] = job_id in self.core.paused_jobs
+                if job.n_waiting() - job.counters["running"] > 0:
+                    detail["pending_reasons"] = self._job_pending_reasons(
+                        job_id
+                    )
+                out.append(detail)
+        return {"op": "job_info", "jobs": out}
+
+    async def _client_job_wait(self, msg: dict) -> dict:
+        guard = self._guard_job_ids(msg["job_ids"])
+        if guard is not None:
+            return guard
+        events = []
+        for job_id in msg["job_ids"]:
+            job = self.jobs.jobs.get(job_id)
+            if job is None or job.all_tasks_done():
+                continue
+            event = asyncio.Event()
+            self._job_waiters.setdefault(job_id, []).append(event)
+            events.append(event)
+        if events:
+            await asyncio.gather(*(e.wait() for e in events))
+        return await self._client_job_info(msg)
+
+    async def _client_job_cancel(self, msg: dict) -> dict:
+        guard = self._guard_job_ids(msg["job_ids"])
+        if guard is not None:
+            return guard
+        canceled = []
+        for job_id in msg["job_ids"]:
+            job = self.jobs.jobs.get(job_id)
+            if job is None:
+                continue
+            # lazy array tasks must exist to be canceled (per-task events,
+            # counters); a cancel is O(tasks) with or without laziness
+            if job.n_lazy:
+                self.core.lazy.materialize_job(self.core, job_id)
+            # cancel implies the client gave up on any in-flight chunk
+            # stream: seal so the job can reach a terminal state — and
+            # JOURNAL the forced seal, or a restore would resurrect the
+            # stream as open and the job could never terminate
+            self._seal_job_streams(job)
+            task_ids = [
+                make_task_id(job_id, t.job_task_id)
+                for t in job.tasks.values()
+                if t.status in ("waiting", "running")
+            ]
+            if task_ids:
+                job.cancel_reason = "canceled by user"
+            out = reactor.on_cancel_tasks(
+                self.core, self.comm, self.events, task_ids
+            )
+            canceled.append({"job": job_id, "n_canceled": len(out)})
+            self.check_job_completion(job_id)
+        return {"op": "job_cancel", "result": canceled}
+
+    async def _client_job_forget(self, msg: dict) -> dict:
+        guard = self._guard_job_ids(msg["job_ids"])
+        if guard is not None:
+            return guard
+        forgotten = 0
+        for job_id in msg["job_ids"]:
+            job = self.jobs.jobs.get(job_id)
+            if job is None or not job.is_terminated():
+                continue
+            del self.jobs.jobs[job_id]
+            for job_task_id in job.tasks:
+                self.core.tasks.pop(make_task_id(job_id, job_task_id), None)
+            self.core.paused_jobs.discard(job_id)
+            self.core.paused_held.pop(job_id, None)
+            self.core.lazy.forget_job(job_id)
+            for uid in job.streams:
+                self._stream_jobs.pop(uid, None)
+            forgotten += 1
+        return {"op": "job_forget", "forgotten": forgotten}
+
+    async def _client_open_job(self, msg: dict) -> dict:
+        job = self.jobs.create_job(
+            name=msg.get("name", "job"),
+            submit_dir=msg.get("submit_dir", os.getcwd()),
+            max_fails=msg.get("max_fails"),
+            is_open=True,
+        )
+        self.emit_event("job-opened", {"job": job.job_id, "name": job.name})
+        return {"op": "open_job", "job_id": job.job_id}
+
+    async def _client_close_job(self, msg: dict) -> dict:
+        closed = []
+        for job_id in msg["job_ids"]:
+            job = self.jobs.jobs.get(job_id)
+            if job is not None and (job.is_open or job.open_streams):
+                job.is_open = False
+                # a close also seals abandoned chunk streams (a client
+                # that died mid-stream must not wedge the job forever);
+                # the job-closed record seals them again on replay
+                job.seal_streams()
+                closed.append(job_id)
+                self.emit_event("job-closed", {"job": job_id})
+                self.check_job_completion(job_id)
+        return {"op": "close_job", "closed": closed}
+
+    async def _client_alloc_add(self, msg: dict) -> dict:
+        return self._waits_for_item_10(msg)
+
+    async def _client_alloc_list(self, msg: dict) -> dict:
+        return self._waits_for_item_10(msg)
+
+    async def _client_alloc_remove(self, msg: dict) -> dict:
+        return self._waits_for_item_10(msg)
+
+    async def _client_alloc_pause(self, msg: dict) -> dict:
+        return self._waits_for_item_10(msg)
+
+    async def _client_alloc_events(self, msg: dict) -> dict:
+        return self._waits_for_item_10(msg)
+
+    async def _client_alloc_log(self, msg: dict) -> dict:
+        return self._waits_for_item_10(msg)
+
+    async def _client_alloc_dry_run(self, msg: dict) -> dict:
+        return self._waits_for_item_10(msg)
+
+    async def _client_task_explain(self, msg: dict) -> dict:
+        """Why is this task (not) running? Reference server/explain.rs:11-98 —
+        per worker x per variant, which constraints block — joined with the
+        latest DecisionRecord (scheduler/decision.py) for the verdict:
+        reason code, human detail, and how many consecutive ticks the
+        task's class has been deferred (utils/flight.py)."""
+        from hyperqueue_tpu_torch.scheduler import decision as decision_mod
+
+        job_id = msg["job_id"]
+        job = self.jobs.jobs.get(job_id)
+        job_task_id = msg.get("task_id")
+        if job_task_id is None:
+            # `hq task explain <job>` without a task: pick the job's first
+            # still-pending task (else its first task at all)
+            if job is None:
+                return {"op": "error", "message": f"job {job_id} not found"}
+            pending = sorted(
+                t.job_task_id for t in job.tasks.values()
+                if t.status in ("waiting", "running")
+            )
+            if pending:
+                job_task_id = pending[0]
+            elif job.n_lazy:
+                # first LIVE lazy id (the chunk min may already have
+                # materialized — or finished — past the segment cursor)
+                job_task_id = min(
+                    next(iter(seg.remaining_ids()))
+                    for seg in self.core.lazy.segments_of(job_id)
+                )
+            elif job.tasks:
+                job_task_id = min(job.tasks)
+            else:
+                return {"op": "error",
+                        "message": f"job {job_id} has no tasks"}
+        task = self.core.tasks.get(make_task_id(job_id, job_task_id))
+        if task is None and self.core.lazy.owns(job_id, job_task_id):
+            # materialize the ONE asked-about lazy task so the explain
+            # walk sees exactly what an eager submit would have produced
+            # (it re-enters the queues at its priority level's tail)
+            task = self.core.lazy.extract(self.core, job_id, job_task_id)
+            if task is not None:
+                if job_id in self.core.paused_jobs:
+                    self.core.paused_held.setdefault(
+                        job_id, set()
+                    ).add(task.task_id)
+                else:
+                    self.core.queues.add(
+                        task.rq_id, task.priority, task.task_id
+                    )
+        if task is None:
+            if job is not None and job_task_id in job.tasks:
+                info = job.tasks[job_task_id]
+                return {
+                    "op": "task_explain",
+                    "job": job_id,
+                    "task": job_task_id,
+                    "state": info.status,
+                    "workers": [],
+                    "n_waiting_deps": 0,
+                    "reason": None,
+                    "reason_detail": f"task is {info.status}",
+                    "deferred_ticks": 0,
+                }
+            return {"op": "error", "message": "task not found"}
+        rqv = self.core.rq_map.get_variants(task.rq_id)
+        workers = []
+        for w in self.core.workers.values():
+            variants = []
+            for vi, variant in enumerate(rqv.variants):
+                blocked = []
+                if variant.is_multi_node:
+                    group_size = sum(
+                        1 for x in self.core.workers.values()
+                        if x.group == w.group
+                    )
+                    if group_size < variant.n_nodes:
+                        blocked.append(
+                            f"group '{w.group}' has {group_size} < "
+                            f"{variant.n_nodes} workers"
+                        )
+                else:
+                    for entry in variant.entries:
+                        name = self.core.resource_map.name_of(entry.resource_id)
+                        have_total = w.resources.amount(entry.resource_id)
+                        have_free = (
+                            w.free[entry.resource_id]
+                            if entry.resource_id < len(w.free)
+                            else 0
+                        )
+                        if have_total < entry.amount:
+                            blocked.append(
+                                f"needs {entry.amount / 10_000:g} {name}, "
+                                f"worker has {have_total / 10_000:g}"
+                            )
+                        elif have_free < entry.amount:
+                            blocked.append(
+                                f"waiting for {name} "
+                                f"(free {have_free / 10_000:g} of "
+                                f"{entry.amount / 10_000:g} needed)"
+                            )
+                if variant.min_time_secs and (
+                    w.lifetime_secs() < variant.min_time_secs
+                ):
+                    blocked.append(
+                        f"needs {variant.min_time_secs:g}s but worker has "
+                        f"{w.lifetime_secs()}s left"
+                    )
+                variants.append({"variant": vi, "blocked": blocked})
+            workers.append(
+                {
+                    "id": w.worker_id,
+                    "hostname": w.configuration.hostname,
+                    "variants": variants,
+                    "runnable": any(not v["blocked"] for v in variants),
+                }
+            )
+
+        # --- verdict: reason code + deferral from the flight recorder ---
+        reason = None
+        detail = ""
+        deferred = 0
+        decision_tick = None
+        paused = job_id in self.core.paused_jobs
+        if task.state is TaskState.WAITING:
+            reason = decision_mod.REASON_WAITING_DEPS
+            detail = (
+                f"waiting for {task.unfinished_deps} unfinished "
+                f"dependenc{'y' if task.unfinished_deps == 1 else 'ies'}"
+            )
+        elif task.state is TaskState.READY:
+            held = self.core.paused_held.get(job_id)
+            if paused and held and task.task_id in held:
+                reason = decision_mod.REASON_QUEUE_PAUSED
+                detail = (
+                    f"job {job_id} is paused; "
+                    f"`hq job resume {job_id}` to release it"
+                )
+            else:
+                rec = self.core.flight.reason_for(task.rq_id, job_id)
+                if rec is not None:
+                    reason = rec["reason"]
+                    detail = rec.get("detail") or ""
+                    deferred = rec["deferred_ticks"]
+                    decision_tick = rec["tick"]
+                elif rqv.is_multi_node:
+                    reason = decision_mod.REASON_GANG_INCOMPLETE
+                else:
+                    # no DecisionRecord covers it (no tick yet, or the
+                    # recorder is off): classify live against the pool
+                    reason = decision_mod.classify_class(
+                        self.core, task.rq_id, rqv
+                    )
+            if not detail:
+                n_capable = sum(
+                    1 for w in self.core.workers.values()
+                    if w.resources.is_capable_of_rqv(rqv)
+                )
+                detail = {
+                    decision_mod.REASON_NO_MATCHING_WORKER: (
+                        f"none of the {len(self.core.workers)} connected "
+                        "worker(s) provides the requested resources"
+                    ),
+                    decision_mod.REASON_INSUFFICIENT_CAPACITY: (
+                        f"{n_capable} capable worker(s), all currently "
+                        "occupied"
+                    ),
+                    decision_mod.REASON_WORKER_LIFETIME: (
+                        f"{n_capable} capable worker(s), but none has "
+                        "enough remaining lifetime for the requested "
+                        "--time-request"
+                    ),
+                    decision_mod.REASON_SOLVER_DEFERRED: (
+                        "capacity was free but the solver deferred the "
+                        "class this tick (priority interleaving or "
+                        "reservation drain)"
+                    ),
+                    decision_mod.REASON_WATCHDOG_FALLBACK: (
+                        "the tick ran on the watchdog's host-greedy "
+                        "fallback after the primary solver failed "
+                        "(see `hq server stats`)"
+                    ),
+                    decision_mod.REASON_GANG_INCOMPLETE: (
+                        "waiting for enough idle same-group workers to "
+                        "host the gang"
+                    ),
+                    decision_mod.REASON_FAIRNESS_DEFERRED: (
+                        "a fairness/prediction-boosted job overtook this "
+                        "class's priority this tick (--policy-file; "
+                        "active policy under `hq server stats`)"
+                    ),
+                }.get(reason, "")
+        # the latest tick's solver verdict: which backend solved (and WHY
+        # that backend was chosen — the adaptive cost model's reason), so
+        # "why did this tick solve on the host?" is answerable from here
+        latest = self.core.flight.latest()
+        solver = (latest or {}).get("solver") or {}
+        return {
+            "op": "task_explain",
+            "job": job_id,
+            "task": job_task_id,
+            "state": task.state.value,
+            "n_waiting_deps": task.unfinished_deps,
+            "reason": reason,
+            "reason_detail": detail,
+            "deferred_ticks": deferred,
+            "decision_tick": decision_tick,
+            "paused": paused,
+            "solver_backend": solver.get("backend"),
+            "solver_backend_reason": solver.get("backend_reason"),
+            "solver_pipelined": bool(solver.get("pipelined")),
+            # active weighted objective (--policy-file): weight-matrix
+            # source, predictor hit-rate, boost range — None when flat
+            "policy": (
+                self.core.policy.stats()
+                if self.core.policy is not None else None
+            ),
+            "workers": workers,
+        }
+
+    async def _client_flight_recorder_dump(self, msg: dict) -> dict:
+        """The flight recorder's rings: last N DecisionRecords + recent
+        control-plane events (`hq server flight-recorder dump`)."""
+        return {"op": "flight_recorder", **self.core.flight.dump()}
+
+    async def _client_job_pause(self, msg: dict) -> dict:
+        """Hold the selected jobs' READY tasks out of the scheduler queues
+        (running/assigned tasks are not preempted)."""
+        paused = []
+        for job_id in msg["job_ids"]:
+            job = self.jobs.jobs.get(job_id)
+            if job is None or job.is_terminated():
+                continue
+            held, retracted = reactor.pause_jobs(
+                self.core, self.comm, [job_id]
+            )
+            paused.append(
+                {"job": job_id, "held": held, "retracted": retracted}
+            )
+            self.emit_event(
+                "job-paused",
+                {"job": job_id, "held": held, "retracted": retracted},
+            )
+        if paused:
+            # wake the scheduler so the next DecisionRecord reflects the
+            # pause (and freed prefill budgets can shift to other jobs)
+            self.comm.ask_for_scheduling()
+        return {"op": "job_pause", "paused": paused}
+
+    async def _client_job_resume(self, msg: dict) -> dict:
+        released = []
+        for job_id in msg["job_ids"]:
+            if job_id not in self.core.paused_jobs:
+                continue
+            n = reactor.resume_jobs(self.core, self.comm, [job_id])
+            released.append({"job": job_id, "released": n})
+            self.emit_event("job-resumed", {"job": job_id, "released": n})
+        return {"op": "job_resume", "resumed": released}
+
+    async def _client_trace_export(self, msg: dict) -> dict:
+        """Chrome trace-event JSON of the run so far: one scheduler row
+        built from the flight recorder's tick ring, one row per worker
+        carrying its task spans (lifecycle stamps), loadable in Perfetto
+        (`hq server trace export out.json`)."""
+        events: list[dict] = []
+        now = clock.now()
+        events.append({
+            "ph": "M", "pid": 0, "tid": 0, "name": "process_name",
+            "args": {"name": f"hq-server {self.host}"},
+        })
+        events.append({
+            "ph": "M", "pid": 0, "tid": 0, "name": "thread_name",
+            "args": {"name": "scheduler"},
+        })
+        seen_workers: set[int] = set()
+
+        def name_worker(wid: int, hostname: str = "") -> None:
+            if wid in seen_workers or not wid:
+                return
+            seen_workers.add(wid)
+            label = f"worker {wid}"
+            if hostname:
+                label += f" ({hostname})"
+            events.append({
+                "ph": "M", "pid": 0, "tid": wid, "name": "thread_name",
+                "args": {"name": label},
+            })
+
+        for w in self.core.workers.values():
+            name_worker(w.worker_id, w.configuration.hostname)
+        for wid, past in self.past_workers.items():
+            name_worker(wid, past.get("hostname", ""))
+
+        # scheduler row: one slice per recorded tick + a ready-queue counter
+        ticks = self.core.flight.ticks()
+        for rec in ticks:
+            ts = rec["time"] * 1e6
+            events.append({
+                "ph": "X", "pid": 0, "tid": 0, "ts": ts,
+                "dur": max(rec.get("duration_ms", 0.0) * 1e3, 1.0),
+                "cat": "tick", "name": f"tick {rec['tick']}",
+                "args": {
+                    "solver": rec.get("solver"),
+                    "counts": rec.get("counts"),
+                    "phases": rec.get("phases"),
+                    "unplaced": rec.get("unplaced"),
+                },
+            })
+            events.append({
+                "ph": "C", "pid": 0, "tid": 0, "ts": ts,
+                "name": "ready_tasks",
+                "args": {
+                    "ready": rec.get("counts", {}).get("ready_left", 0)
+                },
+            })
+
+        # solver row (pid 1): one slice per solve, placed by its RECORDED
+        # dispatch/readback wall stamps. Under --tick-pipeline, tick k+1
+        # maps the solve DISPATCHED at tick k — charging its solve_ms to
+        # the mapping tick's row misattributes the span (it shows the
+        # readback wait at the wrong time and hides the overlapped device
+        # execution).  The wall stamps render the true execution window;
+        # sync solves draw inside their own tick with solve_ms.
+        events.append({
+            "ph": "M", "pid": 1, "tid": 0, "name": "process_name",
+            "args": {"name": "hq-solver"},
+        })
+        events.append({
+            "ph": "M", "pid": 1, "tid": 0, "name": "thread_name",
+            "args": {"name": "solve plane"},
+        })
+        for rec in ticks:
+            solver = rec.get("solver") or {}
+            solve_ms = solver.get("solve_ms") or 0.0
+            if solver.get("pipelined"):
+                disp = solver.get("dispatched_at_wall") or 0.0
+                mapped = solver.get("mapped_at_wall") or 0.0
+                if disp and mapped:
+                    events.append({
+                        "ph": "X", "pid": 1, "tid": 0, "ts": disp * 1e6,
+                        "dur": max((mapped - disp) * 1e6, 1.0),
+                        "cat": "solve",
+                        "name": f"solve → tick {rec['tick']}",
+                        "args": {
+                            "pipelined": True,
+                            "backend": solver.get("backend"),
+                            # the tick-critical-path cost vs the full
+                            # dispatch->map window (DecisionRecord
+                            # solve_ms vs inflight_ms)
+                            "readback_wait_ms": solve_ms,
+                            "inflight_ms": solver.get("inflight_ms"),
+                            "objective": solver.get("objective"),
+                        },
+                    })
+            elif solve_ms:
+                events.append({
+                    "ph": "X", "pid": 1, "tid": 0, "ts": rec["time"] * 1e6,
+                    "dur": max(solve_ms * 1e3, 1.0),
+                    "cat": "solve", "name": f"solve tick {rec['tick']}",
+                    "args": {
+                        "pipelined": False,
+                        "backend": solver.get("backend"),
+                        "solve_ms": solve_ms,
+                        "objective": solver.get("objective"),
+                    },
+                })
+
+        # worker rows: one slice per task execution span, linked to the
+        # scheduler row with flow events (the per-task causal trace made
+        # visible: dispatch on the scheduler row flows into the execution
+        # slice on the worker row)
+        for job in self.jobs.jobs.values():
+            for info in job.tasks.values():
+                if not info.started_at:
+                    continue
+                wid = info.worker_ids[0] if info.worker_ids else 0
+                name_worker(wid)
+                end = info.finished_at or now
+                task_id = make_task_id(job.job_id, info.job_task_id)
+                core_task = self.core.tasks.get(task_id)
+                trace_rec = self.core.traces.get(task_id)
+                events.append({
+                    "ph": "X", "pid": 0, "tid": wid,
+                    "ts": info.started_at * 1e6,
+                    "dur": max((end - info.started_at) * 1e6, 1.0),
+                    "cat": "task",
+                    "name": f"{job.job_id}.{info.job_task_id}",
+                    "args": {
+                        "status": info.status,
+                        "submitted_at": info.submitted_at,
+                        "queued_at": core_task.t_ready if core_task else 0.0,
+                        "assigned_at": (
+                            core_task.t_assigned if core_task else 0.0
+                        ),
+                        "workers": info.worker_ids,
+                        "trace_id": (
+                            trace_rec["trace_id"] if trace_rec else None
+                        ),
+                    },
+                })
+                assigned_at = core_task.t_assigned if core_task else 0.0
+                if assigned_at and wid:
+                    flow = {
+                        "cat": "dispatch", "name": "dispatch",
+                        "id": task_id,
+                    }
+                    events.append({
+                        "ph": "s", "pid": 0, "tid": 0,
+                        "ts": assigned_at * 1e6, **flow,
+                    })
+                    events.append({
+                        "ph": "f", "bp": "e", "pid": 0, "tid": wid,
+                        "ts": info.started_at * 1e6, **flow,
+                    })
+
+        # profiler counter tracks: one CPU-cores counter per
+        # plane, bucketed from the sampling ring — the same Perfetto file
+        # now answers "which plane was burning CPU" next to ticks, solves
+        # and task spans
+        prof = profiler.PROFILER
+        if prof.running:
+            events.append({
+                "ph": "M", "pid": 2, "tid": 0, "name": "process_name",
+                "args": {"name": "hq-profiler"},
+            })
+            for plane, series in sorted(prof.counter_track().items()):
+                for t, cores in series:
+                    events.append({
+                        "ph": "C", "pid": 2, "tid": 0, "ts": t * 1e6,
+                        "name": f"cpu {plane}", "args": {"cores": cores},
+                    })
+        return {"op": "trace_export", "traceEvents": events}
+
+    def _record_past_worker(self, worker_id: int, reason: str,
+                            lent_to: int | None = None) -> None:
+        w = self.core.workers.get(worker_id)
+        if w is None:
+            return
+        self.past_workers[worker_id] = {
+            "id": worker_id,
+            "hostname": w.configuration.hostname,
+            "group": w.group,
+            "status": "offline",
+            "n_running": 0,
+            "resources": {},
+            "overview": None,
+            "lost_at": clock.now(),
+            "reason": reason,
+            # structured lend target (None for a genuine loss): the fleet
+            # feed and `hq top` render lending flows from this field, the
+            # human `reason` string stays for logs
+            "lent_to": lent_to,
+            # age of the last heartbeat at loss time — for a heartbeat
+            # timeout this is how long the worker was silent
+            "heartbeat_age": round(clock.monotonic() - w.last_heartbeat, 3),
+        }
+        while len(self.past_workers) > 1000:  # bound server memory
+            self.past_workers.pop(next(iter(self.past_workers)))
+
+    async def _client_worker_list(self, msg: dict) -> dict:
+        workers = [
+            {
+                "id": w.worker_id,
+                "hostname": w.configuration.hostname,
+                "group": w.group,
+                "alloc_id": w.configuration.alloc_id,
+                "status": "draining" if w.draining else "running",
+                "n_running": len(w.assigned_tasks),
+                "resources": {
+                    self.core.resource_map.name_of(i): amount
+                    for i, amount in enumerate(w.resources.amounts)
+                    if amount
+                },
+                "overview": w.last_overview,
+            }
+            for w in self.core.workers.values()
+        ]
+        if msg.get("all"):
+            workers.extend(self.past_workers.values())
+        return {"op": "worker_list", "workers": workers}
+
+    async def _client_worker_info(self, msg: dict) -> dict:
+        w = self.core.workers.get(msg["worker_id"])
+        if w is None:
+            past = self.past_workers.get(msg["worker_id"])
+            if past is not None:
+                return {"op": "worker_info", "worker": past}
+            return {"op": "error", "message": "worker not found"}
+        return {
+            "op": "worker_info",
+            "worker": {
+                "id": w.worker_id,
+                "hostname": w.configuration.hostname,
+                "group": w.group,
+                "manager": w.configuration.manager,
+                "manager_job_id": w.configuration.manager_job_id,
+                "alloc_id": w.configuration.alloc_id,
+                "draining": w.draining,
+                "time_limit_secs": w.configuration.time_limit_secs,
+                "lifetime_secs": w.lifetime_secs(),
+                "descriptor": w.configuration.descriptor.to_dict(),
+                "free": {
+                    self.core.resource_map.name_of(i): amount
+                    for i, amount in enumerate(w.free)
+                },
+                "running_tasks": sorted(
+                    f"{task_id_job(t)}@{task_id_task(t)}"
+                    for t in w.assigned_tasks
+                ),
+                "overview": w.last_overview,
+            },
+        }
+
+    async def _client_server_debug_dump(self, msg: dict) -> dict:
+        """Full server state dump (reference control.rs:207-210 /
+        core.rs:472-481 ServerDebugDump)."""
+        state_counts: dict[str, int] = {}
+        for task in self.core.tasks.values():
+            state_counts[task.state.value] = (
+                state_counts.get(task.state.value, 0) + 1
+            )
+        return {
+            "op": "server_debug_dump",
+            "trace": TRACER.snapshot(),
+            "tasks": {
+                "total": len(self.core.tasks),
+                "by_state": state_counts,
+                "ready_queued": self.core.queues.total_ready(),
+                "mn_queued": len(self.core.mn_queue),
+            },
+            "workers": [
+                {
+                    "id": w.worker_id,
+                    "group": w.group,
+                    "free": list(w.free),
+                    "nt_free": w.nt_free,
+                    "assigned": len(w.assigned_tasks),
+                    "mn_task": w.mn_task,
+                    "mn_reserved": w.mn_reserved,
+                }
+                for w in self.core.workers.values()
+            ],
+            "rq_classes": len(self.core.rq_map),
+            "resources": self.core.resource_map.names(),
+            "jobs": [j.to_info() for j in self.jobs.jobs.values()],
+            "autoalloc": [
+                q.to_wire() for q in self.autoalloc.state.queues.values()
+            ] if self.autoalloc else [],
+        }
+
+    async def _client_worker_stop(self, msg: dict) -> dict:
+        if msg.get("drain"):
+            # graceful: mask + let running tasks finish under the deadline
+            started = self.start_drain(
+                msg["worker_ids"], timeout=msg.get("timeout"), source="cli"
+            )
+            return {"op": "worker_stop", "stopped": started, "drain": True}
+        stopped = []
+        for wid in msg["worker_ids"]:
+            worker = self.core.workers.get(wid)
+            if worker is not None:
+                worker.clean_stop = True  # crash counters stay untouched
+                self.comm.send_stop(wid)
+                stopped.append(wid)
+        return {"op": "worker_stop", "stopped": stopped}
+
+    async def _client_task_list(self, msg: dict) -> dict:
+        job = self.jobs.jobs.get(msg["job_id"])
+        if job is None:
+            return {"op": "error", "message": f"job {msg['job_id']} not found"}
+        return {"op": "task_list", "job": self._job_detail(job)}
+
+    async def _stream_events(self, send, gone: asyncio.Event,
+                             msg: dict) -> None:
+        """Stream events to this client until it disconnects.
+
+        Reference: event/streamer.rs fan-out with EventFilterFlags
+        (streamer.rs:36-44); `history=True` first replays the journal.
+        `send` is the connection sink (conn.send on the legacy in-loop
+        plane, ClientChannel.stream_send on the threaded plane — both
+        apply backpressure to this handler); `gone` fires on disconnect.
+        """
+        prefixes = tuple(msg.get("filter") or ())
+        queue: asyncio.Queue = asyncio.Queue()
+        # register BEFORE the replay so no live event is missed, then use the
+        # record seq to drop events that were appended to the journal while
+        # the replay was await-ing sends (they arrive on both paths)
+        self._event_listeners.append(queue)
+        wants_overviews = bool(msg.get("overviews"))
+        if wants_overviews:
+            self._overview_listeners += 1
+            if self._overview_listeners == 1:
+                self.comm.broadcast_overview_override(
+                    OVERVIEW_OVERRIDE_INTERVAL
+                )
+        replayed_seq = -1
+        try:
+            if msg.get("history") and self.journal_path is not None:
+                from hyperqueue_tpu_torch.events.journal import Journal
+
+                if self.jplane is not None:
+                    # sync=True: the replay re-reads the FILE, so the
+                    # commit thread's buffered tail must be on disk
+                    # (sync=False only guarantees the appender saw it)
+                    self.jplane.barrier(sync=True)
+                else:
+                    self.journal.flush()
+                for record in Journal.read_all(self.journal_path):
+                    seq = record.get("seq")
+                    if isinstance(seq, int) and seq > replayed_seq:
+                        replayed_seq = seq
+                    if not prefixes or record.get("event", "").startswith(prefixes):
+                        await send({"op": "event", "record": record})
+            await send({"op": "stream_live"})
+            # the stream is send-only from here: watch the disconnect
+            # event so a client detach is noticed IMMEDIATELY (not at the
+            # next failed send, which for an overview listener can lag two
+            # cadences and leave workers sampling hw after the dashboard
+            # is gone)
+            eof = asyncio.ensure_future(gone.wait())
+            try:
+                while True:
+                    getter = asyncio.ensure_future(queue.get())
+                    done, _pending = await asyncio.wait(
+                        (getter, eof), return_when=asyncio.FIRST_COMPLETED
+                    )
+                    if eof in done:
+                        getter.cancel()
+                        break
+                    record = getter.result()
+                    if record.get("seq", -1) <= replayed_seq:
+                        continue  # already sent during the history replay
+                    if not prefixes or record.get("event", "").startswith(
+                        prefixes
+                    ):
+                        await send({"op": "event", "record": record})
+            finally:
+                if not eof.done():
+                    eof.cancel()
+                    # consume the cancellation so it never surfaces as an
+                    # un-retrieved exception in the loop's log
+                    try:
+                        await eof
+                    except (asyncio.CancelledError, Exception):
+                        pass
+        finally:
+            self._event_listeners.remove(queue)
+            if wants_overviews:
+                self._overview_listeners -= 1
+                if self._overview_listeners == 0:
+                    self.comm.broadcast_overview_override(None)
+
+    # --- live subscription plane ---------------------------
+    def _build_sample(self) -> dict:
+        """One metric sample pushed to subscribers: the cluster signals the
+        autoscaler and `hq top` need without polling.
+        O(workers + queues), never O(tasks)."""
+        core = self.core
+        workers = []
+        running_total = 0
+        borrowed = 0
+        for w in core.workers.values():
+            running_total += len(w.assigned_tasks)
+            hw = (w.last_overview or {}).get("hw") or {}
+            row = {
+                "id": w.worker_id,
+                "hostname": w.configuration.hostname,
+                "running": len(w.assigned_tasks),
+                "prefilled": len(w.prefilled_tasks),
+                "draining": w.draining,
+                "cpu": hw.get("cpu_usage_percent"),
+            }
+            lent_from = getattr(w.configuration, "lent_from", -1)
+            if lent_from >= 0:
+                row["lent_from"] = lent_from
+                borrowed += 1
+            # worker per-plane CPU attribution: the shares the
+            # worker piggybacked on its last overview — `hq top` fleet
+            # view renders them with no per-worker scrape
+            planes = {
+                s["labels"]["plane"]: s["value"]
+                for s in (w.last_metrics or ())
+                if s.get("name") == "hq_worker_profile_plane_cpu_share"
+                and (s.get("labels") or {}).get("plane")
+            }
+            if planes:
+                row["planes"] = planes
+            workers.append(row)
+        latest = core.flight.latest() or {}
+        pending_reasons: dict[str, int] = {}
+        for entry in latest.get("unplaced") or ():
+            reason = entry.get("reason")
+            if reason:
+                pending_reasons[reason] = (
+                    pending_reasons.get(reason, 0) + entry.get("count", 0)
+                )
+        jobs = self.jobs.jobs
+        job_counts: dict[str, int] = {}
+        for job in jobs.values():
+            status = job.status()
+            job_counts[status] = job_counts.get(status, 0) + 1
+        sample = {
+            "op": "sample",
+            "time": clock.now(),
+            "uptime": round(clock.now() - self.started_at, 1),
+            "event_seq": self._event_seq,
+            "workers": workers,
+            "n_workers": len(core.workers),
+            "n_jobs": len(jobs),
+            "job_counts": job_counts,
+            "tasks_known": len(core.tasks),
+            "ready": core.queues.total_ready(),
+            "mn_queued": len(core.mn_queue),
+            "running": running_total,
+            "pending_reasons": pending_reasons,
+            "tick": core.tick_counter,
+            "tick_last_ms": (core.tick_stats.snapshot().get("phases") or {})
+            .get("total", {}).get("last_ms"),
+            "lag": self.lag.snapshot(),
+            "stalls": self.stalls_captured,
+            "subscribers": len(self._subscribers),
+            # health plane: usage totals + alert badge ride
+            # every sample so `hq top` / the FleetFeed render both
+            # without extra RPCs
+            "accounting": self.accounting.brief(),
+            "alerts": self._alert_badge(),
+        }
+        if profiler.PROFILER.running:
+            # per-plane CPU shares ride every sample so
+            # `hq top` renders the CPU block push-fed, like the lag block
+            sample["profile"] = {
+                plane: agg["cpu"]
+                for plane, agg in profiler.PROFILER.plane_shares().items()
+            }
+        autoalloc = getattr(self, "autoalloc", None)
+        if autoalloc is not None and autoalloc.state.queues:
+            sample["alloc_quarantined"] = sum(
+                1 for q in autoalloc.state.queues.values()
+                if q.state == "quarantined"
+            )
+        return sample
+
+    async def _subscribe(self, send, gone: asyncio.Event,
+                         msg: dict) -> None:
+        """Stream lifecycle events + periodic metric samples to one client
+        over the existing framing until it disconnects or falls behind.
+
+        Backpressure contract: the per-subscriber queue is bounded; a
+        consumer that cannot keep up is DROPPED (final `sub_dropped`
+        frame, counted in hq_subscribers_dropped_total) rather than
+        allowed to hold server memory or reactor latency hostage."""
+        # validate the filter: emit_event runs kind.startswith(prefixes)
+        # on the reactor's hottest paths, where a non-str element would
+        # raise out of the WORKER recv loop — one malformed subscriber
+        # must not tear down worker connections. A bare string is treated
+        # as one prefix, not a tuple of characters.
+        raw_filter = msg.get("filter") or ()
+        if isinstance(raw_filter, str):
+            raw_filter = (raw_filter,)
+        sub = _Subscriber(
+            prefixes=tuple(p for p in raw_filter if isinstance(p, str)),
+            sample_interval=max(float(msg.get("sample_interval") or 0.0), 0.0),
+            buffer=msg.get("buffer") or 4096,
+        )
+        self._subscribers.append(sub)
+        wants_overviews = bool(msg.get("overviews"))
+        if wants_overviews:
+            self._overview_listeners += 1
+            if self._overview_listeners == 1:
+                self.comm.broadcast_overview_override(
+                    OVERVIEW_OVERRIDE_INTERVAL
+                )
+        try:
+            await send({"op": "sub_live", "seq": self._event_seq})
+            if sub.sample_interval:
+                await send(self._build_sample())
+            next_sample = (
+                clock.monotonic() + sub.sample_interval
+                if sub.sample_interval else None
+            )
+            eof = asyncio.ensure_future(gone.wait())
+            try:
+                while not sub.dead:
+                    timeout = (
+                        max(next_sample - clock.monotonic(), 0.0)
+                        if next_sample is not None else None
+                    )
+                    getter = asyncio.ensure_future(sub.queue.get())
+                    done, _pending = await asyncio.wait(
+                        (getter, eof),
+                        timeout=timeout,
+                        return_when=asyncio.FIRST_COMPLETED,
+                    )
+                    if eof in done:
+                        getter.cancel()
+                        return
+                    if getter in done:
+                        # coalesce a burst into one frame (one encryption +
+                        # one syscall, like the downlink batcher)
+                        records = [getter.result()]
+                        while len(records) < 128:
+                            try:
+                                records.append(sub.queue.get_nowait())
+                            except asyncio.QueueEmpty:
+                                break
+                        await send(
+                            {"op": "events", "records": records}
+                        )
+                    else:
+                        getter.cancel()
+                    if (
+                        next_sample is not None
+                        and clock.monotonic() >= next_sample
+                    ):
+                        await send(self._build_sample())
+                        next_sample = clock.monotonic() + sub.sample_interval
+                # fell behind: say so, then hang up
+                await send(
+                    {"op": "sub_dropped", "dropped": sub.dropped}
+                )
+            finally:
+                if not eof.done():
+                    eof.cancel()
+                    try:
+                        await eof
+                    except (asyncio.CancelledError, Exception):
+                        pass
+        except (ConnectionError, OSError):
+            pass  # consumer went away mid-send
+        finally:
+            self._subscribers.remove(sub)
+            if wants_overviews:
+                self._overview_listeners -= 1
+                if self._overview_listeners == 0:
+                    self.comm.broadcast_overview_override(None)
+
+    # --- task traces ---------------------------------------
+    async def _client_task_trace(self, msg: dict) -> dict:
+        """The assembled causal trace of one task: every recorded span
+        from client submit through worker spawn to completion commit
+        (`hq task trace <job>.<task>`)."""
+        job_id = msg["job_id"]
+        job_task_id = msg.get("task_id") or 0
+        task_id = make_task_id(job_id, job_task_id)
+        rec = self.core.traces.get(task_id)
+        if rec is None:
+            if not self.core.traces.enabled:
+                return {"op": "error",
+                        "message": "task tracing is disabled "
+                                   "(--task-trace-capacity 0)"}
+            return {"op": "error",
+                    "message": f"no trace recorded for task "
+                               f"{job_id}.{job_task_id} (evicted, or the "
+                               "task predates this server's trace store)"}
+        from hyperqueue_tpu_torch.utils.trace import REQUIRED_HOPS, SPAN_ORDER
+
+        order = {name: i for i, name in enumerate(SPAN_ORDER)}
+        spans = sorted(
+            rec["spans"],
+            key=lambda s: (s["instance"], s["t0"], order.get(s["name"], 99)),
+        )
+        t0 = min((s["t0"] for s in spans), default=0.0)
+        t1 = max((s["t1"] for s in spans), default=0.0)
+        names = {s["name"] for s in spans}
+        return {
+            "op": "task_trace",
+            "job": job_id,
+            "task": job_task_id,
+            "trace_id": rec["trace_id"],
+            "closed": bool(rec.get("done")),
+            "complete": rec.get("done") and REQUIRED_HOPS <= names,
+            "missing_hops": sorted(REQUIRED_HOPS - names),
+            "wall_s": round(max(t1 - t0, 0.0), 6),
+            "span_sum_s": round(
+                sum(s["t1"] - s["t0"] for s in spans), 6
+            ),
+            "spans": spans,
+            # fleet annotations: lend / failover stamps
+            "annotations": list(rec.get("notes") or ()),
+        }
+
+    # --- reactor lag + stall watchdog ----------------------
+    STALL_CAPTURE_MIN_INTERVAL = 5.0
+
+    def note_plane(self, plane: str, dt: float) -> None:
+        """Record how long one work class held the event loop; past the
+        stall budget, auto-capture a diagnosis dump."""
+        self.lag.observe(plane, dt)
+        if self.stall_budget > 0 and dt >= self.stall_budget:
+            self._capture_stall(plane, dt)
+
+    def _capture_stall(self, plane: str, duration_s: float) -> None:
+        now = clock.monotonic()
+        _REACTOR_STALLS.labels(plane).inc()
+        self.core.flight.record_event(
+            "reactor-stall",
+            {"plane": plane, "duration_s": round(duration_s, 4),
+             "budget_s": self.stall_budget},
+        )
+        if now - self._last_stall_capture < self.STALL_CAPTURE_MIN_INTERVAL:
+            self.stalls_captured += 1
+            return  # rate-limit the (file-writing) capture, keep counting
+        self._last_stall_capture = now
+        self.stalls_captured += 1
+        dump = {
+            "time": clock.now(),
+            "plane": plane,
+            "duration_s": round(duration_s, 4),
+            "budget_s": self.stall_budget,
+            "tick": self.core.tick_counter,
+            "lag": self.lag.snapshot(),
+            "trace": TRACER.snapshot(),
+            # profile-on-stall: the aggregated stack burst the
+            # sampler captured during the stall window itself — what every
+            # plane was executing while the budget was being blown (the
+            # stall is detected only after the blocking work returns, so
+            # the ring is the only honest source of this)
+            "profile": profiler.PROFILER.stall_burst(
+                duration_s + 1.0
+            ) if profiler.PROFILER.running else [],
+            "queues": {
+                "ready": self.core.queues.total_ready(),
+                "mn_queued": len(self.core.mn_queue),
+                "workers": len(self.core.workers),
+                "event_listeners": len(self._event_listeners),
+                "subscribers": len(self._subscribers),
+            },
+            "flight": self.core.flight.dump(),
+        }
+        self.last_stall = {
+            k: dump[k] for k in ("time", "plane", "duration_s", "tick")
+        }
+        instance_dir = getattr(self, "_instance_dir", None)
+        if instance_dir is None:
+            return  # stalled before start() finished; counted, not dumped
+        stall_dir = Path(instance_dir) / "stalls"
+        try:
+            import json as _json
+
+            stall_dir.mkdir(exist_ok=True)
+            out = stall_dir / f"stall-{self.stalls_captured:04d}.json"
+            out.write_text(_json.dumps(dump, default=str))
+            self.last_stall["dump"] = str(out)
+
+            def seq_of(p: Path) -> int:
+                # numeric, not lexicographic: past capture 9999 the name
+                # outgrows the padding and a string sort would prune the
+                # NEWEST dumps
+                try:
+                    return int(p.stem.rpartition("-")[2])
+                except ValueError:
+                    return -1
+
+            dumps = sorted(stall_dir.glob("stall-*.json"), key=seq_of)
+            for old in dumps[: max(len(dumps) - self.stall_dumps, 0)]:
+                old.unlink(missing_ok=True)
+        except OSError:
+            logger.exception("stall dump write failed")
+        logger.critical(
+            "reactor stall: %s plane held the loop %.3fs (budget %.3fs); "
+            "diagnosis dumped to %s",
+            plane, duration_s, self.stall_budget,
+            self.last_stall.get("dump", "<memory only>"),
+        )
+
+    async def _loop_lag_monitor(self) -> None:
+        """Measure the event loop's own scheduling lag: the overshoot of a
+        short sleep is exactly how long other work held the loop. Feeds
+        the `loop` plane of hq_reactor_lag_seconds and the stall
+        watchdog (a long stall shows up here even when the blocking work
+        class was never instrumented)."""
+        interval = 0.1
+        while True:
+            before = clock.monotonic()
+            await asyncio.sleep(interval)
+            overshoot = clock.monotonic() - before - interval
+            self.note_plane("loop", max(overshoot, 0.0))
+
+    async def _client_journal_flush(self, msg: dict) -> dict:
+        if self.journal is None:
+            return {"op": "error", "message": "server runs without a journal"}
+        if self.jplane is not None:
+            self.jplane.barrier(sync=True)
+        else:
+            self.journal.flush(sync=True)
+        return {"op": "ok"}
+
+    async def _client_journal_prune(self, msg: dict) -> dict:
+        """Drop completed jobs from the journal (reference journal/prune.rs)."""
+        if self.journal is None:
+            return {"op": "error", "message": "server runs without a journal"}
+        if self._compacting:
+            return {"op": "error",
+                    "message": "journal compaction in progress; retry"}
+        from hyperqueue_tpu_torch.events import snapshot as snapshot_mod
+        from hyperqueue_tpu_torch.events.journal import Journal
+
+        live = {
+            job_id
+            for job_id, job in self.jobs.jobs.items()
+            if not job.is_terminated()
+        }
+        if snapshot_mod.have_snapshot(self.journal_path):
+            # a snapshot supersedes the journal prefix: a bare prune would
+            # drop post-watermark terminal events of completed jobs while
+            # leaving the stale snapshot in place — the next restore would
+            # resurrect and re-execute them. Compaction IS the
+            # snapshot-aware prune, so delegate.
+            stats = await self.compact_journal(reason="prune")
+            if stats.get("skipped"):
+                return {"op": "error", "message": stats["skipped"]}
+            return {"op": "ok", "kept_records": stats["kept_records"],
+                    "live_jobs": sorted(live)}
+        # quiesce the commit thread around the close/rewrite/reopen (no
+        # awaits in between — see JournalPlane.suspend)
+        if self.jplane is not None:
+            self.jplane.suspend()
+        try:
+            self.journal.close()
+            kept = Journal.prune(self.journal_path, live,
+                                 salvage=self.journal_salvage)
+            self.journal.open_for_append()
+        finally:
+            if self.jplane is not None:
+                self.jplane.resume()
+        # live jobs' submit events survived the prune; re-log nothing
+        return {"op": "ok", "kept_records": kept, "live_jobs": sorted(live)}
+
+    async def _client_journal_compact(self, msg: dict) -> dict:
+        """Snapshot + GC now (`hq journal compact`)."""
+        if self.journal is None:
+            return {"op": "error", "message": "server runs without a journal"}
+        stats = await self.compact_journal(reason="cli")
+        return {"op": "journal_compact", **stats}
+
+    async def _client_journal_info(self, msg: dict) -> dict:
+        """Journal/snapshot sizes, lineage, restore + compaction stats
+        (`hq journal info`)."""
+        if self.journal_path is None:
+            return {"op": "error", "message": "server runs without a journal"}
+        from hyperqueue_tpu_torch.events import snapshot as snapshot_mod
+
+        if self.jplane is not None:
+            # sync=True so the size/segment stats below see the full tail
+            self.jplane.barrier(sync=True)
+        else:
+            self.journal.flush()
+        journal_bytes = (
+            self.journal_path.stat().st_size
+            if self.journal_path.exists()
+            else 0
+        )
+        snap = snapshot_mod.snapshot_stats(self.journal_path)
+        segments = int(journal_bytes > 0) + int(snap["bytes"] > 0) + int(
+            snap["prev_bytes"] > 0
+        )
+        return {
+            "op": "journal_info",
+            "path": str(self.journal_path),
+            "journal_bytes": journal_bytes,
+            "segments": segments,
+            "event_seq": self._event_seq,
+            "n_boots": self.n_boots,
+            "snapshot": snap,
+            "fsync_policy": self.journal_fsync,
+            "compact_interval": self.journal_compact_interval,
+            "compact_threshold": self.journal_compact_threshold,
+            "salvage": self.journal_salvage,
+            "last_restore": self.last_restore,
+            "last_compaction": self.last_compaction,
+        }
+
+
+async def run_server(**kwargs) -> None:
+    server = Server(**kwargs)
+    await server.start()
+    await server.run_until_stopped()
+

@@ -268,10 +268,17 @@ class JournalPlane:
 
     # --- commit thread --------------------------------------------------
     def _run(self) -> None:
-        # the sampling profiler's `journal` plane label is registered here
-        # (and unregistered on every exit path) once the profiling plane is
-        # ported (ROADMAP Queue 1 item 8)
-        self._run_inner()
+        from hyperqueue_tpu_torch.utils import profiler
+
+        # plane label for the sampling profiler: commit-thread CPU shows
+        # up as the `journal` plane next to its lag histogram.
+        # Unregistered on EVERY exit path (clean drain and crash alike) so
+        # a recycled thread ident can never wear a stale label.
+        profiler.register_plane("journal")
+        try:
+            self._run_inner()
+        finally:
+            profiler.unregister_plane()
 
     def _run_inner(self) -> None:
         try:

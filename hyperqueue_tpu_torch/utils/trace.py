@@ -10,8 +10,7 @@ surfaces the aggregate through `snapshot()` — enough to see which tick
 phase (gangs, solve, mapping, prefill) is hot without attaching a
 profiler.
 
-The server event loop's per-plane lag tracking stays with the server's
-network plane, which the port does not hold yet.
+`LagTracker` keeps the server event loop's per-plane lag histograms.
 """
 
 from __future__ import annotations
@@ -362,3 +361,57 @@ class TaskTraceStore:
                 victim = next(iter(self._traces))
             del self._traces[victim]
             self.evictions += 1
+
+
+# ----------------------------------------------------------------------
+# Reactor loop-lag tracking: per-plane histograms of how long
+# each work class held the server's event loop, plus the loop's own
+# sleep-overshoot.  The rolling SpanStats mirror the TRACER shape for
+# `hq server stats`; the histogram feeds Prometheus.  The stall watchdog
+# (server/bootstrap.py) compares each observation against --stall-budget.
+# ----------------------------------------------------------------------
+
+LAG_PLANES = (
+    "rpc", "journal", "solve", "fanout", "completion", "ingest", "loop",
+)
+
+_REACTOR_LAG_SECONDS = REGISTRY.histogram(
+    "hq_reactor_lag_seconds",
+    "per-plane server latency: loop occupancy for in-loop work classes "
+    "(rpc/solve/completion/ingest) and the loop's own sleep-overshoot "
+    "(loop); for the off-loop planes (journal/fanout) the "
+    "observation is HANDOFF latency — reactor enqueue to durable commit "
+    "/ frame on the wire",
+    labels=("plane",),
+)
+
+
+class LagTracker:
+    """Rolling per-plane loop-occupancy statistics + the shared
+    `hq_reactor_lag_seconds` histogram."""
+
+    def __init__(self):
+        self.stats: dict[str, SpanStats] = {}
+
+    def observe(self, plane: str, dt: float) -> None:
+        entry = self.stats.get(plane)
+        if entry is None:
+            entry = self.stats[plane] = SpanStats()
+        entry.record(dt)
+        _REACTOR_LAG_SECONDS.labels(plane).observe(dt)
+
+    def snapshot(self) -> dict:
+        return {
+            plane: {
+                "count": s.count,
+                "total_ms": round(s.total_s * 1000, 3),
+                "mean_ms": round(s.total_s / s.count * 1000, 4),
+                "max_ms": round(s.max_s * 1000, 3),
+                "last_ms": round(s.last_s * 1000, 4),
+            }
+            for plane, s in sorted(self.stats.items())
+        }
+
+    def reset(self) -> None:
+        self.stats.clear()
+        _REACTOR_LAG_SECONDS.reset()

@@ -56,7 +56,12 @@ def test_port_files_exist():
                    "events/journal.py", "events/outputlog.py",
                    "events/snapshot.py", "events/restore.py",
                    "server/journal_plane.py", "server/accounting.py",
-                   "server/bootstrap.py"):
+                   "server/bootstrap.py", "server/ingest.py",
+                   "server/fanout.py", "transport/auth.py",
+                   "transport/aead.py", "transport/_chacha.py",
+                   "transport/_chacha_np.py", "transport/_chacha_ossl.py",
+                   "utils/serverdir.py", "utils/slo.py",
+                   "utils/profiler.py"):
         assert f"hyperqueue_tpu_torch/{module}" in names, module
     for source in ("csrc/cut_scan.cu", "csrc/cut_scan_step.cuh",
                    "csrc/sharded_scan.cu", "csrc/sync_probe.cu",

@@ -876,16 +876,27 @@ def test_server_restore_through_open_journal(tmp_path):
     assert kinds == ["server-uid", "job-submitted", "server-uid"]
 
 
-def test_unported_server_keywords_refuse():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        _port_server(server_dir="/nonexistent", metrics_port=0)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        _port_server(server_dir="/nonexistent", shard_count=2)
+def test_unported_server_keywords_refuse(monkeypatch):
+    """The keywords whose plane is not ported refuse, naming the ROADMAP
+    item that brings it: federation, leases and the chaos plane item 10,
+    the simulator's in-memory transport item 11. `metrics_port=` and the
+    planes of a standalone server are accepted."""
+    for kwargs in ({"shard_count": 2}, {"federation_root": "/nonexistent"},
+                   {"promoted": True}, {"failover_watch": True}):
+        with pytest.raises(NotImplementedError, match="item 10"):
+            _port_server(server_dir="/nonexistent", **kwargs)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        _port_server(server_dir="/nonexistent", memory_transport=True)
     server = _port_server(server_dir="/nonexistent", fanout_senders=4,
-                          client_plane="reactor")
+                          client_plane="reactor", metrics_port=0)
     assert (server.fanout_senders, server.client_plane) == (4, "reactor")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    assert server.requested_metrics_port == 0
+    # a chaos plan in the environment refuses at start(), before the
+    # process's GC settings or any listener change
+    monkeypatch.setenv("HQ_FAULT_PLAN", "server.recv:drop")
+    with pytest.raises(NotImplementedError, match="item 10"):
         asyncio.run(server.start())
+    assert server._servers == [] and server.access is None
 
 
 # --------------------------------------------------------------------------
