@@ -15,8 +15,10 @@ with min-utilization workers, then `--scheduler milp` with its degraded
 tick, then the server's tick itself (reactor.schedule) over the north star
 held as lazy array chunks, plain and fused, then a journaled server's
 kill -9 and restore at the same size, then `hq server start` itself: the
-server in a child process, 1,024 workers and a client over TCP, and prints
-timings.
+server in a child process, 1,024 workers (16 of them real port workers)
+and a client over TCP, then one real port worker with the machine's CPUs
+and the card (`--resource gpus`), and prints timings. Every process of the
+port here must run the native codec (`transport/codec.BACKEND`).
 
 Phases:
   1. the card (nvidia-smi name and power limit) and the builds, all started
@@ -229,8 +231,40 @@ Phases:
      register round trip), submit acks, the ticks (tick 0, the largest,
      steady median and p99, phases), the rates, the worker plane (frames,
      bytes, encode and decode on both sides, fan-out), the loop lag by
-     plane from the scrape, stall captures, journal commits, K1 launches
-     and the server's peak RSS.
+     plane from the scrape, stall captures (and the longest of each plane
+     with the stacks its profiler sampled), journal commits, K1 launches
+     and the server's peak RSS. SERVE_REAL_WORKERS of the 1,024 rows,
+     spread over them, are real port workers (REAL_WORKER_LAUNCHER:
+     `worker.runtime.run_worker` with the row's configuration and a
+     runner pool of SERVE_REAL_RUNNER_POOL, in processes of their own that
+     must import neither torch nor numpy) that run their `true` tasks for
+     real (the arrays ask for no output files); they freeze with the
+     simulated ones (SIGUSR1: nothing more starts) and each reports a
+     server_start_real_worker line: tasks run, compute entries and the
+     decode a compute entry, and per task, p50 and p99, the time parked
+     (frame to start), the runner dispatch (start to spawn), the run
+     (spawn to its finish's uplink) and the total; runner restarts must be
+     0 and no task may fail. The summary adds the server's encode in us a
+     KB and in seconds, and the shutdown's stop frames encoded before the
+     connections closed;
+ 17. the worker_node path: the deployment HyperQueue documents, one worker
+     a node. The server child of phase 16 (K1 on the card every tick) and
+     one real port worker built as `hq worker start` builds it
+     (detect_resources: every CPU here; the card as `gpus`, counted by
+     `nvidia-smi -L` where detect_gpus finds none, which the summary
+     says), hwmonitor sampling every NODE_OVERVIEW_S, the runner pool at
+     its default width. One array of NODE_TASKS `true` tasks at 1 cpu and
+     NODE_GPU_TASKS tasks at 1 cpu and gpus=1, each running `nvidia-smi
+     --query-gpu=name,power.limit --format=csv,noheader -i
+     $HQ_RESOURCE_VALUES_gpus` between two time stamps. It fails unless
+     every task finishes within NODE_DRAIN_S (saying how far it got),
+     none fails, each GPU task's stdout names the card, no two GPU tasks
+     overlap, the worker's overview carries a GPU sample and every K1
+     launch equals its plain version. Logs the spawn floor (a posix_spawn
+     of `true` alone), tasks a second, the overhead above the floor, the
+     runner pool's width and the codec backend.
+
+The phase_seconds line gives each phase's seconds.
 
 On every path before the reactor paths the queues must be the native
 ones, and every mapping of a tick without gang rows must pop its ids
@@ -4151,6 +4185,313 @@ SERVE_CONNECT_ATTEMPTS = 3
 SERVE_EXIT_S = 10.0
 
 
+# real port workers beside the simulated ones: rows of the north star that
+# run `run_worker` in processes of their own, each with a runner pool
+SERVE_REAL_WORKERS = 16
+SERVE_REAL_RUNNER_POOL = 1
+# phase 17: one worker node, the machine's CPUs and its GPUs
+NODE_TASKS = 50_000
+NODE_GPU_TASKS = 8
+NODE_DRAIN_S = 180.0
+NODE_OVERVIEW_S = 1.0
+
+# A port worker process: `run_worker` with the WorkerConfiguration the
+# parent wrote (phase 16: a north-star row's), or one built as `hq worker
+# start` builds it (phase 17: detect_resources, the `gpus` item counted by
+# `nvidia-smi -L` where detection finds none, then descriptor.validate()).
+# The launcher (not the worker's modules) measures: the codec's decode of
+# each frame that carries compute entries, and per task the frame's
+# receipt, the task's start (its allocation), its runner dispatch and the
+# send of its finish. SIGUSR1 freezes the worker (nothing more starts; the
+# allocator refuses, as a full worker's does) and, once its running tasks
+# finished and their uplinks were sent, writes `<result>.frozen`. After
+# registration it writes `<result>.registered`; when the worker stops it
+# writes `<result>` (JSON). Imports only the port's worker and its
+# dependencies: it fails if torch, numpy, msgpack, jax or the JAX package
+# were loaded.
+REAL_WORKER_LAUNCHER = r"""
+import asyncio, json, os, signal, subprocess, sys, time
+from pathlib import Path
+
+mode, config_path, server_dir, result = sys.argv[1:5]
+from hyperqueue_tpu_torch.resources.descriptor import ResourceDescriptor
+from hyperqueue_tpu_torch.server.worker import WorkerConfiguration
+from hyperqueue_tpu_torch.transport import auth, codec
+from hyperqueue_tpu_torch.utils import serverdir
+from hyperqueue_tpu_torch.utils.metrics import REGISTRY
+from hyperqueue_tpu_torch.worker import allocator, runtime
+from hyperqueue_tpu_torch.worker.hwdetect import detect_gpus, detect_resources
+from hyperqueue_tpu_torch.worker.parser import parse_resource_definition
+
+out = {"codec": codec.BACKEND, "mode": mode, "compute_frames": 0,
+       "entries": 0, "decode_s": 0.0, "finished": 0, "failed": 0,
+       "stop_read": False, "dispatched": []}
+if mode == "row":
+    with open(config_path) as f:
+        config = WorkerConfiguration.from_wire(json.load(f))
+else:
+    descriptor = detect_resources()
+    out["detected_gpus"] = detect_gpus() is not None
+    if not out["detected_gpus"]:
+        listed = subprocess.run(["nvidia-smi", "-L"], capture_output=True,
+                                text=True, timeout=60).stdout
+        n = sum(1 for line in listed.splitlines()
+                if line.startswith("GPU "))
+        items = {item.name: item for item in descriptor.items}
+        items["gpus"] = parse_resource_definition(
+            "gpus=[" + ",".join(str(i) for i in range(n)) + "]")
+        descriptor = ResourceDescriptor(items=tuple(items.values()))
+    descriptor.validate()
+    config = WorkerConfiguration(
+        descriptor=descriptor, hostname=os.uname().nodename,
+        overview_interval_secs=float(mode.split(":")[1]))
+out["resources"] = {item.name: item.total_amount()
+                    for item in config.descriptor.items}
+stamps = {}
+last_frame = [0.0]
+frozen = [False]
+holder = {}
+
+unpack = auth.unpack_payload
+
+
+def timed_unpack(data):
+    t0 = time.perf_counter()
+    msg = unpack(data)
+    t1 = time.perf_counter()
+    subs = msg["msgs"] if msg.get("op") == "batch" else (msg,)
+    n = sum(len(m["tasks"]) for m in subs if m.get("op") == "compute")
+    if n:
+        out["compute_frames"] += 1
+        out["entries"] += n
+        out["decode_s"] += t1 - t0
+    last_frame[0] = t1
+    return msg
+
+
+auth.unpack_payload = timed_unpack
+handle = runtime.WorkerRuntime._handle_server_message
+
+
+async def timed_handle(self, msg):
+    op = msg.get("op")
+    if op == "compute":
+        for e in msg["tasks"]:
+            key = (e["id"], e.get("instance", 0))
+            stamps[key] = [last_frame[0], None, None, None]
+            out["dispatched"].append(key)
+    elif op == "stop":
+        out["stop_read"] = True
+    return await handle(self, msg)
+
+
+runtime.WorkerRuntime._handle_server_message = timed_handle
+start_with = runtime.WorkerRuntime._start_with_allocation
+
+
+def timed_start(self, task_msg, allocation):
+    s = stamps.get((task_msg["id"], task_msg.get("instance", 0)))
+    if s is not None:
+        s[1] = time.perf_counter()
+    return start_with(self, task_msg, allocation)
+
+
+runtime.WorkerRuntime._start_with_allocation = timed_start
+launch = runtime.WorkerRuntime._launch
+
+
+async def timed_launch(self, task_msg, *args, **kwargs):
+    launched = await launch(self, task_msg, *args, **kwargs)
+    s = stamps.get((task_msg["id"], task_msg.get("instance", 0)))
+    if s is not None:
+        s[2] = time.perf_counter()
+    return launched
+
+
+runtime.WorkerRuntime._launch = timed_launch
+send = auth.Connection.send
+
+
+async def timed_send(self, obj):
+    await send(self, obj)
+    t = time.perf_counter()
+    subs = obj["msgs"] if obj.get("op") == "batch" else (obj,)
+    for m in subs:
+        op = m.get("op")
+        if op == "task_finished":
+            out["finished"] += 1
+            s = stamps.get((m["id"], m.get("instance", 0)))
+            if s is not None:
+                s[3] = t
+        elif op == "task_failed":
+            out["failed"] += 1
+            out.setdefault("errors", []).append(str(m.get("error"))[:200])
+
+
+auth.Connection.send = timed_send
+try_allocate = allocator.ResourceAllocator.try_allocate
+
+
+def frozen_try_allocate(self, entries):
+    return None if frozen[0] else try_allocate(self, entries)
+
+
+allocator.ResourceAllocator.try_allocate = frozen_try_allocate
+
+
+async def freeze():
+    frozen[0] = True
+    rt = holder["runtime"]
+    deadline = time.monotonic() + 60.0
+    quiet = 0
+    while quiet < 3 and time.monotonic() < deadline:
+        await asyncio.sleep(0.05)
+        busy = rt.running or rt._sendq.qsize()
+        quiet = 0 if busy else quiet + 1
+    Path(result + ".frozen").write_text(json.dumps({
+        "finished": out["finished"], "running": len(rt.running),
+        "parked": rt._n_blocked}))
+
+
+connect = runtime.WorkerRuntime._initial_connect
+
+
+async def registered_connect(self):
+    await connect(self)
+    holder["runtime"] = self
+    asyncio.get_running_loop().add_signal_handler(
+        signal.SIGUSR1, lambda: asyncio.ensure_future(freeze()))
+    Path(result + ".registered").write_text(str(self.worker_id))
+
+
+runtime.WorkerRuntime._initial_connect = registered_connect
+access = serverdir.load_access(Path(server_dir))
+t_run = time.perf_counter()
+try:
+    asyncio.run(runtime.run_worker(
+        access.host_for_workers(), access.worker_port,
+        access.worker_key_bytes(), config, server_dir=Path(server_dir)))
+except Exception as e:
+    out["error"] = repr(e)
+rt = holder.get("runtime")
+spans = [s for s in stamps.values() if s[3] is not None]
+out.update(
+    seconds=time.perf_counter() - t_run,
+    worker_id=rt.worker_id if rt else None,
+    runner_pool=rt.runner_pool.size if rt and rt.runner_pool else 0,
+    runner_restarts=REGISTRY.get(
+        "hq_worker_runner_restarts_total").labels().value,
+    runner_crash_fails=REGISTRY.get(
+        "hq_worker_runner_crash_failed_tasks_total").labels().value,
+    # ms: frame -> start (parked until resources free up), start ->
+    # runner dispatch, dispatch -> finish sent (the run and its exit),
+    # frame -> finish sent
+    parked_ms=[(s[1] - s[0]) * 1e3 for s in spans if s[1] is not None],
+    dispatch_ms=[(s[2] - s[1]) * 1e3 for s in spans
+                 if s[1] is not None and s[2] is not None],
+    run_ms=[(s[3] - s[2]) * 1e3 for s in spans if s[2] is not None],
+    total_ms=[(s[3] - s[0]) * 1e3 for s in spans],
+    foreign=sorted(m for m in sys.modules if m.split(".")[0] in (
+        "torch", "numpy", "msgpack", "jax", "hyperqueue_tpu")))
+Path(result).write_text(json.dumps(out))
+"""
+
+
+def start_real_worker(mode, config, server_dir, result):
+    """A port worker in a process of its own (REAL_WORKER_LAUNCHER):
+    `mode` "row" runs `config` (a WorkerConfiguration's wire form),
+    "node:<overview s>" detects the machine's resources. Its output goes
+    to `<result>.log`."""
+    config_path = f"{result}.config"
+    with open(config_path, "w") as f:
+        json.dump(config or {}, f)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ,
+           "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             "")}
+    log_f = open(f"{result}.log", "wb")
+    try:
+        return subprocess.Popen(
+            [sys.executable, "-c", REAL_WORKER_LAUNCHER, mode, config_path,
+             str(server_dir), str(result)],
+            env=env, cwd=root, stdout=log_f, stderr=subprocess.STDOUT)
+    finally:
+        log_f.close()
+
+
+def real_worker_line(res):
+    """One real worker's report: tasks run, decode a compute entry, and
+    each stage of a task's way through it (ms, p50 and p99)."""
+    line = {
+        "worker_id": res.get("worker_id"),
+        "resources": res.get("resources"),
+        "codec": res.get("codec"), "runner_pool": res.get("runner_pool"),
+        "runner_restarts": res.get("runner_restarts"),
+        "tasks_run": res.get("finished"), "failed": res.get("failed"),
+        "compute_entries": res.get("entries"),
+        "compute_frames": res.get("compute_frames"),
+        "decode_us_per_entry": res.get("decode_s", 0.0)
+        / max(res.get("entries") or 0, 1) * 1e6,
+        "stop_read": res.get("stop_read")}
+    for key in ("parked_ms", "dispatch_ms", "run_ms", "total_ms"):
+        values = res.get(key) or []
+        line[key] = {"p50": _pctl(values, 50), "p99": _pctl(values, 99),
+                     "n": len(values)}
+    return line
+
+
+def real_worker_faults(res, name):
+    """What a real worker's report says went wrong (a list of strings)."""
+    fails = []
+    if res.get("codec") != "native":
+        fails.append(f"{name}: codec backend {res.get('codec')}")
+    if res.get("foreign"):
+        fails.append(f"{name}: imported {res['foreign'][:5]}")
+    if res.get("error"):
+        fails.append(f"{name}: {res['error']}")
+    if res.get("runner_restarts") or res.get("runner_crash_fails"):
+        fails.append(f"{name}: {res.get('runner_restarts')} runner "
+                     f"restarts, {res.get('runner_crash_fails')} tasks "
+                     "failed by a runner crash")
+    if res.get("failed"):
+        fails.append(f"{name}: {res['failed']} tasks failed "
+                     f"({res.get('errors', [])[:2]})")
+    if not res.get("runner_pool"):
+        fails.append(f"{name}: no runner pool")
+    return fails
+
+
+def wait_files(paths, what, timeout, procs=()):
+    """Waits until every path exists; fails naming `what` when one of
+    `procs` exits first or `timeout` passes."""
+    deadline = time.monotonic() + timeout
+    while True:
+        missing = [p for p in paths if not os.path.exists(p)]
+        if not missing:
+            return
+        dead = [p.returncode for p in procs if p.poll() is not None]
+        if dead or time.monotonic() > deadline:
+            raise AssertionError(f"{what}: {len(missing)} of {len(paths)} "
+                                 f"missing after {timeout} s (exited: "
+                                 f"{dead})")
+        time.sleep(0.05)
+
+
+def spawn_floor_ms(n=200):
+    """A posix_spawn of `true` and its wait, alone: the floor a task's
+    run stands on here (ms, p50 and p99)."""
+    import shutil
+
+    true = shutil.which("true")
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        pid = os.posix_spawn(true, [true], dict(os.environ))
+        os.waitpid(pid, 0)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"p50": _pctl(times, 50), "p99": _pctl(times, 99), "n": n}
+
+
 def raise_nofile_limit():
     """Soft RLIMIT_NOFILE up to the hard limit, before any process is
     spawned (children inherit it): the server holds one descriptor per
@@ -4229,17 +4570,36 @@ def serve_child(server_dir, device, result_path):
     from hyperqueue_tpu_torch.ops import assign
     from hyperqueue_tpu_torch.server import reactor
     from hyperqueue_tpu_torch.server.bootstrap import Server
-    from hyperqueue_tpu_torch.transport import auth
+    from hyperqueue_tpu_torch.transport import auth, codec
 
     logging.basicConfig(level=logging.WARNING, stream=sys.stderr)
     server_dir = Path(server_dir)
-    out: dict = {"checks": {}, "failures": [], "times": {}}
+    out: dict = {"checks": {}, "failures": [], "times": {},
+                 "codec_backend": codec.BACKEND}
     codec_acc = {f"{k}_{s}": 0 for k in ("encode", "decode")
                  for s in ("n", "s", "bytes")}
     lock = threading.Lock()
     auth.pack_payload = _timed(auth.pack_payload, codec_acc, lock, "encode")
     auth.unpack_payload = _timed(auth.unpack_payload, codec_acc, lock,
                                  "decode")
+    # the `stop` frames the shutdown encodes for its workers (wall times):
+    # how many reach the wire before the connections close 50 ms later
+    stops = {"encoded": 0, "first": None, "last": None}
+    pack = auth.pack_payload
+
+    def counting_pack(obj):
+        data = pack(obj)
+        subs = obj.get("msgs", ()) if obj.get("op") == "batch" else (obj,)
+        if any(m.get("op") == "stop" for m in subs):
+            now = time.time()
+            with lock:
+                stops["encoded"] += 1
+                stops["first"] = stops["first"] or now
+                stops["last"] = now
+        return data
+
+    auth.pack_payload = counting_pack
+    out["stops"] = stops
     run_tick = reactor.run_tick
     assigned = {"ticks": 0, "tasks": 0}
 
@@ -4347,6 +4707,7 @@ def serve_child(server_dir, device, result_path):
         if not left or time.monotonic() > deadline:
             break
         time.sleep(0.05)
+    out["longest_stalls"] = longest_stalls(server_dir)
     recorder = out.pop("recorder")
     with open(str(result_path) + ".solves", "wb") as f:
         pickle.dump(recorder.calls, f, protocol=pickle.HIGHEST_PROTOCOL)
@@ -4367,6 +4728,28 @@ def serve_child(server_dir, device, result_path):
     sys.stdout.flush()
     sys.stderr.flush()
     os._exit(0)
+
+
+def longest_stalls(server_dir, top=6):
+    """The longest captured stall of each plane (the server's stall dumps
+    under `server_dir`): its seconds, tick, and the stacks its sampling
+    profiler took most often in the stall's window (each stack's last
+    frames)."""
+    from pathlib import Path
+
+    best: dict = {}
+    for path in Path(server_dir).rglob("stall-*.json"):
+        try:
+            dump = json.loads(path.read_text())
+        except (OSError, ValueError):
+            continue
+        plane = dump.get("plane")
+        if plane not in best or dump["duration_s"] > best[plane]["duration_s"]:
+            best[plane] = {
+                "duration_s": dump["duration_s"], "tick": dump.get("tick"),
+                "stacks": [[r["plane"], r["stack"][-240:], r["active"],
+                            r["count"]] for r in dump.get("profile", [])[:top]]}
+    return best
 
 
 def dropped_state(server, server_dir):
@@ -4606,6 +4989,7 @@ def serve_worker_proc(index, server_dir, configs, seed, conn):
     to report."""
     from pathlib import Path
 
+    from hyperqueue_tpu_torch.transport import codec
     from hyperqueue_tpu_torch.utils import serverdir
 
     proc = SimWorkerProc(index, seed)
@@ -4710,6 +5094,7 @@ def serve_worker_proc(index, server_dir, configs, seed, conn):
                 firsts = [w.first_compute for w in workers
                           if w.first_compute is not None]
                 conn.send(("report", {
+                    "codec": codec.BACKEND,
                     "workers": len(workers), "stops": proc.stops,
                     "lost": proc.lost, "errors": proc.errors,
                     "entries": len(proc.dispatched),
@@ -4806,7 +5191,8 @@ def lag_p99_by_plane(parsed):
 
 
 def server_start_path(card, device, n_procs=SERVE_WORKER_PROCS,
-                      window_s=SERVE_WINDOW_S, state=None):
+                      window_s=SERVE_WINDOW_S, state=None,
+                      n_real=SERVE_REAL_WORKERS):
     """Phase 16: the north star through `hq server start`'s process
     boundary. The port's Server runs in a child process (serve_child),
     1,024 simulated workers in `n_procs` processes (serve_worker_proc)
@@ -4820,12 +5206,23 @@ def server_start_path(card, device, n_procs=SERVE_WORKER_PROCS,
     the script scrapes /metrics and /readyz, and stop_server follows.
     Every K1 launch of the child is held against its plain version here
     afterwards, and the journal is restored into a fresh Server. Returns
-    the path's summary."""
+    the path's summary.
+
+    `n_real` of the 1,024 rows (spread over them) run as real port
+    workers instead (start_real_worker: `run_worker` with the row's
+    configuration and a runner pool of SERVE_REAL_RUNNER_POOL), and run
+    their `true` tasks for real (the arrays' bodies ask for no stdout or
+    stderr files); they freeze with the simulated ones and report their
+    decode, their tasks' stages and their runner restarts (which must be
+    0)."""
     import multiprocessing
     import pickle
     import shutil
+    import signal
     import tempfile
     from pathlib import Path
+
+    from hyperqueue_tpu_torch.transport import codec
 
     from hyperqueue_tpu_torch.models.greedy import GreedyCutScanModel
     from hyperqueue_tpu_torch.server.bootstrap import Server
@@ -4842,7 +5239,16 @@ def server_start_path(card, device, n_procs=SERVE_WORKER_PROCS,
 
     resources, worker_rows, submits, n_tasks = state or journal_state()
     mark("state")
-    configs = [cfg.to_wire() for _wid, cfg, _free, _nt in worker_rows]
+    # the real workers run `true` for real: no output files for 1M tasks
+    submits = [dict(d, array=dict(d["array"], body=dict(
+        d["array"]["body"], stdout="none", stderr="none")))
+        for d in submits]
+    all_configs = [cfg.to_wire() for _wid, cfg, _free, _nt in worker_rows]
+    real_rows = sorted(set(np.linspace(0, len(all_configs) - 1, n_real)
+                           .astype(int).tolist())) if n_real else []
+    configs = [c for i, c in enumerate(all_configs) if i not in real_rows]
+    real_configs = [dict(all_configs[i], runner_pool=SERVE_REAL_RUNNER_POOL)
+                    for i in real_rows]
     tmp = Path(tempfile.mkdtemp(prefix="hq-serve-"))
     server_dir = tmp / "server"
     result_path = tmp / "child.json"
@@ -4850,7 +5256,8 @@ def server_start_path(card, device, n_procs=SERVE_WORKER_PROCS,
     child = ctx.Process(target=serve_child, name="hq-server",
                         args=(str(server_dir), device.type,
                               str(result_path)))
-    procs, pipes = [], []
+    procs, pipes, real = [], [], []
+    real_results = [tmp / f"real{i:02d}.json" for i in range(len(real_rows))]
     out: dict = {}
     try:
         child.start()
@@ -4880,6 +5287,8 @@ def server_start_path(card, device, n_procs=SERVE_WORKER_PROCS,
                 time.sleep(0.05)
         out["server_start_s"] = time.perf_counter() - t0
         mark("server_started")
+        real = [start_real_worker("row", cfg, server_dir, path)
+                for cfg, path in zip(real_configs, real_results)]
 
         def recv(pipe, what, timeout=120.0):
             if not pipe.poll(timeout):
@@ -4893,6 +5302,10 @@ def server_start_path(card, device, n_procs=SERVE_WORKER_PROCS,
         t0 = time.perf_counter()
         regs = [recv(p, "registered") for p in pipes]
         storm_s = time.perf_counter() - t0
+        wait_files([f"{r}.registered" for r in real_results],
+                   "server_start: real workers registered", 120.0, real)
+        real_ids = [int(Path(f"{r}.registered").read_text())
+                    for r in real_results]
         mark("registered")
         handshake = [h for r in regs for h in r["handshake_s"]]
         register = [h for r in regs for h in r["register_s"]]
@@ -4906,7 +5319,8 @@ def server_start_path(card, device, n_procs=SERVE_WORKER_PROCS,
             "register_rtt_ms_p99": _pctl(register, 99) * 1e3}
         log("server_start_registration", **out["registration"],
             wire_backend=WIRE_BACKEND, card=card)
-        if len({w for r in regs for w in r["worker_ids"]}) != len(configs):
+        if len({w for r in regs for w in r["worker_ids"]} | set(real_ids)) \
+                != len(all_configs):
             raise AssertionError("server_start: worker ids repeat")
 
         async def client_side():
@@ -4958,14 +5372,22 @@ def server_start_path(card, device, n_procs=SERVE_WORKER_PROCS,
                                                  "dropped")
             (server_dir / "dropped.json").write_text(json.dumps(dropped))
             await asyncio.sleep(2.0)
+            for w in real:
+                w.send_signal(signal.SIGUSR1)
             for p in pipes:
                 p.send(("freeze", None))
             mark("window_end")
             frozen = [await loop.run_in_executor(None, recv, p, "frozen")
                       for p in pipes]
+            await loop.run_in_executor(
+                None, wait_files, [f"{r}.frozen" for r in real_results],
+                "server_start: real workers frozen", 70.0, real)
+            real_frozen = [json.loads(Path(f"{r}.frozen").read_text())
+                           for r in real_results]
             mark("drained")
             window = time.perf_counter() - t_window
-            finished = sum(f["finished"] for f in frozen)
+            finished = sum(f["finished"] for f in frozen) \
+                + sum(f["finished"] for f in real_frozen)
             # the server works through its backlog of worker frames (and
             # the ticks and fan-out the drain's finishes cause) before its
             # counts reach what the workers sent: tens of seconds here
@@ -5005,6 +5427,7 @@ def server_start_path(card, device, n_procs=SERVE_WORKER_PROCS,
             conn.close()
             return dict(info=info, acks=acks, submit_s=submit_s,
                         window_s=window, dropped=dropped, frozen=frozen,
+                        real_frozen=real_frozen,
                         finished_sent=finished, counts_s=counts_s,
                         catch_up=catch_up, job=job,
                         stats=stats,
@@ -5031,6 +5454,19 @@ def server_start_path(card, device, n_procs=SERVE_WORKER_PROCS,
             if p.exitcode != 0:
                 raise AssertionError(f"server_start: {p.name} exited "
                                      f"{p.exitcode}")
+        for w in real:
+            try:
+                w.wait(30)
+            except subprocess.TimeoutExpired:
+                pass
+        real_reports = []
+        for w, path in zip(real, real_results):
+            if w.returncode != 0 or not path.exists():
+                tail = Path(f"{path}.log").read_text()[-2000:] \
+                    if Path(f"{path}.log").exists() else ""
+                raise AssertionError(f"server_start: real worker {path.name}"
+                                     f" exited {w.returncode}: {tail}")
+            real_reports.append(json.loads(path.read_text()))
         mark("reports")
         res = json.loads(result_path.read_text())
         with open(str(result_path) + ".solves", "rb") as f:
@@ -5067,8 +5503,12 @@ def server_start_path(card, device, n_procs=SERVE_WORKER_PROCS,
         if dropped_check.get("n_bad") or dropped_check.get("error") \
                 or not dropped_check.get("tasks"):
             fails.append(f"dropped worker's tasks: {dropped_check}")
-        ids = np.concatenate([r["ids"] for r in reports])
-        inst = np.concatenate([r["instances"] for r in reports])
+        real_pairs = np.array([d for r in real_reports
+                               for d in r["dispatched"]],
+                              dtype=np.int64).reshape(-1, 2)
+        ids = np.concatenate([r["ids"] for r in reports] + [real_pairs[:, 0]])
+        inst = np.concatenate([r["instances"] for r in reports]
+                              + [real_pairs[:, 1]])
         pairs = np.unique(np.stack([ids, inst]), axis=1)
         if pairs.shape[1] != ids.size:
             fails.append(f"{ids.size - pairs.shape[1]} (task, instance) "
@@ -5095,6 +5535,21 @@ def server_start_path(card, device, n_procs=SERVE_WORKER_PROCS,
         errors = [e for r in reports for e in r["errors"]]
         if errors:
             fails.append(f"simulated workers failed: {errors[:3]}")
+        for i, r in enumerate(real_reports):
+            fails += real_worker_faults(r, f"real worker {i}")
+            if not r.get("finished"):
+                fails.append(f"real worker {i} ran no task")
+        if any(f["running"] for f in c["real_frozen"]):
+            fails.append("the real workers did not drain: "
+                         f"{[f['running'] for f in c['real_frozen']]}")
+        backends = {"server": res.get("codec_backend"),
+                    "simulated": sorted({r.get("codec") for r in reports}),
+                    "real": sorted({r.get("codec") for r in real_reports}),
+                    "parent": codec.BACKEND}
+        if backends["server"] != "native" or backends["parent"] != "native" \
+                or set(backends["simulated"]) != {"native"} \
+                or set(backends["real"]) - {"native"}:
+            fails.append(f"codec backends {backends}")
         # /readyz may answer 503 for a paging SLO alert (a multi-second
         # tick 0 pages tick-latency): every other check must be ok
         ready_checks = c["ready"][1].get("checks", {})
@@ -5180,12 +5635,40 @@ def server_start_path(card, device, n_procs=SERVE_WORKER_PROCS,
             / max(codec_server["decode_n"], 1) * 1e6,
             "server_decode_bytes_per_frame": codec_server["decode_bytes"]
             / max(codec_server["decode_n"], 1),
+            "server_encode_us_per_kb": codec_server["encode_s"]
+            / max(codec_server["encode_bytes"] / 1024, 1e-9) * 1e6,
+            "server_encode_s": codec_server["encode_s"],
+            "server_decode_s": codec_server["decode_s"],
             "server_frames": {"encoded": codec_server["encode_n"],
                               "decoded": codec_server["decode_n"]},
         }
         lag = lag_p99_by_plane(metrics.parse_exposition(c["scrape"]))
+        for i, r in enumerate(real_reports):
+            log("server_start_real_worker", index=i, row=real_rows[i],
+                **real_worker_line(r), card=card)
+
+        def pooled(key):
+            values = [v for r in real_reports for v in r.get(key) or []]
+            return {"p50": _pctl(values, 50), "p99": _pctl(values, 99),
+                    "n": len(values)}
+
+        real_summary = {
+            "workers": len(real_reports),
+            "runner_pool": SERVE_REAL_RUNNER_POOL,
+            "tasks_run": sum(r["finished"] for r in real_reports),
+            "compute_entries": sum(r["entries"] for r in real_reports),
+            "decode_us_per_entry": sum(r["decode_s"] for r in real_reports)
+            / max(sum(r["entries"] for r in real_reports), 1) * 1e6,
+            "parked_ms": pooled("parked_ms"),
+            "dispatch_ms": pooled("dispatch_ms"),
+            "run_ms": pooled("run_ms"), "total_ms": pooled("total_ms"),
+            "runner_restarts": sum(r["runner_restarts"]
+                                   for r in real_reports),
+            "stops_read": sum(1 for r in real_reports if r["stop_read"])}
         summary = dict(
-            workers=len(configs), worker_processes=n_procs,
+            workers=len(all_configs), simulated_workers=len(configs),
+            real_workers=real_summary, codec_backends=backends,
+            worker_processes=n_procs,
             tasks=n_tasks, arrays=len(submits),
             wire_backend=c["info"]["wire_backend"],
             server_start_s=out["server_start_s"],
@@ -5207,6 +5690,7 @@ def server_start_path(card, device, n_procs=SERVE_WORKER_PROCS,
             lag=lag,
             readyz={"status": c["ready"][0], "checks": ready_checks},
             stalls=stats["stalls"]["captured"],
+            longest_stalls=res.get("longest_stalls"),
             journal_commits=res.get("commit_ms"),
             journal_plane=res.get("journal_plane"),
             launches=res["launches"], solves=res["solves"],
@@ -5227,7 +5711,14 @@ def server_start_path(card, device, n_procs=SERVE_WORKER_PROCS,
             restore_events=(last_restore or {}).get("tail_events"),
             restore_held=(last_restore or {}).get("held_for_reattach"),
             restored=counters, retracts=sum(r["retracts"] for r in reports),
-            stops_received=sum(r["stops"] for r in reports),
+            stops_received=sum(r["stops"] for r in reports)
+            + real_summary["stops_read"],
+            # the shutdown's stop frames, encoded by the fan-out before the
+            # connections closed (seconds after the shutdown began)
+            stops_encoded=res["stops"]["encoded"],
+            stops_encoded_s=[None if t is None else t - res["times"]
+                             ["shutdown"] for t in (res["stops"]["first"],
+                                                   res["stops"]["last"])],
             server_peak_rss_mb=res["peak_rss_mb"],
             server_rss_at_stop_mb=res.get("rss_at_stop_mb"),
             path_phases_s=marks,
@@ -5239,6 +5730,228 @@ def server_start_path(card, device, n_procs=SERVE_WORKER_PROCS,
             if p.is_alive():
                 p.kill()
                 p.join(5)
+        for w in real:
+            if w.poll() is None:
+                w.kill()
+                w.wait(5)
+        if child.is_alive():
+            child.kill()
+            child.join(5)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def worker_node_path(card, device):
+    """Phase 17: the deployment HyperQueue documents, one worker a node
+    with the node's detected resources. The port's server in a child
+    process (serve_child: the default scheduler, K1 on the card every
+    tick) and one port worker (start_real_worker "node": detect_resources,
+    every CPU of the machine and the card as `gpus`, the `nvidia-smi`
+    count where detection finds none; hwmonitor sampling every
+    NODE_OVERVIEW_S; the runner pool at its default width). The client
+    submits one array of NODE_TASKS `true` tasks at 1 CPU and one of
+    NODE_GPU_TASKS tasks at 1 CPU and `gpus=1`, each running `nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader -i
+    $HQ_RESOURCE_VALUES_gpus` between two time stamps into its stdout
+    file. It fails unless every task finishes within NODE_DRAIN_S of the
+    submits and none fails, each GPU task's stdout names the card, no two
+    GPU tasks overlap, the worker's overview carries a GPU sample, every
+    K1 launch equals its plain version and the codec is native in every
+    process. Reports tasks a second, the per-task overhead above a spawn
+    floor (a posix_spawn of `true` measured alone here first), the runner
+    pool's width and the codec backend."""
+    import multiprocessing
+    import pickle
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from hyperqueue_tpu_torch.models.greedy import GreedyCutScanModel
+    from hyperqueue_tpu_torch.transport import auth, codec
+    from hyperqueue_tpu_torch.utils import serverdir
+
+    t_path = time.perf_counter()
+    floor = spawn_floor_ms()
+    log("worker_node_spawn_floor", **floor, card=card)
+    tmp = Path(tempfile.mkdtemp(prefix="hq-node-"))
+    server_dir = tmp / "server"
+    submit_dir = tmp / "submit"
+    submit_dir.mkdir()
+    result_path = tmp / "child.json"
+    worker_result = tmp / "worker.json"
+    ctx = multiprocessing.get_context("spawn")
+    child = ctx.Process(target=serve_child, name="hq-server",
+                        args=(str(server_dir), device.type,
+                              str(result_path)))
+    worker = None
+    try:
+        child.start()
+        t0 = time.perf_counter()
+        while True:
+            try:
+                access = serverdir.load_access(server_dir, retry_secs=0.0)
+                break
+            except (FileNotFoundError, ValueError, KeyError, TypeError):
+                if not child.is_alive() or time.perf_counter() - t0 > 120:
+                    raise AssertionError("worker_node: no server "
+                                         f"({child.exitcode})")
+                time.sleep(0.05)
+        worker = start_real_worker(f"node:{NODE_OVERVIEW_S}", None,
+                                   server_dir, worker_result)
+        wait_files([f"{worker_result}.registered"],
+                   "worker_node: the worker registered", 120.0, [worker])
+        gpu_cmd = ("echo start $(date +%s.%N); nvidia-smi "
+                   "--query-gpu=name,power.limit --format=csv,noheader "
+                   "-i $HQ_RESOURCE_VALUES_gpus; echo end $(date +%s.%N)")
+
+        def job(name, n, entries, cmd):
+            return {"name": name, "submit_dir": str(submit_dir),
+                    "array": {"id_range": [0, n], "priority": 0,
+                              "request": {"variants": [{"entries": entries}]},
+                              "body": {"cmd": cmd, "env": {}, "cwd": None,
+                                       "stdout": None, "stderr": None,
+                                       "submit_dir": str(submit_dir)}}}
+
+        cpu = {"name": "cpus", "amount": U, "policy": "compact"}
+        gpu = {"name": "gpus", "amount": U, "policy": "compact"}
+
+        async def client_side():
+            reader, writer = await asyncio.open_connection(
+                "127.0.0.1", access.client_port)
+            conn = await auth.do_authentication(
+                reader, writer, auth.ROLE_CLIENT, auth.ROLE_SERVER,
+                access.client_key_bytes())
+
+            async def request(msg, timeout=120.0):
+                await conn.send(msg)
+                return await asyncio.wait_for(conn.recv(), timeout)
+
+            t_submit = time.perf_counter()
+            acks = [await request({"op": "submit", "job": job(
+                "true", NODE_TASKS, [cpu], ["true"])}),
+                await request({"op": "submit", "job": job(
+                    "gpu", NODE_GPU_TASKS, [cpu, gpu],
+                    ["bash", "-c", gpu_cmd])})]
+            job_ids = [a["job_id"] for a in acks]
+            progress, jobs = [], []
+            while True:
+                jobs = (await request({"op": "job_info",
+                                       "job_ids": job_ids}))["jobs"]
+                elapsed = time.perf_counter() - t_submit
+                done = sum(j["counters"]["finished"] for j in jobs)
+                failed = sum(j["counters"].get("failed", 0) for j in jobs)
+                if not progress or elapsed >= progress[-1][0] + 5.0:
+                    progress.append((round(elapsed, 1), done))
+                if done + failed >= NODE_TASKS + NODE_GPU_TASKS \
+                        or elapsed > NODE_DRAIN_S:
+                    break
+                await asyncio.sleep(0.1)
+            drain_s = time.perf_counter() - t_submit
+            workers = await request({"op": "worker_list"})
+            stop = await request({"op": "stop_server"})
+            conn.close()
+            return dict(acks=acks, jobs=jobs, drain_s=drain_s,
+                        progress=progress, workers=workers, stop=stop,
+                        done=done, failed=failed)
+
+        c = asyncio.run(client_side())
+        child.join(SERVE_EXIT_S)
+        try:
+            worker.wait(30)
+        except subprocess.TimeoutExpired:
+            pass
+        fails = []
+        if c["done"] < NODE_TASKS + NODE_GPU_TASKS:
+            fails.append(f"not drained within {NODE_DRAIN_S} s: "
+                         f"{c['done']} of {NODE_TASKS + NODE_GPU_TASKS} "
+                         f"finished, {c['failed']} failed; progress "
+                         f"{c['progress']}")
+        if c["failed"]:
+            fails.append(f"{c['failed']} tasks failed")
+        if child.is_alive() or child.exitcode != 0:
+            fails.append(f"the server child did not exit 0 "
+                         f"({child.exitcode})")
+        if not worker_result.exists():
+            tail = Path(f"{worker_result}.log").read_text()[-2000:]
+            raise AssertionError(f"worker_node: the worker left no report "
+                                 f"({worker.returncode}): {tail}; "
+                                 + "; ".join(fails))
+        rep = json.loads(worker_result.read_text())
+        fails += real_worker_faults(rep, "worker")
+        res = json.loads(result_path.read_text())
+        if res.get("codec_backend") != "native" or codec.BACKEND != "native":
+            fails.append(f"codec backends: server "
+                         f"{res.get('codec_backend')}, here {codec.BACKEND}")
+        # the GPU tasks: the card's name, one at a time
+        name = card.split(",")[0].strip()
+        spans = []
+        gpu_job = c["acks"][1]["job_id"]
+        for i in range(NODE_GPU_TASKS):
+            path = submit_dir / f"job-{gpu_job}" / f"{i}.stdout"
+            text = path.read_text() if path.exists() else ""
+            lines = text.split("\n")
+            if name not in text:
+                fails.append(f"GPU task {i}'s stdout does not name the "
+                             f"card: {text[:200]!r}")
+                continue
+            start = [ln for ln in lines if ln.startswith("start ")]
+            end = [ln for ln in lines if ln.startswith("end ")]
+            if start and end:
+                spans.append((float(start[0].split()[1]),
+                              float(end[0].split()[1])))
+        spans.sort()
+        overlaps = sum(1 for a, b in zip(spans, spans[1:]) if b[0] < a[1])
+        if overlaps or len(spans) != NODE_GPU_TASKS:
+            fails.append(f"GPU tasks: {overlaps} overlaps in "
+                         f"{len(spans)} spans")
+        overview = [w.get("overview") for w in c["workers"]["workers"]]
+        gpu_samples = [o["hw"].get("gpus") for o in overview
+                       if o and o.get("hw")]
+        if not any(gpu_samples):
+            fails.append(f"no GPU sample in the worker's overview: "
+                         f"{overview}")
+        wd = res["checks"]["watchdog"]
+        if wd["failures"] or wd["timeouts"] or wd["degraded_ticks"]:
+            fails.append(f"watchdog {wd}")
+        if device.type == "cuda" and (
+                res["launches"] != res["solves"] or not res["solves"]):
+            fails.append(f"K1 launches {res['launches']} for "
+                         f"{res['solves']} solves")
+        with open(str(result_path) + ".solves", "rb") as f:
+            solves = pickle.load(f)
+        checker = GreedyCutScanModel(device=device.type, backend="device")
+        for n, (kwargs, counts) in enumerate(solves):
+            try:
+                check_tick_against_plain(checker, kwargs, counts, device, n)
+            except AssertionError as e:
+                fails.append(f"solve {n}: {e}")
+                break
+        del solves
+        if fails:
+            raise AssertionError("worker_node: " + "; ".join(fails))
+        line = real_worker_line(rep)
+        n_all = NODE_TASKS + NODE_GPU_TASKS
+        summary = dict(
+            resources=rep["resources"], detected_gpus=rep["detected_gpus"],
+            gpus_from="detect_gpus" if rep["detected_gpus"]
+            else "nvidia-smi -L (detect_gpus found none)",
+            tasks=n_all, drain_s=c["drain_s"],
+            tasks_per_s=n_all / c["drain_s"], progress=c["progress"],
+            spawn_floor_ms=floor,
+            overhead_above_floor_ms={
+                "total_p50": line["total_ms"]["p50"] - floor["p50"],
+                "run_p50": line["run_ms"]["p50"] - floor["p50"]},
+            worker=line, runner_pool=rep["runner_pool"],
+            codec_backend=rep["codec"], server_codec=res["codec_backend"],
+            gpu_spans_s=[round(b - a, 4) for a, b in spans],
+            gpu_sample=next(g for g in gpu_samples if g)[:2],
+            launches=res["launches"], solves=res["solves"],
+            stop=c["stop"], seconds=time.perf_counter() - t_path)
+        log("worker_node_summary", **summary, card=card)
+        return summary
+    finally:
+        if worker is not None and worker.poll() is None:
+            worker.kill()
+            worker.wait(5)
         if child.is_alive():
             child.kill()
             child.join(5)
@@ -5270,7 +5983,21 @@ def main() -> int:
     # path's server and workers inherit it)
     nofile_soft, nofile = raise_nofile_limit()
 
-    # phase 1: the card and the builds, all started together
+    # seconds of each phase, logged at the end (phase_seconds)
+    phase_s: dict = {}
+    t_phase = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        phase_s[name] = round(now - t_phase[0], 3)
+        t_phase[0] = now
+
+    # phase 1: the card and the builds, all started together; the native
+    # codec is already loaded (transport/codec builds it at first import)
+    from hyperqueue_tpu_torch.transport import codec
+    if codec.BACKEND != "native":
+        raise AssertionError("the native codec did not build: "
+                             f"codec.BACKEND is {codec.BACKEND!r}")
     card = card_info()
     kind = torch.cuda.get_device_name(0)
     log("card", card=card, kind=kind, torch=torch.__version__,
@@ -5295,7 +6022,8 @@ def main() -> int:
     global THREADS
     THREADS = int(load_library("cut_scan")[0].hq_cut_scan_block_threads())
     log("builds", wall_seconds=round(build_s, 3), native="hqcore",
-        card=card)
+        codec=codec.BACKEND, card=card)
+    lap("1_builds")
 
     # phase 2: the kernel against its plain version, K1 then K1g cases,
     # each in the instantiation its layout picks and, where the resident
@@ -5338,6 +6066,7 @@ def main() -> int:
                                  f"{checked_g}")
     log("kernel_vs_plain_k1g_summary", instantiations_checked=checked_g,
         max_abs_err=max_err_g, card=card)
+    lap("2_kernel_vs_plain")
 
     # phase 2b: the sharded kernel against its plain version and K1, each
     # case in the variant the wrapper picks and in every other that fits
@@ -5361,6 +6090,7 @@ def main() -> int:
     log("sharded_vs_plain", cases=sorted(sharded),
         variants_checked=checked_k2, max_abs_err=max_err_k2,
         seconds=round(time.perf_counter() - t0, 3), card=card)
+    lap("2b_sharded_vs_plain")
 
     # phase 3: the main path, ticks through run_tick on the card
     seen: set = set()
@@ -5385,6 +6115,7 @@ def main() -> int:
     glue = time_glue(model, last_case["_counts"].shape,
                      last_case["_extents"], device)
     log("glue", **glue, card=card)
+    lap("3_4_main_path")
 
     # phase 5: the fused path
     # (a state of its own, whose task ids may repeat the main path's)
@@ -5403,8 +6134,10 @@ def main() -> int:
         *profiled_window(f_one_tick, n_window), n_window,
         f_ticks["steady_median_ms"], card))
 
+    lap("5_6_fused_path")
     # phase 7: the sync probe (K5)
     max_err_p, k5 = k5_phase(device, card)
+    lap("7_sync_probe")
 
     # phase 8: the server path, its profiled window and host solves
     server, s_model, (s_kwargs, s_counts), s_tick = server_path(
@@ -5423,6 +6156,7 @@ def main() -> int:
     log("server_cost_model", cost_model=server["cost_model"],
         host_numpy_ms=hosts["host_numpy"]["ms"],
         host_native_ms=hosts["host_native"]["ms"], card=card)
+    lap("8_server_path")
 
     # phase 9: the multichip path, the server's seam around MultichipModel
     # over N_SHARDS shards of the card
@@ -5451,19 +6185,25 @@ def main() -> int:
         **k2, card=card)
     log("k2_step_split", **k2_step_split(m_case, device, N_SHARDS, k2),
         card=card)
+    lap("9_10_multichip_path")
 
     # phase 11: min-utilization workers at the north star (K1 and the host
     # search); phase 12: `--scheduler milp` with its degraded tick
     mu = mu_path(card, device, set())
+    lap("11_mu_path")
     milp = milp_path(card, device, set())
+    lap("12_milp_path")
 
     # phases 13 and 14: the server's tick itself, reactor.schedule over the
     # north star held as lazy array chunks, then in fused mode
     react = reactor_path(card, device)
+    lap("13_reactor_path")
     react_fused = reactor_fused_path(card, device)
+    lap("14_reactor_fused_path")
 
     # phase 15: the journal, a journaled server's kill -9 and restore
     jour = journal_path(card, device)
+    lap("15_journal_path")
     reactor_steady = react["medians"]["sync"]
     log("journal_vs_reactor",
         # the reactor path's workers answer through JobSink (no journal),
@@ -5483,6 +6223,7 @@ def main() -> int:
     # phase 16: `hq server start` over TCP: the server in a child process,
     # 1,024 workers and the client over the wire
     serve = server_start_path(card, device)
+    lap("16_server_start_path")
     log("server_start_vs_reactor",
         # the reactor path drives reactor.schedule from this process with
         # the workers' answers between ticks; here the server's own loop
@@ -5493,6 +6234,9 @@ def main() -> int:
         server_start_steady_median_ms=serve["ticks"].get("steady_median_ms"),
         server_start_steady_p99_ms=serve["ticks"].get("steady_p99_ms"),
         card=card)
+    # phase 17: one worker node, the deployment HyperQueue documents
+    node = worker_node_path(card, device)
+    lap("17_worker_node_path")
     log("mapping", native=True,
         default_median_ms=ticks["phases_median_ms"]["mapping"],
         server_sync_median_ms=server_summary["sync"]["phases_median_ms"]
@@ -5545,8 +6289,10 @@ def main() -> int:
             # server A's ticks and the restored server B's
             "journal_launches": jour["launches"]["cut_scan"]
             if name == "cut_scan" else 0,
-            # the server child's scheduler loop (phase 16)
+            # the server child's scheduler loop (phases 16 and 17)
             "server_start_launches": serve["launches"]
+            if name == "cut_scan" else 0,
+            "worker_node_launches": node["launches"]
             if name == "cut_scan" else 0,
             # a fused reactor tick without gang rows launches plain K1
             "reactor_fused_launches": react_fused["launches"]["cut_scan_gang"]
@@ -5612,6 +6358,8 @@ def main() -> int:
         "floor_us": floors,
     })
     log("profiler_windows", **PROFILED, card=card)
+    log("phase_seconds", **phase_s,
+        total=round(sum(phase_s.values()), 3), card=card)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

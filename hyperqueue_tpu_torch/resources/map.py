@@ -10,9 +10,16 @@ of the dense solver snapshot.
 from __future__ import annotations
 
 from hyperqueue_tpu_torch.resources.request import ResourceRequestVariants
+from hyperqueue_tpu_torch.utils.metrics import REGISTRY
 
 CPU_RESOURCE_NAME = "cpus"
 CPU_RESOURCE_ID = 0
+
+_SOLVE_MASK_ROWS = REGISTRY.counter(
+    "hq_solve_mask_rows",
+    "indexed-resource mask subcolumns interned into the dense solve "
+    "(one per distinct (resource, group) pair, e.g. gpus#0)",
+)
 
 
 class ResourceIdMap:
@@ -21,14 +28,13 @@ class ResourceIdMap:
     Mask subcolumns: a non-fungible indexed constraint ("group k of gpus")
     interns as its own dense column named ``gpus#k`` and is tracked in
     ``masked_rids``; the solver sees one ordinary needs/free column.
-    ``mask_rows`` counts the distinct mask subcolumns interned so far.
+    ``hq_solve_mask_rows`` counts the distinct mask subcolumns interned.
     """
 
     def __init__(self):
         self._names: list[str] = [CPU_RESOURCE_NAME]
         self._ids: dict[str, int] = {CPU_RESOURCE_NAME: CPU_RESOURCE_ID}
         self.masked_rids: set[int] = set()
-        self.mask_rows = 0
 
     def get_or_create(self, name: str) -> int:
         rid = self._ids.get(name)
@@ -42,7 +48,7 @@ class ResourceIdMap:
         rid = self.get_or_create(f"{name}#{group}")
         if rid not in self.masked_rids:
             self.masked_rids.add(rid)
-            self.mask_rows += 1
+            _SOLVE_MASK_ROWS.inc()
         return rid
 
     def is_masked(self, resource_id: int) -> bool:

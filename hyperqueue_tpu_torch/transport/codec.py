@@ -25,13 +25,21 @@ The reserved byte 0xc1, truncated input and trailing bytes raise
 package, so they raise too (msgpack would return an ExtType). With
 ``strict_map_key=True`` (msgpack's default) a map key that is neither str
 nor bytes raises ValueError.
+
+Two implementations share these semantics: a CPython extension
+(`native/codec.cpp`), built at first use with the host's C++ compiler into
+`_build/` beside the package, and the Python functions below (`py_packb`,
+`py_unpackb`), which stand in where no compiler or no `Python.h` is found
+and are the reference the tests hold the extension to. `BACKEND` names the
+one behind `packb` and `unpackb`: "native" or "python". This module
+imports only the standard library: a task runner boots it under `-S`.
 """
 
 from __future__ import annotations
 
 import struct
 
-__all__ = ["CodecError", "packb", "unpackb"]
+__all__ = ["BACKEND", "CodecError", "packb", "unpackb"]
 
 
 class CodecError(ValueError):
@@ -338,3 +346,75 @@ def unpackb(data, *, strict_map_key: bool = True):
     if pos != end:
         raise CodecError("unpack(b) received extra data.")
     return obj
+
+
+# ---------------------------------------------------------------------------
+# the native backend
+# ---------------------------------------------------------------------------
+py_packb = packb
+py_unpackb = unpackb
+
+
+def _load_native():
+    """The extension module built from native/codec.cpp, or None where it
+    cannot be built or loaded. The file name carries a hash of the source,
+    the flags and the interpreter, so an edited source or another Python
+    builds anew; a file lock lets concurrent processes share one build."""
+    import hashlib
+    import os
+    import sys
+    from importlib.machinery import ExtensionFileLoader
+    from importlib.util import module_from_spec, spec_from_loader
+
+    package = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    source = os.path.join(package, "native", "codec.cpp")
+    build = os.path.join(package, "_build")
+    try:
+        import sysconfig
+
+        include = sysconfig.get_paths()["include"]
+        if not os.path.exists(os.path.join(include, "Python.h")):
+            return None
+        flags = ("-O2", "-std=c++17", "-fPIC", "-shared", f"-I{include}")
+        with open(source, "rb") as f:
+            key = f.read()
+        key += " ".join(flags).encode() + sys.version.encode()
+        digest = hashlib.sha256(key).hexdigest()[:16]
+        path = os.path.join(build, f"_hqcodec-{digest}.so")
+        if not os.path.exists(path):
+            import fcntl
+            import shutil
+
+            cxx = shutil.which("g++") or shutil.which("c++")
+            if cxx is None:
+                return None
+            os.makedirs(build, exist_ok=True)
+            with open(os.path.join(build, "hqcodec.lock"), "w") as lock:
+                fcntl.flock(lock, fcntl.LOCK_EX)
+                if not os.path.exists(path):
+                    import subprocess
+
+                    tmp = f"{path}.{os.getpid()}.tmp"
+                    try:
+                        subprocess.run([cxx, *flags, "-o", tmp, source],
+                                       capture_output=True, timeout=180,
+                                       check=True)
+                        os.replace(tmp, path)
+                    finally:
+                        if os.path.exists(tmp):
+                            os.unlink(tmp)
+        loader = ExtensionFileLoader("_hqcodec", path)
+        module = module_from_spec(spec_from_loader("_hqcodec", loader))
+        loader.exec_module(module)
+        module.configure(CodecError)
+        return module
+    except Exception:  # noqa: BLE001 - any failure leaves the Python codec
+        return None
+
+
+_native = _load_native()
+native_packb = _native.packb if _native is not None else None
+native_unpackb = _native.unpackb if _native is not None else None
+BACKEND = "native" if _native is not None else "python"
+packb = native_packb or py_packb
+unpackb = native_unpackb or py_unpackb

@@ -4,7 +4,10 @@ msgpack 1.x, which the JAX package calls.
 `codec.packb(x)` must equal `msgpack.packb(x, use_bin_type=True)` byte for
 byte, and `codec.unpackb` must decode as `msgpack.unpackb(raw=False)` does
 and raise exactly where it raises (ext types aside: the codec refuses them,
-msgpack returns an ExtType). The fixed-byte tests need no msgpack.
+msgpack returns an ExtType). The fixed-byte tests need no msgpack. Every
+test runs over both implementations: the native extension
+(`codec.native_packb`/`native_unpackb`, what `packb`/`unpackb` are where it
+builds) and the Python reference (`codec.py_packb`/`py_unpackb`).
 """
 
 import math
@@ -27,6 +30,21 @@ from hyperqueue_tpu_torch.transport import codec
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
+
+
+class Impl:
+    def __init__(self, name, packb, unpackb):
+        self.name, self.packb, self.unpackb = name, packb, unpackb
+        self.CodecError = codec.CodecError
+
+
+IMPLS = [
+    pytest.param(Impl("native", codec.native_packb, codec.native_unpackb),
+                 id="native"),
+    pytest.param(Impl("python", codec.py_packb, codec.py_unpackb),
+                 id="python"),
+]
+with_impl = pytest.mark.parametrize("codec", IMPLS)
 
 scalars = (
     st.none()
@@ -71,9 +89,10 @@ def _same(a, b) -> bool:
     return type(a) is type(b) and a == b
 
 
+@with_impl
 @settings(max_examples=300, deadline=None)
 @given(values)
-def test_pack_matches_msgpack(value):
+def test_pack_matches_msgpack(codec, value):
     msgpack = pytest.importorskip("msgpack")
     want = msgpack.packb(value, use_bin_type=True)
     assert codec.packb(value) == want
@@ -88,13 +107,14 @@ def test_pack_matches_msgpack(value):
         assert _same(codec.unpackb(want, strict_map_key=strict), expected)
 
 
+@with_impl
 @settings(max_examples=500, deadline=None)
 @given(st.binary(max_size=48) | st.lists(
     st.sampled_from([b"\x81", b"\x91", b"\xa1a", b"\xc0", b"\xc1", b"\xc4",
                      b"\xcb", b"\xd4", b"\xd9\x02", b"\xdc\x00", b"\xde",
                      b"\x00", b"\xff", b"\x7f", b"\x92", b"\xc7\x01"]),
     max_size=12).map(b"".join))
-def test_unpack_fuzz_matches_msgpack(data):
+def test_unpack_fuzz_matches_msgpack(codec, data):
     msgpack = pytest.importorskip("msgpack")
     ext_types = (msgpack.ExtType, msgpack.Timestamp)
     for strict in (True, False):
@@ -112,7 +132,8 @@ def test_unpack_fuzz_matches_msgpack(data):
         assert _same(codec.unpackb(data, strict_map_key=strict), expected)
 
 
-def test_journal_shaped_records_match_msgpack():
+@with_impl
+def test_journal_shaped_records_match_msgpack(codec):
     msgpack = pytest.importorskip("msgpack")
     record = {"time": 1_760_000_000.125, "seq": 70_000, "event":
               "task-started", "job": 1, "task": 2**20, "workers": [17],
@@ -138,9 +159,10 @@ INT_EDGES = [
 ]
 
 
+@with_impl
 @pytest.mark.parametrize("value,hex_bytes", INT_EDGES,
                          ids=[str(v) for v, _h in INT_EDGES])
-def test_int_format_boundaries(value, hex_bytes):
+def test_int_format_boundaries(codec, value, hex_bytes):
     assert codec.packb(value) == bytes.fromhex(hex_bytes)
     assert codec.unpackb(bytes.fromhex(hex_bytes)) == value
 
@@ -158,9 +180,10 @@ SIZE_EDGES = [
 ]
 
 
+@with_impl
 @pytest.mark.parametrize("n,str_h,bin_h,arr_h,map_h", SIZE_EDGES,
                          ids=[str(e[0]) for e in SIZE_EDGES])
-def test_sized_format_boundaries(n, str_h, bin_h, arr_h, map_h):
+def test_sized_format_boundaries(codec, n, str_h, bin_h, arr_h, map_h):
     text = "x" * n
     blob = b"\x01" * n
     array = [None] * n
@@ -176,7 +199,8 @@ def test_sized_format_boundaries(n, str_h, bin_h, arr_h, map_h):
     assert codec.packb(memoryview(blob)) == codec.packb(blob)
 
 
-def test_scalars_and_subclasses():
+@with_impl
+def test_scalars_and_subclasses(codec):
     assert codec.packb(None) == b"\xc0"
     assert codec.packb(True) == b"\xc3" and codec.packb(False) == b"\xc2"
     assert codec.packb(1.5) == b"\xcb" + struct.pack(">d", 1.5)
@@ -202,19 +226,21 @@ def test_scalars_and_subclasses():
     assert codec.packb(Row([1, 2])) == codec.packb([1, 2])
 
 
+@with_impl
 @pytest.mark.parametrize("value", [np.int64(3), torch.tensor(3), {1, 2},
                                    object()],
                          ids=["numpy.int64", "torch.tensor", "set",
                               "object"])
-def test_unsupported_types_raise(value):
+def test_unsupported_types_raise(codec, value):
     with pytest.raises(TypeError):
         codec.packb(value)
     with pytest.raises(TypeError):
         codec.packb({"record": [value]})
 
 
+@with_impl
 @pytest.mark.parametrize("value", [2**64, -(2**63) - 1])
-def test_int_out_of_range_raises(value):
+def test_int_out_of_range_raises(codec, value):
     with pytest.raises(OverflowError):
         codec.packb(value)
 
@@ -230,12 +256,14 @@ def test_int_out_of_range_raises(value):
     (b"\x81\x01\x02", ValueError),          # int key, strict
 ], ids=["reserved", "truncated", "trailing", "empty", "utf8", "fixext",
         "ext8", "strict-key"])
-def test_malformed_input_raises(data, error):
+@with_impl
+def test_malformed_input_raises(codec, data, error):
     with pytest.raises(error):
         codec.unpackb(data)
 
 
-def test_map_keys_without_strict():
+@with_impl
+def test_map_keys_without_strict(codec):
     assert codec.unpackb(b"\x81\x01\x02", strict_map_key=False) == {1: 2}
     assert codec.unpackb(b"\x81\xc0\x01", strict_map_key=False) == {None: 1}
     assert codec.unpackb(b"\x81\xc4\x01a\x01") == {b"a": 1}
@@ -264,3 +292,94 @@ def test_modules_import_without_msgpack():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_native_backend_loads_here():
+    """The extension builds wherever a C++ compiler and Python.h are found
+    (this machine and the card's), and then stands behind packb/unpackb."""
+    assert codec.BACKEND == "native"
+    assert codec.packb is codec.native_packb
+    assert codec.unpackb is codec.native_unpackb
+
+
+@settings(max_examples=300, deadline=None)
+@given(values)
+def test_native_bytes_equal_python_and_msgpack(value):
+    msgpack = pytest.importorskip("msgpack")
+    data = codec.native_packb(value)
+    assert data == codec.py_packb(value)
+    assert data == msgpack.packb(value, use_bin_type=True)
+    for strict in (True, False):
+        try:
+            want = codec.py_unpackb(data, strict_map_key=strict)
+        except ValueError as e:
+            with pytest.raises(type(e)):
+                codec.native_unpackb(data, strict_map_key=strict)
+            continue
+        assert _same(codec.native_unpackb(data, strict_map_key=strict), want)
+
+
+def _outcome(fn, *args, **kwargs):
+    try:
+        return ("ok", fn(*args, **kwargs))
+    except Exception as e:  # noqa: BLE001 - the exception is the outcome
+        return (type(e), str(e))
+
+
+@settings(max_examples=500, deadline=None)
+@given(st.binary(max_size=48) | st.lists(
+    st.sampled_from([b"\x81", b"\x91", b"\xa1a", b"\xc0", b"\xc1", b"\xc4",
+                     b"\xcb", b"\xd4", b"\xd9\x02", b"\xdc\x00", b"\xde",
+                     b"\x00", b"\xff", b"\x7f", b"\x92", b"\xc7\x01",
+                     b"\xa2\xc3\x28", b"\x81\x90"]),
+    max_size=12).map(b"".join))
+def test_native_and_python_decoders_fail_alike(data):
+    """On any input both decoders give the same value, or raise the same
+    exception with the same message."""
+    for strict in (True, False):
+        native = _outcome(codec.native_unpackb, data, strict_map_key=strict)
+        python = _outcome(codec.py_unpackb, data, strict_map_key=strict)
+        if native[0] == "ok" and python[0] == "ok":
+            assert _same(native[1], python[1])
+        else:
+            assert native == python
+
+
+class _Weird(dict):
+    def items(self):
+        return [("k", 1)]
+
+
+@pytest.mark.parametrize("value", [
+    np.int64(3), object(), {1, 2}, 2**64, -(2**63) - 1, "\ud800",
+    [1, [2, {"a": object()}]], _Weird(a=2), bytearray(b"ab"),
+    memoryview(b"abcdef")[::2],
+], ids=["numpy", "object", "set", "2^64", "-2^63-1", "surrogate", "nested",
+        "dict-items", "bytearray", "strided-view"])
+def test_native_and_python_encoders_fail_alike(value):
+    assert _outcome(codec.native_packb, value) == \
+        _outcome(codec.py_packb, value)
+
+
+@pytest.mark.parametrize("impl", ["native", "python"])
+def test_deep_nesting_raises_and_does_not_crash(impl):
+    """A 10,000-deep list, packed and unpacked, raises RecursionError in a
+    child process that lives on."""
+    code = (
+        "from hyperqueue_tpu_torch.transport import codec\n"
+        f"packb, unpackb = codec.{'native' if impl == 'native' else 'py'}"
+        f"_packb, codec.{'native' if impl == 'native' else 'py'}_unpackb\n"
+        "deep = []\n"
+        "for _ in range(10_000):\n"
+        "    deep = [deep]\n"
+        "for fn, arg in ((packb, deep), (unpackb, b'\\x91' * 10_000 + b'\\x90')):\n"
+        "    try:\n"
+        "        fn(arg)\n"
+        "    except RecursionError:\n"
+        "        print('raised')\n"
+        "print('alive')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["raised", "raised", "alive"]

@@ -61,11 +61,18 @@ def test_port_files_exist():
                    "transport/aead.py", "transport/_chacha.py",
                    "transport/_chacha_np.py", "transport/_chacha_ossl.py",
                    "utils/serverdir.py", "utils/slo.py",
-                   "utils/profiler.py"):
+                   "utils/profiler.py", "utils/retry.py",
+                   "utils/placeholders.py", "utils/chaos.py",
+                   "worker/__init__.py", "worker/parser.py",
+                   "worker/hwdetect.py", "worker/hwmonitor.py",
+                   "worker/manager.py", "worker/allocator.py",
+                   "worker/launcher.py", "worker/runner.py",
+                   "worker/runner_pool.py", "worker/localcomm.py",
+                   "worker/runtime.py"):
         assert f"hyperqueue_tpu_torch/{module}" in names, module
     for source in ("csrc/cut_scan.cu", "csrc/cut_scan_step.cuh",
                    "csrc/sharded_scan.cu", "csrc/sync_probe.cu",
-                   "native/hqcore.cpp"):
+                   "native/hqcore.cpp", "native/codec.cpp"):
         assert (ROOT / "hyperqueue_tpu_torch" / source).exists(), source
 
 

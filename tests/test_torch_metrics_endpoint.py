@@ -8,13 +8,20 @@ observations), relabel and merge equal, both parsers agreeing on each
 other's text, and a started port server (`metrics_port=0`, real clock)
 serving /metrics, /healthz and /readyz with the scheduler's and the
 loop-lag families after a worker ran an array, every family of it one
-the JAX package registers too (so the docs catalog covers it).
+the JAX package registers too (so the docs catalog covers it). A started
+port server and a started JAX server, each in a fresh process, expose the
+same families, less those of the planes the port has not brought yet
+(`hq_autoalloc_*`, `hq_federation_*`).
 """
 
 from __future__ import annotations
 
 import asyncio
+import json
+import os
 import random
+import subprocess
+import sys
 import types
 from pathlib import Path
 
@@ -353,3 +360,76 @@ def test_metrics_endpoint_on_a_started_port_server(tmp_path):
     assert health[0] == 200 and health[1]["ok"] is True
     assert ready[0] == 200, ready
     assert set(ready[1]["checks"]) == {"solver", "ingest", "slo"}
+
+
+# a started server's exposed families, in a fresh process (the registry
+# holds what the process imported, so each package starts alone)
+_FAMILIES = r"""
+import asyncio, json, sys, tempfile
+pkg = sys.argv[1]
+if pkg == "jax":
+    from hyperqueue_tpu.server.bootstrap import Server
+    from hyperqueue_tpu.utils.metrics import REGISTRY
+    kw = {}
+else:
+    import torch
+    torch.set_num_threads(1)
+    from hyperqueue_tpu_torch.server.bootstrap import Server
+    from hyperqueue_tpu_torch.utils.metrics import REGISTRY
+    kw = {"device": "cpu"}
+
+
+async def go():
+    server = Server(server_dir=tempfile.mkdtemp(), metrics_port=0,
+                    metrics_host="127.0.0.1", **kw)
+    await server.start()
+    try:
+        text = REGISTRY.render()
+    finally:
+        await server.shutdown()
+    print(json.dumps(sorted({line.split()[2] for line in text.splitlines()
+                             if line.startswith("# TYPE")})))
+
+
+asyncio.run(go())
+"""
+
+
+def test_started_port_server_families_are_the_jax_servers():
+    """`hq_solve_mask_rows` included: the port registers it where the JAX
+    package does (resources/map.py)."""
+    families = {}
+    for pkg in ("jax", "port"):
+        out = subprocess.run(
+            [sys.executable, "-c", _FAMILIES, pkg], cwd=REPO_ROOT,
+            capture_output=True, text=True, timeout=120,
+            env={**os.environ, "JAX_PLATFORMS": "cpu"})
+        assert out.returncode == 0, out.stderr
+        families[pkg] = set(json.loads(out.stdout.splitlines()[-1]))
+    def planes(names):
+        # the worker-drain families live under hq_autoalloc_ in both
+        # packages and are the port's already
+        return {n for n in names
+                if n.startswith(("hq_autoalloc_", "hq_federation_"))}
+
+    assert "hq_solve_mask_rows" in families["port"]
+    assert families["port"] - planes(families["port"]) == \
+        families["jax"] - planes(families["jax"])
+    assert planes(families["port"]) <= planes(families["jax"])
+
+
+def test_mask_rows_counter_counts_alike():
+    """`hq_solve_mask_rows` counts each distinct (resource, group) mask
+    subcolumn once, in both packages."""
+    from hyperqueue_tpu.resources.map import ResourceIdMap as JaxMap
+    from hyperqueue_tpu_torch.resources.map import ResourceIdMap as PortMap
+
+    for cls, metrics in ((JaxMap, jax_metrics), (PortMap, port_metrics)):
+        counter = metrics.REGISTRY.get("hq_solve_mask_rows")
+        before = counter.labels().value
+        rmap = cls()
+        for name, group in (("gpus", 0), ("gpus", 1), ("gpus", 0),
+                            ("fpga", 0)):
+            rmap.get_or_create_masked(name, group)
+        assert counter.labels().value - before == 3
+        assert rmap.is_masked(rmap.get("gpus#1"))

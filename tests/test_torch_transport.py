@@ -7,11 +7,14 @@ cross-package cases: the port's frame payloads byte-equal to msgpack's on
 hypothesis payloads, the handshake across the packages in both directions
 for both roles (encrypted and in plaintext, under each AEAD backend
 forced), and tampered, replayed and reordered frames refused across them.
+The frame cases run under both of the port's codec implementations
+(`impl`: the native extension and the Python reference).
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import os
 import secrets
 import subprocess
@@ -30,6 +33,7 @@ from hyperqueue_tpu.transport import auth as jax_auth
 from hyperqueue_tpu.transport import framing as jax_framing
 from hyperqueue_tpu_torch.transport import aead as port_aead
 from hyperqueue_tpu_torch.transport import auth as port_auth
+from hyperqueue_tpu_torch.transport import codec as port_codec
 from hyperqueue_tpu_torch.transport import framing as port_framing
 
 # one intra-op thread per process: the suite runs in several worker
@@ -68,6 +72,23 @@ def run(coro):
     return asyncio.run(asyncio.wait_for(coro, CASE_TIMEOUT_S))
 
 
+CODEC_IMPLS = ["native", "python"]
+
+
+@contextlib.contextmanager
+def codec_impl(name):
+    """The port's frames encode and decode through one implementation of
+    its codec (`transport/framing` calls `codec.packb`/`unpackb`)."""
+    saved = port_codec.packb, port_codec.unpackb
+    prefix = {"native": "native", "python": "py"}[name]
+    port_codec.packb = getattr(port_codec, f"{prefix}_packb")
+    port_codec.unpackb = getattr(port_codec, f"{prefix}_unpackb")
+    try:
+        yield
+    finally:
+        port_codec.packb, port_codec.unpackb = saved
+
+
 async def _pipe_pair():
     """Two in-process connected (reader, writer) pairs over a real socket."""
     server_side = asyncio.Queue()
@@ -85,7 +106,8 @@ async def _pipe_pair():
 # ---------------------------------------------------------------------------
 # tests/test_transport.py, twinned
 # ---------------------------------------------------------------------------
-def test_frame_roundtrip(pkg):
+@pytest.mark.parametrize("impl", CODEC_IMPLS)
+def test_frame_roundtrip(pkg, impl):
     fr = pkg.framing
 
     async def go():
@@ -99,7 +121,8 @@ def test_frame_roundtrip(pkg):
             await fr.write_frame(cw, b"x" * (129 * 1024 * 1024))
         server.close()
 
-    run(go())
+    with codec_impl(impl):
+        run(go())
 
 
 def _handshake(server_pkg, client_pkg, server_key, client_key,
@@ -363,12 +386,18 @@ _payloads = st.recursive(
 )
 
 
+@pytest.mark.parametrize("impl", CODEC_IMPLS)
 @settings(max_examples=300, deadline=None)
 @given(_payloads)
-def test_frames_byte_equal_to_msgpack(obj):
+def test_frames_byte_equal_to_msgpack(impl, obj):
     """The port's frame payload is msgpack's (`use_bin_type=True`), and
     either package decodes the other's (`strict_map_key=False`: non-str
     keys, bytes as bin)."""
+    with codec_impl(impl):
+        _frames_byte_equal_to_msgpack(obj)
+
+
+def _frames_byte_equal_to_msgpack(obj):
     ours = port_framing.pack_payload(obj)
     assert ours == jax_framing.pack_payload(obj)
     assert ours == msgpack.packb(obj, use_bin_type=True)
@@ -378,7 +407,8 @@ def test_frames_byte_equal_to_msgpack(obj):
     assert jax_framing.unpack_payload(ours) == back
 
 
-def test_frame_bytes_cross_the_socket_both_ways():
+@pytest.mark.parametrize("impl", CODEC_IMPLS)
+def test_frame_bytes_cross_the_socket_both_ways(impl):
     """A frame the port writes is read by the JAX package's reader, and
     the other way round, length prefix included."""
     obj = {"op": "compute", "tasks": [{"id": 1 << 40, "b": 0}],
@@ -395,7 +425,8 @@ def test_frame_bytes_cross_the_socket_both_ways():
         cw.close()
         server.close()
 
-    run(go())
+    with codec_impl(impl):
+        run(go())
 
 
 @pytest.mark.parametrize("backend", BACKEND_NAMES)
