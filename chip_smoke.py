@@ -17,8 +17,11 @@ held as lazy array chunks, plain and fused, then a journaled server's
 kill -9 and restore at the same size, then `hq server start` itself: the
 server in a child process, 1,024 workers (16 of them real port workers)
 and a client over TCP, then one real port worker with the machine's CPUs
-and the card (`--resource gpus`), and prints timings. Every process of the
-port here must run the native codec (`transport/codec.BACKEND`).
+and the card (`--resource gpus`), then the north star through the port's
+own command line (`python -m hyperqueue_tpu_torch` for the server, a real
+worker and every client step, beside 1,023 simulated workers), and prints
+timings. Every process of the port here must run the native codec
+(`transport/codec.BACKEND`).
 
 Phases:
   1. the card (nvidia-smi name and power limit) and the builds, all started
@@ -264,6 +267,49 @@ Phases:
      of `true` alone), tasks a second, the overhead above the floor, the
      runner pool's width and the codec backend.
 
+ 18. the cli path: the north star through the port's own command line,
+     every step a `python -m hyperqueue_tpu_torch` process. The server is
+     `server start --server-dir D --journal D/journal` with every other
+     flag at its default (K1 on the card), run through a launcher
+     (cli_server_main) that wraps the model the CLI builds in a recorder
+     and the reactor's run_tick in check_assignments before it hands the
+     argv to the port's __main__; the time until access.json appears and
+     until `hq server wait` returns are logged. 1,023 simulated workers
+     with the north star's resources in 4 processes (phase 16's
+     serve_worker_proc, each task held for 15-30 min, CLI_SERVICE_S) and
+     one real `hq worker start` with the machine's CPUs and one resource
+     no simulated row has (CLI_PIN), then `hq
+     worker wait 1024` (timed). `hq submit --array 1-1000000 --cpus 1 --
+     true` streams the north star as one array (its time to the
+     "submitted" line and its chunks are logged); then small jobs pinned
+     to the real worker by CLI_PIN: an --each-line array of 1,000 lines
+     echoing $HQ_ENTRY, a `job submit-file` TOML graph with dependencies
+     and one task that fails; `hq job wait` on them and `hq job cat` of
+     the --each-line job's stdout, which must hold its 1,000 lines. In a
+     window of 20 s each read command (`job list`, `job info 1`, `task
+     list 1`, `worker list` with its 1,024 rows, `server stats`, `top
+     --once --output-mode json`, `task explain` on the middle one of job
+     1's waiting tasks, found with `hq job task-ids 1 --filter waiting`,
+     which must not have finished)
+     runs 3 times, in 3 rounds started 20/3 s apart whose commands run at
+     once (wall times, p50 and max, logged); `hq server start --shards 2`
+     and `hq alloc list` must refuse, naming item 10. Then `hq job cancel
+     1` and `hq server stop`: the server must exit 0 within 10 s with
+     hq-current gone. `hq server start` again over the journal (timed
+     until its access file appears), `hq job list --all --output-mode
+     json` must give each job's counters as the first server closed its
+     journal, `hq journal report` runs under its own limit of 120 s, and
+     `hq server stop`. It fails unless every K1 launch of both servers
+     equals its plain version (checked here afterwards on the recorded
+     inputs), every tick's placements fit, every solve ran on the card,
+     every command exits 0 (the refusals non-zero, and `hq job wait` on
+     the failing job 1, as the CLI answers a job with failures), every
+     client and worker process reports at exit that it loaded neither
+     torch, numpy, msgpack, jax nor the JAX package (CLI_LAUNCHER), and
+     every process of the port runs the native codec. Logs cli_server,
+     cli_submit, cli_small_jobs, cli_commands, cli_stop, cli_restore and
+     cli_summary lines.
+
 The phase_seconds line gives each phase's seconds.
 
 On every path before the reactor paths the queues must be the native
@@ -291,7 +337,8 @@ a "ptxas" line per source. The main paths (default, fused, server) must run
 every cut-scan solve in the resident instantiation.
 
 The third-to-last line is the kernels JSON (K1, K1g, K5, K2; K1's entry
-counts the journal and server_start paths' launches too), the
+counts the journal, server_start, worker_node and cli paths' launches
+too), the
 second-to-last the card;
 the last line is {"ok": true, "device": {...}}. Exits non-zero, printing no
 result line, when there is no CUDA device or any phase fails.
@@ -306,6 +353,7 @@ import logging
 import os
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -4190,7 +4238,9 @@ SERVE_EXIT_S = 10.0
 SERVE_REAL_WORKERS = 16
 SERVE_REAL_RUNNER_POOL = 1
 # phase 17: one worker node, the machine's CPUs and its GPUs
-NODE_TASKS = 50_000
+# (50,000 through PR 11; cut to keep the whole run, phase 18 included,
+# well inside its time limit: 10,000 still drain for 25-45 s)
+NODE_TASKS = 10_000
 NODE_GPU_TASKS = 8
 NODE_DRAIN_S = 180.0
 NODE_OVERVIEW_S = 1.0
@@ -4550,6 +4600,43 @@ def _timed(fn, acc, lock, key):
     return wrapped
 
 
+def install_tick_check(failures):
+    """Wraps the reactor's run_tick in check_assignments: each tick's
+    placements must fit the free resources and task slots it was given.
+    A misfit is appended to `failures`. Returns the counts of ticks and
+    assigned tasks, which the wrapper keeps up to date."""
+    import types
+
+    from hyperqueue_tpu_torch.server import reactor
+
+    run_tick = reactor.run_tick
+    assigned = {"ticks": 0, "tasks": 0}
+
+    def checked_run_tick(*args, **kwargs):
+        dense = kwargs.get("dense")
+        if dense is not None:
+            rows = [types.SimpleNamespace(
+                worker_id=wid, free=[int(a) for a in dense.free[i]],
+                nt_free=int(dense.nt_free[i]))
+                for i, wid in enumerate(dense.worker_ids)]
+        else:
+            rows = [types.SimpleNamespace(worker_id=r.worker_id,
+                                          free=list(r.free),
+                                          nt_free=r.nt_free)
+                    for r in args[1]]
+        result = run_tick(*args, **kwargs)
+        try:
+            check_assignments(result, rows, args[2], set())
+        except AssertionError as e:
+            failures.append(f"tick assignments: {e}")
+        assigned["ticks"] += 1
+        assigned["tasks"] += len(result)
+        return result
+
+    reactor.run_tick = checked_run_tick
+    return assigned
+
+
 def serve_child(server_dir, device, result_path):
     """The server process of the server_start path (spawned; imports only
     the port). Builds `Server(server_dir=, journal_path=server_dir/
@@ -4564,7 +4651,6 @@ def serve_child(server_dir, device, result_path):
     `result_path` (JSON) and the recorded solves beside it (pickle)."""
     import pickle
     import threading
-    import types
     from pathlib import Path
 
     from hyperqueue_tpu_torch.ops import assign
@@ -4600,31 +4686,7 @@ def serve_child(server_dir, device, result_path):
 
     auth.pack_payload = counting_pack
     out["stops"] = stops
-    run_tick = reactor.run_tick
-    assigned = {"ticks": 0, "tasks": 0}
-
-    def checked_run_tick(*args, **kwargs):
-        dense = kwargs.get("dense")
-        if dense is not None:
-            rows = [types.SimpleNamespace(
-                worker_id=wid, free=[int(a) for a in dense.free[i]],
-                nt_free=int(dense.nt_free[i]))
-                for i, wid in enumerate(dense.worker_ids)]
-        else:
-            rows = [types.SimpleNamespace(worker_id=r.worker_id,
-                                          free=list(r.free),
-                                          nt_free=r.nt_free)
-                    for r in args[1]]
-        result = run_tick(*args, **kwargs)
-        try:
-            check_assignments(result, rows, args[2], set())
-        except AssertionError as e:
-            out["failures"].append(f"tick assignments: {e}")
-        assigned["ticks"] += 1
-        assigned["tasks"] += len(result)
-        return result
-
-    reactor.run_tick = checked_run_tick
+    assigned = install_tick_check(out["failures"])
     # task messages the reactor drops as stale (unknown task, another
     # instance, already done): none is expected from these workers
     ignored = {"running": 0, "finished": 0, "examples": []}
@@ -4962,9 +5024,10 @@ class SimWorker:
 class SimWorkerProc:
     """The simulated workers of one process and its counters."""
 
-    def __init__(self, index, seed):
+    def __init__(self, index, seed, service_s=SERVE_SERVICE_S):
         self.index = index
         self.rng = np.random.default_rng([seed, index])
+        self.service_s = service_s
         self.loop = None
         self.frozen = False
         self.closing = False
@@ -4978,21 +5041,23 @@ class SimWorkerProc:
         self.decode_s = self.open_s = self.encode_s = 0.0
 
     def service(self):
-        return float(self.rng.uniform(*SERVE_SERVICE_S))
+        return float(self.rng.uniform(*self.service_s))
 
 
-def serve_worker_proc(index, server_dir, configs, seed, conn):
+def serve_worker_proc(index, server_dir, configs, seed, conn,
+                      service_s=SERVE_SERVICE_S):
     """A process of simulated workers (spawned; imports only the port's
     transport): connects `configs` to the worker port named by the access
-    record, then runs their tasks until the parent asks it, over `conn`,
-    to drop its busiest worker, to freeze (no more starts or finishes) and
-    to report."""
+    record, then runs their tasks (each for a time uniform in
+    `service_s`) until the parent asks it, over `conn`, to drop its
+    busiest worker, to freeze (no more starts or finishes) and to
+    report."""
     from pathlib import Path
 
     from hyperqueue_tpu_torch.transport import codec
     from hyperqueue_tpu_torch.utils import serverdir
 
-    proc = SimWorkerProc(index, seed)
+    proc = SimWorkerProc(index, seed, service_s)
 
     async def main():
         proc.loop = asyncio.get_running_loop()
@@ -5069,7 +5134,7 @@ def serve_worker_proc(index, server_dir, configs, seed, conn):
             elif op == "freeze":
                 # no more starts; what runs finishes and is reported
                 proc.frozen = True
-                deadline = time.monotonic() + SERVE_SERVICE_S[1] + 10.0
+                deadline = time.monotonic() + proc.service_s[1] + 10.0
                 while any(w.running for w in workers) \
                         and time.monotonic() < deadline:
                     await asyncio.sleep(SERVE_FLUSH_S)
@@ -5958,6 +6023,654 @@ def worker_node_path(card, device):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -- phase 18: the `hq` command line -------------------------------------------
+# `hq submit --array 1-CLI_TASKS --cpus 1 -- true`: the north star as one
+# streamed array (SubmitStream chunks of the CLI's --chunk-size)
+CLI_TASKS = 1_000_000
+# the small jobs pinned to the real worker: an --each-line array of this
+# many lines, a TOML graph with dependencies and one task that fails
+CLI_EACH_LINE = 1_000
+# a resource only the real worker declares (`--resource`), one unit a task
+CLI_PIN = "cli_pin"
+CLI_PIN_UNITS = 64
+# a simulated worker's task runs this long (uniform, s): an array of
+# tasks of 15-30 minutes, so no simulated task finishes during the phase
+# and the array still runs, its backlog waiting on the server, while the
+# client reads and cancels it. (With phase 16's 1-6 s, and with 10-40 s,
+# the workers' finishes saturate the server's loop: the array is done
+# before the reads and every command waits tens of seconds; PERF.md §5.)
+CLI_SERVICE_S = (900.0, 1800.0)
+# the read commands run in CLI_REPEATS rounds started evenly over a window
+# of CLI_WINDOW_S seconds, a round's commands at once (as several users'
+# would), and the window lasts until the last of them returns
+CLI_WINDOW_S = 20.0
+CLI_REPEATS = 3
+# a client command's own time limit, `hq journal report`'s, and `hq job
+# cancel 1`'s: canceling 955k tasks took 24.7-31.8 s in three runs on the
+# card and more than 300 s in one (PERF.md §7)
+CLI_COMMAND_S = 300.0
+CLI_REPORT_S = 120.0
+CLI_CANCEL_S = 900.0
+# the server must be gone this long after `hq server stop`
+CLI_EXIT_S = 10.0
+
+# A client or worker process of the cli path: `python -m
+# hyperqueue_tpu_torch` with the arguments after the report path, which
+# writes to that path at exit the modules it loaded that a client or
+# worker of the port must not load, and its codec backend, and exits with
+# the command's code.
+CLI_LAUNCHER = r"""
+import json, runpy, sys
+report, sys.argv = sys.argv[1], ["hq"] + sys.argv[2:]
+code = 0
+try:
+    runpy.run_module("hyperqueue_tpu_torch", run_name="__main__",
+                     alter_sys=True)
+except SystemExit as e:
+    code = e.code if isinstance(e.code, int) else (0 if e.code is None
+                                                   else 1)
+finally:
+    codec = sys.modules.get("hyperqueue_tpu_torch.transport.codec")
+    with open(report, "w") as f:
+        json.dump({"foreign": sorted(
+            m for m in sys.modules if m.split(".")[0] in (
+                "torch", "numpy", "jax", "jaxlib", "msgpack",
+                "hyperqueue_tpu")),
+            "codec": getattr(codec, "BACKEND", None)}, f)
+sys.exit(code)
+"""
+
+# The server of the cli path: cli_server_main with the result path and the
+# `server start ...` arguments.
+CLI_SERVER_LAUNCHER = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+chip_smoke.cli_server_main(sys.argv[2], sys.argv[3:])
+"""
+
+
+
+def cli_reads(explained):
+    """The read commands of the cli path's window: (name, arguments);
+    `explained` is a task of job 1 that waits ("1.<id>")."""
+    return (
+        ("job list", ["job", "list"]),
+        ("job info 1", ["job", "info", "1"]),
+        ("task list 1", ["task", "list", "1"]),
+        ("worker list", ["worker", "list"]),
+        ("server stats", ["server", "stats"]),
+        ("top --once", ["top", "--once", "--output-mode", "json"]),
+        ("task explain", ["task", "explain", explained]),
+    )
+
+
+class BackendRecordingSeam(RecordingSeam):
+    """A RecordingSeam that also keeps the backend each solve ran on."""
+
+    def __init__(self, watchdog):
+        super().__init__(watchdog)
+        self.backends = []
+
+    def solve(self, **kwargs):
+        counts = super().solve(**kwargs)
+        self.backends.append(getattr(self.watchdog, "last_backend", None))
+        return counts
+
+
+def cli_server_main(result_path, argv):
+    """The server of the cli path: `python -m hyperqueue_tpu_torch` with
+    `argv` (`server start ...`) in this process, after two hooks: every
+    Server the CLI builds gets its watchdog's primary wrapped in a
+    BackendRecordingSeam, and the reactor's run_tick is wrapped in
+    check_assignments (install_tick_check). The CLI parses the flags and
+    builds the Server itself. When it returns (the server stopped), this
+    writes what it saw to `result_path` (JSON: K1's launch counts, the
+    solves' backends, each job's counters as the journal closed, failed
+    checks) and the recorded solves beside it (pickle), then exits with
+    the CLI's code."""
+    import pickle
+    import runpy
+
+    from hyperqueue_tpu_torch.ops import assign
+    from hyperqueue_tpu_torch.server import bootstrap
+    from hyperqueue_tpu_torch.transport import codec
+
+    out: dict = {"failures": [], "codec_backend": codec.BACKEND}
+    assigned = install_tick_check(out["failures"])
+    held: dict = {}
+    init = bootstrap.Server.__init__
+    close_journal = bootstrap.Server._close_journal
+
+    def recording_init(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        recorder = BackendRecordingSeam(self.model.model)
+        self.model.model = recorder
+        self.model._last_ran = recorder
+        held.update(recorder=recorder, server=self)
+
+    def recording_close_journal(self):
+        out["close_counters"] = {str(jid): dict(job.counters)
+                                 for jid, job in self.jobs.jobs.items()}
+        close_journal(self)
+
+    bootstrap.Server.__init__ = recording_init
+    bootstrap.Server._close_journal = recording_close_journal
+    sys.argv = ["hq", *argv]
+    code = 0
+    try:
+        runpy.run_module("hyperqueue_tpu_torch", run_name="__main__",
+                         alter_sys=True)
+    except SystemExit as e:
+        code = e.code if isinstance(e.code, int) else int(e.code is not None)
+    recorder = held.get("recorder")
+    calls = recorder.calls if recorder is not None else []
+    with open(str(result_path) + ".solves", "wb") as f:
+        pickle.dump(calls, f, protocol=pickle.HIGHEST_PROTOCOL)
+    out.update(
+        code=code, solves=len(calls),
+        backends=recorder.backends if recorder is not None else [],
+        launches=assign.greedy_cut_scan.launches,
+        resident_launches=assign.greedy_cut_scan.resident_launches,
+        gang_launches=assign.greedy_cut_scan.gang_launches,
+        assigned=assigned,
+        watchdog=held["server"].model.stats() if held else None,
+        peak_rss_mb=rss_mb()[1])
+    with open(result_path, "w") as f:
+        json.dump(out, f)
+    # as serve_child: the OS takes the server's heap back at once
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)
+
+
+class CliRunner:
+    """Runs `python -m hyperqueue_tpu_torch` processes (CLI_LAUNCHER) in
+    `work` against `server_dir` and keeps each run: its arguments, exit
+    code, wall seconds, stderr and import report."""
+
+    def __init__(self, root, tmp, server_dir):
+        self.tmp = tmp
+        self.work = tmp / "work"
+        self.work.mkdir(parents=True, exist_ok=True)
+        self.env = {**os.environ, "HQ_SERVER_DIR": str(server_dir),
+                    "PYTHONPATH": root + os.pathsep
+                    + os.environ.get("PYTHONPATH", "")}
+        self.runs: list = []
+        # the read commands run from several threads at once
+        self.lock = threading.Lock()
+
+    def argv(self, args):
+        with self.lock:
+            run = {"args": list(args), "n": len(self.runs)}
+            self.runs.append(run)
+        run["report"] = self.tmp / f"report-{run['n']:03d}.json"
+        return [sys.executable, "-c", CLI_LAUNCHER, str(run["report"]),
+                *args], run
+
+    def popen(self, args, name, **kwargs):
+        """A long-lived process (a worker, a streaming submit); its output
+        goes to `<name>.log` unless `kwargs` say otherwise."""
+        argv, run = self.argv(args)
+        kwargs.setdefault("stderr", subprocess.STDOUT)
+        run["t0"] = time.perf_counter()
+        if "stdout" in kwargs:
+            proc = subprocess.Popen(argv, env=self.env, cwd=self.work,
+                                    **kwargs)
+        else:
+            with open(self.tmp / f"{name}.log", "wb") as log_f:
+                proc = subprocess.Popen(argv, env=self.env, cwd=self.work,
+                                        stdout=log_f, **kwargs)
+        run["proc"] = proc
+        return proc, run
+
+    def finish(self, run, rc):
+        run["rc"] = rc
+        run["s"] = time.perf_counter() - run["t0"]
+
+    def __call__(self, *args, timeout=CLI_COMMAND_S):
+        """Runs one command to its end; returns its run (stdout in
+        run["out"], a file)."""
+        argv, run = self.argv(args)
+        out = self.tmp / f"out-{run['n']:03d}.txt"
+        run["out"] = out
+        run["t0"] = time.perf_counter()
+        with open(out, "wb") as f:
+            try:
+                proc = subprocess.run(argv, env=self.env, cwd=self.work,
+                                      stdout=f, stderr=subprocess.PIPE,
+                                      timeout=timeout)
+                rc, err = proc.returncode, proc.stderr
+            except subprocess.TimeoutExpired as e:
+                rc, err = "timeout", e.stderr or b""
+        self.finish(run, rc)
+        run["err"] = err.decode("utf-8", "replace")[-2000:]
+        return run
+
+    def faults(self, refusals):
+        """Runs that exited otherwise than asked: 0 for all but the
+        `refusals` (argument tuples), which must exit non-zero naming
+        item 10; and every process's import report."""
+        fails = []
+        for run in self.runs:
+            args = tuple(run["args"])
+            if args in refusals:
+                if run.get("rc") in (0, None) or "item 10" not in run.get(
+                        "err", ""):
+                    fails.append(f"{' '.join(args)}: rc {run.get('rc')}, "
+                                 f"{run.get('err', '')[-300:]!r}")
+            elif run.get("expect_rc", 0) != run.get("rc"):
+                fails.append(f"{' '.join(args)}: rc {run.get('rc')}, "
+                             f"{run.get('err', '')[-300:]!r}")
+            if run.get("rc") == "timeout":
+                continue  # killed at its limit: it wrote no report
+            try:
+                report = json.loads(run["report"].read_text())
+            except (OSError, ValueError):
+                fails.append(f"{' '.join(args)}: no import report")
+                continue
+            run["codec"] = report["codec"]
+            if report["foreign"]:
+                fails.append(f"{' '.join(args)}: loaded "
+                             f"{report['foreign'][:5]}")
+            if report["codec"] not in (None, "native"):
+                fails.append(f"{' '.join(args)}: codec {report['codec']}")
+        return fails
+
+
+def cli_path(card, device, n_procs=SERVE_WORKER_PROCS, n_tasks=CLI_TASKS,
+             n_lines=CLI_EACH_LINE, window_s=CLI_WINDOW_S, state=None):
+    """Phase 18: the north star through the port's own command line. The
+    server is `python -m hyperqueue_tpu_torch server start --server-dir D
+    --journal D/journal` (cli_server_main: every other flag at its
+    default, so K1 on the card; `--scheduler cpu` where `device` is the
+    CPU), 1,023 simulated workers in `n_procs` processes (serve_worker_proc)
+    and one real `hq worker start` with the machine's CPUs and CLI_PIN,
+    then every client step is a CLI process (CliRunner): the 1M-task
+    `hq submit`, the small jobs pinned to the real worker, `hq job wait`,
+    `hq job cat`, the read commands (cli_reads) CLI_REPEATS times each,
+    the refusals, `hq job cancel 1`, `hq server stop`, a restart over the
+    journal with `hq job list --all`, `hq journal report` and a second
+    stop. Returns the path's summary."""
+    import math
+    import multiprocessing
+    import pickle
+    import re
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from hyperqueue_tpu_torch.client.cli import build_parser
+    from hyperqueue_tpu_torch.models.greedy import GreedyCutScanModel
+    from hyperqueue_tpu_torch.transport import codec
+
+    t_path = time.perf_counter()
+    marks: dict = {}
+
+    def mark(name):
+        marks[name] = time.perf_counter() - t_path
+
+    # the north star's rows but the first, whose place the real worker takes
+    worker_rows = (state or journal_state())[1]
+    configs = [cfg.to_wire() for _wid, cfg, _free, _nt in worker_rows][1:]
+    mark("state")
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = Path(tempfile.mkdtemp(prefix="hq-cli-"))
+    server_dir = tmp / "server"
+    journal = server_dir / "journal"
+    hq = CliRunner(root, tmp, server_dir)
+    sched = [] if device.type == "cuda" else ["--scheduler", "cpu"]
+    start_args = ["server", "start", "--server-dir", str(server_dir),
+                  "--journal", str(journal), *sched]
+    ctx = multiprocessing.get_context("spawn")
+    servers, procs, pipes = [], [], []
+    worker = None
+    out: dict = {}
+    refusals = {("server", "start", "--server-dir", str(server_dir),
+                 "--shards", "2"), ("alloc", "list")}
+
+    def start_server(tag):
+        """A server process (CLI_SERVER_LAUNCHER); returns it, its result
+        path and its launch time."""
+        result = tmp / f"{tag}.json"
+        log_f = open(tmp / f"{tag}.log", "wb")
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-c", CLI_SERVER_LAUNCHER, root, str(result),
+             *start_args], env=hq.env, cwd=hq.work, stdout=log_f,
+            stderr=subprocess.STDOUT)
+        log_f.close()
+        servers.append(proc)
+        return proc, result, t0
+
+    def wait_access(proc, t0, tag):
+        access = server_dir / "hq-current" / "access.json"
+        while not access.exists():
+            if proc.poll() is not None:
+                raise AssertionError(
+                    f"cli: {tag} exited {proc.returncode}: "
+                    + (tmp / f"{tag}.log").read_text()[-2000:])
+            if time.perf_counter() - t0 > 180:
+                raise AssertionError(f"cli: {tag}: no access record")
+            time.sleep(0.02)
+        return time.perf_counter() - t0
+
+    def stop_server(proc):
+        run = hq("server", "stop")
+        t0 = time.perf_counter()
+        try:
+            rc = proc.wait(CLI_EXIT_S)
+        except subprocess.TimeoutExpired:
+            rc = None
+        return {"rc": rc, "exit_s": time.perf_counter() - t0,
+                "stop_s": run["s"],
+                "hq_current": (server_dir / "hq-current").is_symlink()}
+
+    def recv(pipe, what, timeout=180.0):
+        if not pipe.poll(timeout):
+            raise AssertionError(f"cli: no {what} from a worker process")
+        tag, body = pipe.recv()
+        if tag != what:
+            raise AssertionError(f"cli: {tag} for {what}")
+        return body
+
+    try:
+        # --- the server, the workers -------------------------------------
+        server, result1, t_launch = start_server("server1")
+        wait_run = hq.popen(["server", "wait"], "server-wait")
+        split = np.array_split(np.arange(len(configs)), n_procs)
+        for i, part in enumerate(split):
+            parent_end, child_end = ctx.Pipe()
+            p = ctx.Process(target=serve_worker_proc, name=f"hq-workers-{i}",
+                            args=(i, str(server_dir),
+                                  [configs[j] for j in part], SEED,
+                                  child_end, CLI_SERVICE_S))
+            p.start()
+            procs.append(p)
+            pipes.append(parent_end)
+        out["access_s"] = wait_access(server, t_launch, "server1")
+        wait_proc, wait_info = wait_run
+        hq.finish(wait_info, wait_proc.wait(120))
+        out["server_wait_s"] = time.perf_counter() - t_launch
+        mark("server_started")
+        worker, worker_run = hq.popen(
+            ["worker", "start", "--resource",
+             f"{CLI_PIN}=sum({CLI_PIN_UNITS})"], "worker")
+        regs = [recv(p, "registered") for p in pipes]
+        run = hq("worker", "wait", str(len(configs) + 1))
+        out["worker_wait_s"] = run["s"]
+        out["registration_storm_s"] = max(r["storm_s"] for r in regs)
+        mark("workers")
+        log("cli_server", access_s=out["access_s"],
+            server_wait_s=out["server_wait_s"],
+            worker_wait_s=out["worker_wait_s"],
+            storm_s=out["registration_storm_s"], workers=len(configs) + 1,
+            scheduler=sched[-1] if sched else "auto (K1 on the card)",
+            card=card)
+
+        # --- the north star as one streamed array --------------------------
+        chunk = build_parser().parse_args(
+            ["submit", "--", "true"]).chunk_size
+        proc, sub_run = hq.popen(
+            ["submit", "--array", f"1-{n_tasks}", "--cpus", "1", "--",
+             "true"], "submit", stdout=subprocess.PIPE)
+        t_sub = sub_run["t0"]
+        submitted_s = None
+        sub_lines = []
+        for line in proc.stdout:
+            sub_lines.append(line.decode("utf-8", "replace").rstrip())
+            if submitted_s is None and b"submitted" in line:
+                submitted_s = time.perf_counter() - t_sub
+        hq.finish(sub_run, proc.wait(CLI_COMMAND_S))
+        sub_run["err"] = "\n".join(sub_lines[-5:])
+        out["submit"] = {"tasks": n_tasks, "to_submitted_line_s":
+                         submitted_s, "exit_s": sub_run["s"],
+                         "chunk_size": chunk,
+                         "chunks": math.ceil(n_tasks / chunk),
+                         "line": sub_lines[:1]}
+        log("cli_submit", **out["submit"], card=card)
+        mark("submitted")
+
+        # --- small jobs pinned to the real worker ---------------------------
+        entries = [f"entry-{i:04d}" for i in range(n_lines)]
+        (hq.work / "lines.txt").write_text("\n".join(entries) + "\n")
+        pin = ["--resource", f"{CLI_PIN}=1", "--priority", "1"]
+        graph = "\n".join(
+            ['name = "cli-graph"']
+            + [f'[[task]]\nid = {i}\npriority = 1\n'
+               f'command = ["bash", "-c", "echo graph-{i}"]\n'
+               f'deps = {deps}\n[[task.request]]\n'
+               f'resources = {{ "cpus" = "1", "{CLI_PIN}" = "1" }}\n'
+               for i, deps in enumerate([[], [0], [0], [1, 2]])])
+        (hq.work / "graph.toml").write_text(graph)
+        t0 = time.perf_counter()
+        small = [hq("submit", "--each-line", "lines.txt", *pin, "--",
+                    "bash", "-c", "echo $HQ_ENTRY"),
+                 hq("job", "submit-file", "graph.toml"),
+                 hq("submit", *pin, "--", "bash", "-c", "exit 3")]
+        waited = hq("job", "wait", "2-3")
+        failing = hq("job", "wait", "4")
+        # `hq job wait` exits 1 when a job it waited for failed
+        failing["expect_rc"] = 1
+        small_s = time.perf_counter() - t0
+        cat = hq("job", "cat", "2", "stdout")
+        got = sorted(cat["out"].read_text().split())
+        out["small"] = {"submit_s": [r["s"] for r in small],
+                        "wait_s": waited["s"], "wait_failing_s": failing["s"],
+                        "to_done_s": small_s, "cat_s": cat["s"],
+                        "cat_lines": len(got),
+                        "cat_equal": got == entries}
+        log("cli_small_jobs", **out["small"], card=card)
+        mark("small_jobs")
+
+        # --- the read commands, the refusals ------------------------------
+        # a task of job 1 that waits, for `hq task explain`: the middle
+        # one (prefill takes the lowest waiting ids, a freed worker the
+        # highest), so that it still waits in the window
+        waiting = hq("job", "task-ids", "1", "--filter", "waiting")
+        ranges = waiting["out"].read_text().partition(":")[2].strip()
+        ids = [int(i) for part in ranges.split(",") if part
+               for i in range(int(part.split("-")[0]),
+                              int(part.split("-")[-1]) + 1)]
+        explained = f"1.{ids[len(ids) // 2] if ids else n_tasks}"
+        out["waiting_ids"] = {"s": waiting["s"], "n": len(ids),
+                              "ranges": ranges[:200]}
+        t_window = time.perf_counter()
+        times: dict = {name: [] for name, _a in cli_reads(explained)}
+        reads: dict = {}
+        with ThreadPoolExecutor(max_workers=CLI_REPEATS * 8) as pool:
+            futures = []
+            for r in range(CLI_REPEATS):
+                time.sleep(max(t_window + r * window_s / CLI_REPEATS
+                               - time.perf_counter(), 0.0))
+                futures += [(name, pool.submit(hq, *args))
+                            for name, args in cli_reads(explained)]
+            for name, future in futures:
+                run = future.result()
+                times[name].append(run["s"])
+                reads[name] = run
+        hq("server", "start", "--server-dir", str(server_dir),
+           "--shards", "2")
+        hq("alloc", "list")
+        left = window_s - (time.perf_counter() - t_window)
+        if left > 0:
+            time.sleep(left)
+        out["window_s"] = time.perf_counter() - t_window
+        rows = [ln for ln in reads["worker list"]["out"].read_text()
+                .splitlines() if re.match(r"^\|\s*\d+\s*\|", ln)]
+        explain = reads["task explain"]["out"].read_text().splitlines()
+        top = json.loads(reads["top --once"]["out"].read_text())
+        out["reads"] = {
+            name: {"p50_s": _pctl(ts, 50), "max_s": max(ts),
+                   "stdout_bytes": reads[name]["out"].stat().st_size}
+            for name, ts in times.items()}
+        log("cli_commands", **out["reads"], window_s=out["window_s"],
+            worker_list_rows=len(rows), top_workers=top.get("n_workers"),
+            waiting_ids=out["waiting_ids"], explain=explain[:2], card=card)
+        mark("window")
+
+        # --- cancel and stop ---------------------------------------------
+        cancel = hq("job", "cancel", "1", timeout=CLI_CANCEL_S)
+        # the journal plane and the loop's lag right after the cancel's
+        # O(tasks) work (its records, its cancel frames)
+        stats = hq("server", "stats", "--output-mode", "json")
+        try:
+            after = json.loads(stats["out"].read_text())
+        except ValueError:
+            after = {}
+        out["after_cancel"] = {k: after.get(k) for k in ("journal_plane",
+                                                         "lag", "fanout")}
+        for p in pipes:
+            p.send(("closing", None))
+        for p in pipes:
+            recv(p, "closing")
+        stop1 = stop_server(server)
+        mark("stopped")
+        reports = []
+        for p in pipes:
+            p.send(("report", None))
+            reports.append(recv(p, "report"))
+        for p in procs:
+            p.join(30)
+        try:
+            hq.finish(worker_run, worker.wait(30))
+        except subprocess.TimeoutExpired:
+            hq.finish(worker_run, "timeout")
+        res1 = json.loads(result1.read_text())
+        out["stalls"] = longest_stalls(server_dir)
+        log("cli_stop", cancel_s=cancel["s"], **stop1,
+            close_counters=res1.get("close_counters"),
+            after_cancel=out["after_cancel"], longest_stalls=out["stalls"],
+            card=card)
+
+        # --- the restore through the CLI ---------------------------------
+        server2, result2, t_launch = start_server("server2")
+        restore_s = wait_access(server2, t_launch, "server2")
+        listing = hq("job", "list", "--all", "--output-mode", "json")
+        restored = {str(j["id"]): j["counters"]
+                    for j in json.loads(listing["out"].read_text())}
+        report_run = hq("journal", "report", str(journal), "--output",
+                        str(tmp / "report.html"), timeout=CLI_REPORT_S)
+        stop2 = stop_server(server2)
+        res2 = json.loads(result2.read_text())
+        out["restore"] = {
+            "access_s": restore_s, "job_list_s": listing["s"],
+            "journal_bytes": journal.stat().st_size,
+            "report_s": report_run["s"], "report_rc": report_run["rc"],
+            "report_limit_s": CLI_REPORT_S, "stop": stop2}
+        if report_run["rc"] == "timeout":
+            # the report did not finish inside its limit: how far it got
+            # is what it wrote before the limit (nothing, for an HTML page
+            # written at its end)
+            out["restore"]["report_reached"] = (
+                (tmp / "report.html").exists())
+            report_run["expect_rc"] = "timeout"
+        log("cli_restore", **out["restore"], card=card)
+        mark("restored")
+
+        # --- checks --------------------------------------------------------
+        fails = hq.faults(refusals)
+        fails += [f"server1: {f}" for f in res1["failures"]]
+        fails += [f"server2: {f}" for f in res2["failures"]]
+        for tag, stop in (("server1", stop1), ("server2", stop2)):
+            if stop["rc"] != 0 or stop["hq_current"]:
+                fails.append(f"{tag} did not exit 0 within {CLI_EXIT_S} s "
+                             f"of hq server stop with hq-current gone: "
+                             f"{stop}")
+        if not out["small"]["cat_equal"]:
+            fails.append(f"job cat 2 stdout: {len(got)} lines, not the "
+                         f"{n_lines} entries")
+        if len(rows) != len(configs) + 1:
+            fails.append(f"worker list: {len(rows)} rows")
+        # the array still runs while the client reads it
+        if not explain or explain[0].split()[-1] in ("finished", "failed",
+                                                     "canceled"):
+            fails.append(f"task explain of a waiting task: {explain[:1]}")
+        if restored != res1.get("close_counters"):
+            fails.append(f"restored job list {restored}, the journal "
+                         f"closed at {res1.get('close_counters')}")
+        backends = {"server1": res1["codec_backend"],
+                    "server2": res2["codec_backend"],
+                    "simulated": sorted({r["codec"] for r in reports}),
+                    "clients": sorted({str(r.get("codec"))
+                                       for r in hq.runs}),
+                    "parent": codec.BACKEND}
+        if {res1["codec_backend"], res2["codec_backend"], codec.BACKEND} \
+                != {"native"} or set(backends["simulated"]) != {"native"}:
+            fails.append(f"codec backends {backends}")
+        lost = [w for r in reports for w in r["lost"]]
+        errors = [e for r in reports for e in r["errors"]]
+        if lost or errors:
+            fails.append(f"simulated workers: lost {lost[:5]}, "
+                         f"errors {errors[:3]}")
+        want = f"device-{device.type}"
+        for tag, res in (("server1", res1), ("server2", res2)):
+            wd = res["watchdog"] or {}
+            if wd.get("failures") or wd.get("timeouts") \
+                    or wd.get("degraded_ticks"):
+                fails.append(f"{tag} watchdog {wd}")
+            if set(res["backends"]) - {want} \
+                    or len(res["backends"]) != res["solves"]:
+                fails.append(f"{tag} solved on "
+                             f"{sorted(set(map(str, res['backends'])))}")
+            if device.type == "cuda" and (
+                    res["launches"] != res["solves"]
+                    or res["resident_launches"] != res["solves"]
+                    or res["gang_launches"]):
+                fails.append(f"{tag}: K1 launches {res['launches']} "
+                             f"({res['resident_launches']} resident, "
+                             f"{res['gang_launches']} gang) for "
+                             f"{res['solves']} solves")
+        if not res1["solves"]:
+            fails.append("server1 solved nothing")
+        checker = GreedyCutScanModel(device=device.type, backend="device")
+        t0 = time.perf_counter()
+        n_checked = 0
+        for result in (result1, result2):
+            with open(str(result) + ".solves", "rb") as f:
+                solves = pickle.load(f)
+            for n, (kwargs, counts) in enumerate(solves):
+                try:
+                    check_tick_against_plain(checker, kwargs, counts,
+                                             device, n)
+                except AssertionError as e:
+                    fails.append(f"{result.stem} solve {n}: {e}")
+                    break
+                n_checked += 1
+            del solves
+        plain_check_s = time.perf_counter() - t0
+        mark("checked")
+        if fails:
+            raise AssertionError("cli: " + "; ".join(fails))
+        summary = dict(
+            workers=len(configs) + 1, simulated_workers=len(configs),
+            worker_processes=n_procs,
+            server={k: out[k] for k in ("access_s", "server_wait_s",
+                                        "worker_wait_s")},
+            submit=out["submit"], small=out["small"], reads=out["reads"],
+            window_s=out["window_s"], stop=stop1, restore=out["restore"],
+            commands=len(hq.runs), codec_backends=backends,
+            launches=res1["launches"] + res2["launches"],
+            solves=res1["solves"] + res2["solves"],
+            solves_held=n_checked, plain_check_s=plain_check_s,
+            assigned=res1["assigned"],
+            server_peak_rss_mb=res1.get("peak_rss_mb"),
+            path_phases_s=marks, seconds=time.perf_counter() - t_path)
+        log("cli_summary", **summary, card=card)
+        return summary
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+        for proc in servers + ([worker] if worker is not None else []) + [
+                r["proc"] for r in hq.runs if "proc" in r]:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(5)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -6237,6 +6950,9 @@ def main() -> int:
     # phase 17: one worker node, the deployment HyperQueue documents
     node = worker_node_path(card, device)
     lap("17_worker_node_path")
+    # phase 18: the north star through the port's own `hq` command line
+    cli = cli_path(card, device)
+    lap("18_cli")
     log("mapping", native=True,
         default_median_ms=ticks["phases_median_ms"]["mapping"],
         server_sync_median_ms=server_summary["sync"]["phases_median_ms"]
@@ -6294,6 +7010,8 @@ def main() -> int:
             if name == "cut_scan" else 0,
             "worker_node_launches": node["launches"]
             if name == "cut_scan" else 0,
+            # both `hq server start` processes of phase 18
+            "cli_launches": cli["launches"] if name == "cut_scan" else 0,
             # a fused reactor tick without gang rows launches plain K1
             "reactor_fused_launches": react_fused["launches"]["cut_scan_gang"]
             if name == "cut_scan_gang"

@@ -22,8 +22,6 @@ from __future__ import annotations
 from bisect import insort
 from collections import deque
 
-from hyperqueue_tpu_torch.utils.native import make_task_queue
-
 Priority = tuple[int, int]  # (user_priority, scheduler_priority), higher first
 
 # --- scheduler-priority encoding -------------------------------------------
@@ -219,6 +217,11 @@ class TaskQueues:
     def _base(self, rq_id: int) -> TaskQueue:
         q = self._queues.get(rq_id)
         if q is None:
+            # imported here: the client reads this module's priority
+            # codecs (scheduler/decision) and must not load numpy, which
+            # utils/native needs
+            from hyperqueue_tpu_torch.utils.native import make_task_queue
+
             q = make_task_queue()
             self._queues[rq_id] = q
         return q

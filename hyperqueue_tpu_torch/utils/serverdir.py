@@ -253,8 +253,9 @@ def shard_for_job(job_id: int, shard_count: int) -> int:
 
 
 # the federation descriptor (write, online growth and its ownership-log
-# record, load) comes with the federation plane
-_ITEM_10 = (
+# record) comes with the federation plane; a plain server directory has no
+# descriptor, which is all `load_federation` needs to tell it from a root
+ITEM_10 = (
     "ROADMAP Queue 1 item 10 (autoalloc, federation, leases, ownership "
     "and the chaos plane)"
 )
@@ -262,17 +263,22 @@ _ITEM_10 = (
 
 def write_federation(root: Path, shard_count: int) -> dict:
     raise NotImplementedError(
-        f"the federation descriptor comes with {_ITEM_10}"
+        f"the federation descriptor comes with {ITEM_10}"
     )
 
 
 def grow_federation(root: Path, shard_count: int) -> dict:
     raise NotImplementedError(
-        f"the federation descriptor comes with {_ITEM_10}"
+        f"the federation descriptor comes with {ITEM_10}"
     )
 
 
 def load_federation(root: Path) -> dict | None:
+    """None for a classic single-server dir; a federation root (one with a
+    descriptor) refuses until the federation plane is ported."""
+    path = Path(root) / FEDERATION_FILE
+    if not path.exists():
+        return None
     raise NotImplementedError(
-        f"the federation descriptor comes with {_ITEM_10}"
+        f"{root} is a federation root; federations come with {ITEM_10}"
     )

@@ -68,7 +68,14 @@ def test_port_files_exist():
                    "worker/manager.py", "worker/allocator.py",
                    "worker/launcher.py", "worker/runner.py",
                    "worker/runner_pool.py", "worker/localcomm.py",
-                   "worker/runtime.py"):
+                   "worker/runtime.py", "utils/parsing.py",
+                   "utils/logfmt.py", "client/output.py",
+                   "client/connection.py", "client/directives.py",
+                   "client/jobfile.py", "client/cli.py",
+                   "client/dashboard_data.py", "client/dashboard.py",
+                   "client/report.py", "client/top.py", "__main__.py",
+                   "api/__init__.py", "api/client.py",
+                   "api/function_runner.py", "api/visualization.py"):
         assert f"hyperqueue_tpu_torch/{module}" in names, module
     for source in ("csrc/cut_scan.cu", "csrc/cut_scan_step.cuh",
                    "csrc/sharded_scan.cu", "csrc/sync_probe.cu",

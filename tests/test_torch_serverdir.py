@@ -6,8 +6,9 @@ Access records: the same fields, written by the port's `store_access`
 single-plane records; `load_access` riding out a torn record and failing
 fast without a server. The `hq-current` lifecycle: each instance dir
 repoints it, and a started port server's clean stop retires it only while
-it still names that server's instance. The federation descriptor refuses,
-naming ROADMAP item 10.
+it still names that server's instance. A plain directory has no
+federation descriptor in either package; a federation root refuses in the
+port, naming ROADMAP item 10.
 """
 
 from __future__ import annotations
@@ -132,8 +133,18 @@ def test_federation_descriptor_waits_for_item_10(tmp_path):
                port_serverdir.grow_federation):
         with pytest.raises(NotImplementedError, match="item 10"):
             fn(tmp_path, 2)
+    # a plain server directory is no federation root, in either package
+    plain = tmp_path / "plain"
+    plain.mkdir()
+    assert jax_serverdir.load_federation(plain) is None
+    assert port_serverdir.load_federation(plain) is None
+    # a root whose descriptor the JAX package wrote refuses in the port
+    root = tmp_path / "root"
+    root.mkdir()
+    jax_serverdir.write_federation(root, 2)
+    assert jax_serverdir.load_federation(root)["shard_count"] == 2
     with pytest.raises(NotImplementedError, match="item 10"):
-        port_serverdir.load_federation(tmp_path)
+        port_serverdir.load_federation(root)
     # the shard-path helpers are the JAX package's
     for k in (0, 7, 12):
         assert port_serverdir.shard_path(tmp_path, k) == \
