@@ -293,7 +293,8 @@ Phases:
      which must not have finished)
      runs 3 times, in 3 rounds started 20/3 s apart whose commands run at
      once (wall times, p50 and max, logged); `hq server start --shards 2`
-     and `hq alloc list` must refuse, naming item 10. Then `hq job cancel
+     must refuse, naming item 10, and `hq alloc list` answer (no queue;
+     the allocation service runs idle). Then `hq job cancel
      1` and `hq server stop`: the server must exit 0 within 10 s with
      hq-current gone. `hq server start` again over the journal (timed
      until its access file appears), `hq job list --all --output-mode
@@ -308,7 +309,41 @@ Phases:
      torch, numpy, msgpack, jax nor the JAX package (CLI_LAUNCHER), and
      every process of the port runs the native codec. Logs cli_server,
      cli_submit, cli_small_jobs, cli_commands, cli_stop, cli_restore and
-     cli_summary lines.
+     cli_summary lines (the summary with the steady median of the
+     reactor's run_tick, the allocation service idle).
+ 19. the autoalloc path: the port's `hq server start` on its defaults (K1
+     on the card, a journal) through a launcher (alloc_server_main) that
+     records, as they happen, every tick solve, every demand query
+     (compute_new_worker_query: its assembly, its solve_query and its
+     answer), the allocation events and the allocation workers'
+     registrations into a file a killed server leaves behind; the
+     service runs every ALLOC_INTERVAL_S. Phase 18's 1,023 simulated
+     workers and one real `hq worker start`, the 1M-task array, then
+     `hq alloc add local --backlog 2 --workers-per-alloc 2` (at most 4
+     workers, each `--cpus 1`, reconnecting when the server is lost),
+     whose LocalHandler starts real `python -m hyperqueue_tpu_torch
+     worker start` processes that register with their allocation. Once
+     ALLOC_QUERIES queries ran and the 4 local workers registered, `hq
+     alloc list/info/events/log` are read; then `hq alloc add slurm
+     --backlog 4 --workers-per-alloc 16 --time-limit 1h` over stub
+     `sbatch`/`sacct`/`scancel` on PATH (each query then solves the real
+     rows and 4 + 64 fake ones), under a fault plan whose
+     `autoalloc.submit` rule kills the server at its second Slurm submit
+     (the probe of `alloc add` is the first match). `hq server start`
+     again over the journal: the 4 local workers must reattach to their
+     allocations (the reconcile's seconds are timed from the launch), the
+     Slurm allocations must be one per `sbatch` call but the probe (no
+     submit repeated or lost across the kill), and the local queue must
+     have submitted nothing more. `hq alloc remove` of both queues: the
+     local allocations' process groups must be gone within
+     ALLOC_EXIT_S (timed), then `hq server stop`. It fails unless every
+     tick of both servers and every query solve equals the plain version
+     (the ticks on the card, the queries on the CPU), every query's
+     single_node_workers_per_query equals a host recount from the plain
+     counts, K1's site counts of each server equal its recorded tick and
+     query solves, the residency was never invalidated, and every
+     command exits 0. Logs alloc_server, alloc_queries, alloc_reads,
+     alloc_kill, alloc_restore, alloc_remove and alloc_summary lines.
 
 The phase_seconds line gives each phase's seconds.
 
@@ -338,7 +373,7 @@ every cut-scan solve in the resident instantiation.
 
 The third-to-last line is the kernels JSON (K1, K1g, K5, K2; K1's entry
 counts the journal, server_start, worker_node and cli paths' launches
-too), the
+too, and the autoalloc path's by site, `tick` and `alloc_query`), the
 second-to-last the card;
 the last line is {"ok": true, "device": {...}}. Exits non-zero, printing no
 result line, when there is no CUDA device or any phase fails.
@@ -4252,7 +4287,8 @@ NODE_OVERVIEW_S = 1.0
 # The launcher (not the worker's modules) measures: the codec's decode of
 # each frame that carries compute entries, and per task the frame's
 # receipt, the task's start (its allocation), its runner dispatch and the
-# send of its finish. SIGUSR1 freezes the worker (nothing more starts; the
+# send of its finish, and the frames it sends and the messages in them.
+# SIGUSR1 freezes the worker (nothing more starts; the
 # allocator refuses, as a full worker's does) and, once its running tasks
 # finished and their uplinks were sent, writes `<result>.frozen`. After
 # registration it writes `<result>.registered`; when the worker stops it
@@ -4275,7 +4311,8 @@ from hyperqueue_tpu_torch.worker.parser import parse_resource_definition
 
 out = {"codec": codec.BACKEND, "mode": mode, "compute_frames": 0,
        "entries": 0, "decode_s": 0.0, "finished": 0, "failed": 0,
-       "stop_read": False, "dispatched": []}
+       "uplink_frames": 0, "uplink_msgs": 0, "stop_read": False,
+       "dispatched": []}
 if mode == "row":
     with open(config_path) as f:
         config = WorkerConfiguration.from_wire(json.load(f))
@@ -4366,6 +4403,8 @@ async def timed_send(self, obj):
     await send(self, obj)
     t = time.perf_counter()
     subs = obj["msgs"] if obj.get("op") == "batch" else (obj,)
+    out["uplink_frames"] += 1
+    out["uplink_msgs"] += len(subs)
     for m in subs:
         op = m.get("op")
         if op == "task_finished":
@@ -4480,6 +4519,8 @@ def real_worker_line(res):
         "tasks_run": res.get("finished"), "failed": res.get("failed"),
         "compute_entries": res.get("entries"),
         "compute_frames": res.get("compute_frames"),
+        "uplink_frames": res.get("uplink_frames"),
+        "uplink_msgs": res.get("uplink_msgs"),
         "decode_us_per_entry": res.get("decode_s", 0.0)
         / max(res.get("entries") or 0, 1) * 1e6,
         "stop_read": res.get("stop_read")}
@@ -4600,17 +4641,18 @@ def _timed(fn, acc, lock, key):
     return wrapped
 
 
-def install_tick_check(failures):
+def install_tick_check(failures, on_tick=None):
     """Wraps the reactor's run_tick in check_assignments: each tick's
     placements must fit the free resources and task slots it was given.
     A misfit is appended to `failures`. Returns the counts of ticks and
-    assigned tasks, which the wrapper keeps up to date."""
+    assigned tasks and each run_tick's wall ms (under "ms"), which the
+    wrapper keeps up to date; `on_tick(ms)` is called after each."""
     import types
 
     from hyperqueue_tpu_torch.server import reactor
 
     run_tick = reactor.run_tick
-    assigned = {"ticks": 0, "tasks": 0}
+    assigned = {"ticks": 0, "tasks": 0, "ms": []}
 
     def checked_run_tick(*args, **kwargs):
         dense = kwargs.get("dense")
@@ -4624,13 +4666,18 @@ def install_tick_check(failures):
                                           free=list(r.free),
                                           nt_free=r.nt_free)
                     for r in args[1]]
+        t0 = time.perf_counter()
         result = run_tick(*args, **kwargs)
+        ms = (time.perf_counter() - t0) * 1e3
         try:
             check_assignments(result, rows, args[2], set())
         except AssertionError as e:
             failures.append(f"tick assignments: {e}")
         assigned["ticks"] += 1
         assigned["tasks"] += len(result)
+        assigned["ms"].append(ms)
+        if on_tick is not None:
+            on_tick(ms)
         return result
 
     reactor.run_tick = checked_run_tick
@@ -5822,8 +5869,10 @@ def worker_node_path(card, device):
     GPU tasks overlap, the worker's overview carries a GPU sample, every
     K1 launch equals its plain version and the codec is native in every
     process. Reports tasks a second, the per-task overhead above a spawn
-    floor (a posix_spawn of `true` measured alone here first), the runner
-    pool's width and the codec backend."""
+    floor (a posix_spawn of `true` measured alone here first), the
+    worker's uplink frames (every frame it sent, registration included)
+    a task and a second of the drain, the runner pool's width and the
+    codec backend."""
     import multiprocessing
     import pickle
     import shutil
@@ -6001,6 +6050,9 @@ def worker_node_path(card, device):
             else "nvidia-smi -L (detect_gpus found none)",
             tasks=n_all, drain_s=c["drain_s"],
             tasks_per_s=n_all / c["drain_s"], progress=c["progress"],
+            uplink_frames_per_task=(rep.get("uplink_frames") or 0) / n_all,
+            uplink_frames_per_s=(rep.get("uplink_frames") or 0)
+            / c["drain_s"],
             spawn_floor_ms=floor,
             overhead_above_floor_ms={
                 "total_p50": line["total_ms"]["p50"] - floor["p50"],
@@ -6262,8 +6314,8 @@ class CliRunner:
             elif run.get("expect_rc", 0) != run.get("rc"):
                 fails.append(f"{' '.join(args)}: rc {run.get('rc')}, "
                              f"{run.get('err', '')[-300:]!r}")
-            if run.get("rc") == "timeout":
-                continue  # killed at its limit: it wrote no report
+            if run.get("rc") in ("timeout", "killed"):
+                continue  # killed: it wrote no report
             try:
                 report = json.loads(run["report"].read_text())
             except (OSError, ValueError):
@@ -6327,7 +6379,7 @@ def cli_path(card, device, n_procs=SERVE_WORKER_PROCS, n_tasks=CLI_TASKS,
     worker = None
     out: dict = {}
     refusals = {("server", "start", "--server-dir", str(server_dir),
-                 "--shards", "2"), ("alloc", "list")}
+                 "--shards", "2")}
 
     def start_server(tag):
         """A server process (CLI_SERVER_LAUNCHER); returns it, its result
@@ -6491,6 +6543,7 @@ def cli_path(card, device, n_procs=SERVE_WORKER_PROCS, n_tasks=CLI_TASKS,
                 reads[name] = run
         hq("server", "start", "--server-dir", str(server_dir),
            "--shards", "2")
+        # answered by the idle allocation service
         hq("alloc", "list")
         left = window_s - (time.perf_counter() - t_window)
         if left > 0:
@@ -6653,7 +6706,13 @@ def cli_path(card, device, n_procs=SERVE_WORKER_PROCS, n_tasks=CLI_TASKS,
             launches=res1["launches"] + res2["launches"],
             solves=res1["solves"] + res2["solves"],
             solves_held=n_checked, plain_check_s=plain_check_s,
-            assigned=res1["assigned"],
+            assigned={k: res1["assigned"][k] for k in ("ticks", "tasks")},
+            # the reactor's run_tick past the first ALLOC_TICK_SKIP ticks,
+            # the allocation service running with no queue
+            tick_steady_ms_p50=_pctl(
+                res1["assigned"]["ms"][ALLOC_TICK_SKIP:], 50),
+            tick_steady_ms_p99=_pctl(
+                res1["assigned"]["ms"][ALLOC_TICK_SKIP:], 99),
             server_peak_rss_mb=res1.get("peak_rss_mb"),
             path_phases_s=marks, seconds=time.perf_counter() - t_path)
         log("cli_summary", **summary, card=card)
@@ -6668,6 +6727,707 @@ def cli_path(card, device, n_procs=SERVE_WORKER_PROCS, n_tasks=CLI_TASKS,
             if proc.poll() is None:
                 proc.kill()
                 proc.wait(5)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# -- phase 19: autoalloc ----------------------------------------------------
+# the allocation service's pass (HQ_AUTOALLOC_INTERVAL, s) on the server of
+# the autoalloc path, and the demand queries it must run before the reads
+ALLOC_INTERVAL_S = 0.5
+ALLOC_QUERIES = 20
+# run_tick's steady median leaves out the first ticks (tick 0's prefill)
+ALLOC_TICK_SKIP = 5
+# the first server dies at the ALLOC_KILL_AT-th `autoalloc.submit` match
+# of the Slurm handler: the probe of `alloc add slurm`, its first submit,
+# then this one, before its `sbatch` runs
+ALLOC_KILL_AT = 3
+# how long the path waits for the queries and the local workers, for the
+# killed server's exit and for the reattach, and for the removed local
+# allocations' process groups to be gone
+ALLOC_WAIT_S = 120.0
+ALLOC_EXIT_S = 10.0
+
+# The server of the autoalloc path: alloc_server_main with the record path
+# and the `server start ...` arguments.
+ALLOC_SERVER_LAUNCHER = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+chip_smoke.alloc_server_main(sys.argv[2], sys.argv[3:])
+"""
+
+# stub Slurm binaries (as tests/test_autoalloc.py builds them): `sbatch`
+# counts its calls and logs its arguments, `sacct` reports every job
+# PENDING, `scancel` logs its arguments
+ALLOC_STUB_BINS = {
+    "sbatch": """#!/bin/bash
+n=$(cat "{log}/counter" 2>/dev/null || echo 0)
+n=$((n+1))
+echo $n > "{log}/counter"
+echo "$@" >> "{log}/sbatch.log"
+echo "Submitted batch job $n"
+""",
+    "sacct": """#!/bin/bash
+n=$(cat "{log}/counter" 2>/dev/null || echo 0)
+for i in $(seq 1 $n); do echo "$i|PENDING"; done
+""",
+    "scancel": """#!/bin/bash
+echo "$@" >> "{log}/scancel.log"
+""",
+}
+
+
+class AllocRecorder:
+    """The autoalloc path's server-side record: every tick solve (its
+    inputs and counts), every demand query (its assembly's, its solve's and
+    its own ms, its solve's inputs and counts, the queries' shapes and its
+    answer), each allocation event and each allocation worker's
+    registration, appended as pickles to one file and flushed at once, so
+    that a server killed by its fault plan leaves what it did behind. Each
+    solve record carries K1's launch counts by site and the residency's
+    stats as they stood after it. Wraps the watchdog's primary model:
+    every attribute but the solves is the model's."""
+
+    def __init__(self, model, path):
+        self.model = model
+        self.sink = open(path, "ab")
+        self.lock = threading.Lock()
+        self.query = None
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+    def write(self, record):
+        import pickle
+
+        with self.lock:
+            pickle.dump(record, self.sink, protocol=pickle.HIGHEST_PROTOCOL)
+            self.sink.flush()
+
+    def solve_state(self):
+        from hyperqueue_tpu_torch.ops import assign
+
+        k1 = assign.greedy_cut_scan
+        return {"t": time.time(), "sites": dict(k1.site_launches),
+                "launches": k1.launches,
+                "resident_launches": k1.resident_launches,
+                "backend": getattr(self.model, "last_backend", None),
+                "residency": self.model.resident_stats()}
+
+    def tick(self, kwargs, counts):
+        self.write({"kind": "tick", "kwargs": kwargs,
+                    "counts": np.array(counts, copy=True),
+                    **self.solve_state()})
+
+    def solve(self, **kwargs):
+        inputs = RecordingSeam._copy(kwargs)
+        counts = self.model.solve(**kwargs)
+        self.tick(inputs, counts)
+        return counts
+
+    def solve_async(self, **kwargs):
+        handle = self.model.solve_async(**kwargs)
+        inputs, recorder = RecordingSeam._copy(kwargs), self
+
+        class Handle:
+            def result(self):
+                counts = handle.result()
+                recorder.tick(inputs, counts)
+                return counts
+
+        return Handle()
+
+    def solve_query(self, **kwargs):
+        t0 = time.perf_counter()
+        counts = self.model.solve_query(**kwargs)
+        # where the query solved (it leaves the model's last_backend, the
+        # tick's, as it was)
+        backend = "host" if self.model._sticky_host() is True \
+            else f"device-{self.model.device.type}"
+        self.query = (RecordingSeam._copy(kwargs), np.array(counts),
+                      (time.perf_counter() - t0) * 1e3, backend)
+        return counts
+
+
+def alloc_server_main(record_path, argv):
+    """The server of the autoalloc path: `python -m hyperqueue_tpu_torch`
+    with `argv` (`server start ...`) in this process, after these hooks:
+    every Server the CLI builds gets its watchdog's primary wrapped in an
+    AllocRecorder writing to `record_path`; the allocation service's
+    compute_new_worker_query (and the assembly inside it) are timed and
+    recorded; its events and its allocation workers' registrations are
+    recorded; the reactor's run_tick is wrapped in check_assignments and
+    timed. A server that stops writes an "end" record (the watchdog's
+    stats, K1's counts, the residency, misfits); one that its fault plan
+    kills writes none."""
+    import runpy
+
+    from hyperqueue_tpu_torch.autoalloc import query as query_mod
+    from hyperqueue_tpu_torch.autoalloc import service as service_mod
+    from hyperqueue_tpu_torch.server import bootstrap
+
+    failures: list = []
+    held: dict = {}
+    assigned = install_tick_check(
+        failures, on_tick=lambda ms: held["recorder"].write(
+            {"kind": "tick_ms", "ms": ms, "t": time.time()}))
+    init = bootstrap.Server.__init__
+    compute = service_mod.compute_new_worker_query
+    assemble = query_mod.assemble_solve_inputs
+    emit = service_mod.AutoAllocService.emit
+    connected = service_mod.AutoAllocService.on_worker_connected
+    slot: dict = {}
+
+    def recording_init(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        recorder = AllocRecorder(self.model.model, record_path)
+        self.model.model = recorder
+        self.model._last_ran = recorder
+        held.update(recorder=recorder, server=self)
+
+    def timed_assemble(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = assemble(*args, **kwargs)
+        slot["assemble_ms"] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    def recorded_query(core, model, queries):
+        recorder = held["recorder"]
+        recorder.query = None
+        slot.clear()
+        t0 = time.perf_counter()
+        response = compute(core, model, queries)
+        record = {
+            "kind": "query", "total_ms": (time.perf_counter() - t0) * 1e3,
+            "assemble_ms": slot.get("assemble_ms"),
+            "max_sn": [q.max_sn_workers for q in queries],
+            "min_utilization": [q.min_utilization for q in queries],
+            "sn": list(response.single_node_workers_per_query),
+            **recorder.solve_state()}
+        if recorder.query is not None:
+            record.update(kwargs=recorder.query[0],
+                          counts=recorder.query[1],
+                          solve_ms=recorder.query[2],
+                          backend=recorder.query[3])
+        recorder.write(record)
+        return response
+
+    def recorded_emit(self, kind, payload):
+        held["recorder"].write({"kind": "event", "event": kind,
+                                "payload": dict(payload), "t": time.time()})
+        return emit(self, kind, payload)
+
+    def recorded_connected(self, worker_id, alloc_id):
+        held["recorder"].write({"kind": "connected", "worker": worker_id,
+                                "alloc": alloc_id, "t": time.time()})
+        return connected(self, worker_id, alloc_id)
+
+    bootstrap.Server.__init__ = recording_init
+    query_mod.assemble_solve_inputs = timed_assemble
+    service_mod.compute_new_worker_query = recorded_query
+    service_mod.AutoAllocService.emit = recorded_emit
+    service_mod.AutoAllocService.on_worker_connected = recorded_connected
+    sys.argv = ["hq", *argv]
+    code = 0
+    try:
+        runpy.run_module("hyperqueue_tpu_torch", run_name="__main__",
+                         alter_sys=True)
+    except SystemExit as e:
+        code = e.code if isinstance(e.code, int) else int(e.code is not None)
+    recorder = held.get("recorder")
+    if recorder is not None:
+        recorder.write({
+            "kind": "end", "code": code, "failures": failures,
+            "ticks": assigned["ticks"], "tasks": assigned["tasks"],
+            "watchdog": held["server"].model.stats(),
+            "peak_rss_mb": rss_mb()[1], **recorder.solve_state()})
+        recorder.sink.close()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)
+
+
+def read_records(path):
+    """The records an AllocRecorder wrote (a torn last one is dropped)."""
+    import pickle
+
+    records = []
+    try:
+        with open(path, "rb") as f:
+            while True:
+                try:
+                    records.append(pickle.load(f))
+                except (EOFError, pickle.UnpicklingError, ValueError,
+                        AttributeError, IndexError):
+                    break
+    except FileNotFoundError:
+        pass
+    return records
+
+
+def group_alive(pgid) -> bool:
+    """Does a process of the group `pgid` still run (zombies aside)?"""
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        fields = stat[stat.rindex(")") + 2:].split()
+        if int(fields[2]) == pgid and fields[0] != "Z":
+            return True
+    return False
+
+
+def check_query_against_plain(model, record, n):
+    """A recorded query solve through the plain version on the CPU (copies
+    of its padded inputs): the counts must agree, and the per-query count
+    of fake rows with load (the answer's single_node_workers_per_query,
+    every queue here without a utilization floor) must equal the answer."""
+    import torch
+
+    case = check_tick_against_plain(model, record["kwargs"],
+                                    record["counts"], torch.device("cpu"),
+                                    f"query {n}")
+    n_b, n_v, n_w = case["_extents"]
+    counts = case["_counts"][:n_b, :n_v, :n_w]
+    first_fake = n_w - sum(record["max_sn"])
+    loaded = counts[:, :, first_fake:].sum(axis=(0, 1)) > 0
+    recount, offset = [], 0
+    for k in record["max_sn"]:
+        recount.append(int(loaded[offset:offset + k].sum()))
+        offset += k
+    if recount != record["sn"]:
+        raise AssertionError(f"query {n}: answered {record['sn']}, the "
+                             f"plain counts give {recount}")
+    return case
+
+
+def alloc_path(card, device, n_procs=SERVE_WORKER_PROCS,
+               n_tasks=CLI_TASKS, state=None):
+    """Phase 19: the allocation service of the port's `hq server start`
+    beside the tick, its demand query on K1, and a kill -9 by fault plan
+    in the middle of a Slurm submit with the restore that reconciles the
+    allocations (see the module docstring). Returns the path's summary
+    and one padded case of each site (a tick's and a query's) for the
+    kernel's timing."""
+    import json as json_mod
+    import multiprocessing
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from hyperqueue_tpu_torch.models.greedy import GreedyCutScanModel
+
+    t_path = time.perf_counter()
+    marks: dict = {}
+
+    def mark(name):
+        marks[name] = time.perf_counter() - t_path
+
+    worker_rows = (state or journal_state())[1]
+    configs = [cfg.to_wire() for _wid, cfg, _free, _nt in worker_rows][1:]
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = Path(tempfile.mkdtemp(prefix="hq-alloc-"))
+    server_dir = tmp / "server"
+    journal = server_dir / "journal"
+    bin_dir, stub_log = tmp / "bin", tmp / "stub-log"
+    bin_dir.mkdir()
+    stub_log.mkdir()
+    for name, body in ALLOC_STUB_BINS.items():
+        path = bin_dir / name
+        path.write_text(body.format(log=stub_log))
+        path.chmod(0o755)
+    hq = CliRunner(root, tmp, server_dir)
+    hq.env["PATH"] = f"{bin_dir}{os.pathsep}{hq.env.get('PATH', '')}"
+    sched = [] if device.type == "cuda" else ["--scheduler", "cpu"]
+    start_args = ["server", "start", "--server-dir", str(server_dir),
+                  "--journal", str(journal), *sched]
+    plan = json_mod.dumps({"rules": [
+        {"site": "autoalloc.submit", "op": "slurm", "at": ALLOC_KILL_AT,
+         "action": "kill"}]})
+    ctx = multiprocessing.get_context("spawn")
+    servers, procs, pipes = [], [], []
+    groups: list = []
+    worker = None
+    out: dict = {}
+
+    def start_server(tag, env_extra):
+        records = tmp / f"{tag}.rec"
+        log_f = open(tmp / f"{tag}.log", "wb")
+        t0 = time.time()
+        proc = subprocess.Popen(
+            [sys.executable, "-c", ALLOC_SERVER_LAUNCHER, root,
+             str(records), *start_args],
+            env={**hq.env, "HQ_AUTOALLOC_INTERVAL": str(ALLOC_INTERVAL_S),
+                 **env_extra},
+            cwd=hq.work, stdout=log_f, stderr=subprocess.STDOUT)
+        log_f.close()
+        servers.append(proc)
+        return proc, records, t0
+
+    def wait_access(proc, t0, tag, before=None):
+        access = server_dir / "hq-current" / "access.json"
+        while True:
+            if access.exists() and (before is None
+                                    or access.resolve() != before):
+                return time.time() - t0
+            if proc.poll() is not None:
+                raise AssertionError(
+                    f"autoalloc: {tag} exited {proc.returncode}: "
+                    + (tmp / f"{tag}.log").read_text()[-2000:])
+            if time.time() - t0 > 180:
+                raise AssertionError(f"autoalloc: {tag}: no access record")
+            time.sleep(0.05)
+
+    def wait_records(path, done, what, proc=None):
+        t0 = time.time()
+        while True:
+            records = read_records(path)
+            if done(records):
+                return records
+            if proc is not None and proc.poll() is not None:
+                raise AssertionError(f"autoalloc: the server exited "
+                                     f"{proc.returncode} waiting for {what}")
+            if time.time() - t0 > ALLOC_WAIT_S:
+                raise AssertionError(f"autoalloc: no {what} within "
+                                     f"{ALLOC_WAIT_S} s")
+            time.sleep(0.25)
+
+    def of(records, kind):
+        return [r for r in records if r["kind"] == kind]
+
+    def recv(pipe, what, timeout=180.0):
+        if not pipe.poll(timeout):
+            raise AssertionError(f"autoalloc: no {what} from a worker "
+                                 "process")
+        tag, body = pipe.recv()
+        if tag != what:
+            raise AssertionError(f"autoalloc: {tag} for {what}")
+        return body
+
+    def alloc_list():
+        run = hq("alloc", "list", "--output-mode", "json")
+        return run, {q["id"]: q for q in
+                     json_mod.loads(run["out"].read_text())}
+
+    def sbatch_calls():
+        path = stub_log / "sbatch.log"
+        return len(path.read_text().splitlines()) if path.exists() else 0
+
+    try:
+        # --- the server, the workers, the array ---------------------------
+        server1, rec1, t1 = start_server("server1", {"HQ_FAULT_PLAN": plan})
+        split = np.array_split(np.arange(len(configs)), n_procs)
+        for i, part in enumerate(split):
+            parent_end, child_end = ctx.Pipe()
+            p = ctx.Process(target=serve_worker_proc, name=f"hq-workers-{i}",
+                            args=(i, str(server_dir),
+                                  [configs[j] for j in part], SEED,
+                                  child_end, CLI_SERVICE_S))
+            p.start()
+            procs.append(p)
+            pipes.append(parent_end)
+        out["access_s"] = wait_access(server1, t1, "server1")
+        first_access = (server_dir / "hq-current" / "access.json").resolve()
+        worker, worker_run = hq.popen(
+            ["worker", "start", "--on-server-lost", "stop"], "worker")
+        for p in pipes:
+            recv(p, "registered")
+        run = hq("worker", "wait", str(len(configs) + 1))
+        out["worker_wait_s"] = run["s"]
+        submit = hq("submit", "--array", f"1-{n_tasks}", "--cpus", "1",
+                    "--", "true")
+        out["submit_s"] = submit["s"]
+        log("alloc_server", access_s=out["access_s"],
+            worker_wait_s=out["worker_wait_s"], workers=len(configs) + 1,
+            submit_s=out["submit_s"], tasks=n_tasks,
+            scheduler=sched[-1] if sched else "auto (K1 on the card)",
+            interval_s=ALLOC_INTERVAL_S, card=card)
+        mark("submitted")
+
+        # --- the local queue: queries, real workers -------------------------
+        t_add = time.time()
+        hq("alloc", "add", "local", "--backlog", "2", "--workers-per-alloc",
+           "2", "--max-worker-count", "4", "--on-server-lost", "reconnect",
+           "--worker-args=--cpus", "--worker-args=1")
+        records = wait_records(
+            rec1, lambda rs: len(of(rs, "query")) >= ALLOC_QUERIES
+            and len(of(rs, "connected")) >= 4,
+            f"{ALLOC_QUERIES} queries and 4 local workers", server1)
+        events = of(records, "event")
+        queued = [e for e in events if e["event"] == "alloc-queued"]
+        bound = [e for e in events if e["event"] == "alloc-worker-bound"]
+        out["add_to_first_submit_s"] = queued[0]["t"] - t_add
+        out["add_to_first_worker_s"] = bound[0]["t"] - t_add
+        local_ids = sorted({e["payload"]["alloc"] for e in queued})
+        mark("local_queue")
+
+        # --- the reads -----------------------------------------------------
+        reads = {}
+        run, listed = alloc_list()
+        reads["alloc list"] = run["s"]
+        for name, args in (
+                ("alloc info", ("alloc", "info", "1")),
+                ("alloc events", ("alloc", "events", "--output-mode",
+                                  "json")),
+                ("alloc log", ("alloc", "log", local_ids[0], "stdout"))):
+            run = hq(*args)
+            reads[name] = run["s"]
+            if name == "alloc events":
+                decisions = json_mod.loads(run["out"].read_text())
+        log("alloc_reads", **{k: round(v, 3) for k, v in reads.items()},
+            queue_state=listed[1]["state"],
+            local_allocations=[(a["id"], a["status"], len(a["workers"]))
+                               for a in listed[1]["allocations"]],
+            verdicts=sorted({d["verdict"] for d in decisions}), card=card)
+        mark("reads")
+
+        # --- the Slurm queue, and the kill in its second submit --------------
+        for p in pipes:
+            p.send(("closing", None))
+        for p in pipes:
+            recv(p, "closing")
+        t_slurm = time.time()
+        hq("alloc", "add", "slurm", "--backlog", "4", "--workers-per-alloc",
+           "16", "--time-limit", "1h")
+        try:
+            rc1 = server1.wait(ALLOC_WAIT_S)
+        except subprocess.TimeoutExpired:
+            rc1 = "timeout"
+        t_killed = time.time()
+        records1 = read_records(rec1)
+        sbatch_at_kill = sbatch_calls()
+        slurm_before = sorted(
+            e["payload"]["alloc"] for e in of(records1, "event")
+            if e["event"] == "alloc-queued" and e["payload"]["queue_id"] == 2)
+        log("alloc_kill", rc=rc1, after_slurm_add_s=t_killed - t_slurm,
+            sbatch_calls=sbatch_at_kill, slurm_allocations=slurm_before,
+            queries=len(of(records1, "query")), card=card)
+        for p in pipes:
+            p.send(("report", None))
+        reports = [recv(p, "report") for p in pipes]
+        for p in procs:
+            p.join(5)
+        # the real worker stops with its server (--on-server-lost stop);
+        # its exit code is not this path's question
+        try:
+            hq.finish(worker_run, worker.wait(5))
+        except subprocess.TimeoutExpired:
+            worker.kill()
+            worker.wait(5)
+            hq.finish(worker_run, "killed")
+        worker_run["expect_rc"] = worker_run.get("rc")
+        mark("killed")
+
+        # --- the restore: reattach and reconcile ----------------------------
+        server2, rec2, t2 = start_server("server2", {})
+        restore_s = wait_access(server2, t2, "server2", before=first_access)
+        records2 = wait_records(
+            rec2, lambda rs: len({r["worker"] for r in of(rs, "connected")
+                                  if r["alloc"] in local_ids}) >= 4,
+            "the 4 local workers' reattach", server2)
+        reattached = [r for r in of(records2, "connected")
+                      if r["alloc"] in local_ids]
+        out["reconcile_s"] = max(r["t"] for r in reattached) - t2
+        # the Slurm queue fills its backlog again; then the table is read
+        wait_records(rec2, lambda rs: len(
+            [e for e in of(rs, "event") if e["event"] == "alloc-queued"
+             and e["payload"]["queue_id"] == 2]) + len(slurm_before) >= 4,
+            "the Slurm backlog", server2)
+        run, listed2 = alloc_list()
+        local2 = listed2[1]["allocations"]
+        slurm2 = listed2[2]["allocations"]
+        out["restore"] = {
+            "access_s": restore_s, "reconcile_s": out["reconcile_s"],
+            "local": [(a["id"], a["status"], sorted(a["workers"]))
+                      for a in local2],
+            "slurm": [(a["id"], a["status"]) for a in slurm2],
+            "sbatch_calls": sbatch_calls()}
+        log("alloc_restore", **out["restore"], card=card)
+        mark("restored")
+
+        # --- remove the queues, stop ---------------------------------------
+        groups = [int(a["id"].split("-", 1)[1]) for a in local2
+                  if a["id"].startswith("local-")]
+        t_remove = time.time()
+        remove = hq("alloc", "remove", "1")
+        while any(group_alive(g) for g in groups) \
+                and time.time() - t_remove < ALLOC_EXIT_S:
+            time.sleep(0.02)
+        out["remove_to_exit_s"] = time.time() - t_remove
+        left = [g for g in groups if group_alive(g)]
+        hq("alloc", "remove", "2")
+        stop = hq("server", "stop")
+        try:
+            rc2 = server2.wait(CLI_EXIT_S)
+        except subprocess.TimeoutExpired:
+            rc2 = "timeout"
+        records2 = read_records(rec2)
+        log("alloc_remove", remove_s=remove["s"],
+            remove_to_exit_s=out["remove_to_exit_s"], groups=groups,
+            groups_left=left, stop_s=stop["s"], rc=rc2, card=card)
+        mark("removed")
+
+        # --- checks --------------------------------------------------------
+        fails = hq.faults(set())
+        if rc1 != -9:
+            fails.append(f"server1 exited {rc1}, not killed by its plan")
+        if rc2 != 0:
+            fails.append(f"server2 exited {rc2}")
+        end2 = of(records2, "end")
+        if not end2:
+            fails.append("server2 wrote no end record")
+        else:
+            fails += [f"server2: {f}" for f in end2[-1]["failures"]]
+            wd = end2[-1]["watchdog"]
+            if wd.get("failures") or wd.get("timeouts") \
+                    or wd.get("degraded_ticks"):
+                fails.append(f"server2 watchdog {wd}")
+        if sbatch_at_kill != ALLOC_KILL_AT - 1:
+            fails.append(f"{sbatch_at_kill} sbatch calls at the kill, not "
+                         f"{ALLOC_KILL_AT - 1}")
+        if sorted(a["id"] for a in local2) != local_ids:
+            fails.append(f"local allocations {[a['id'] for a in local2]} "
+                         f"after the restore, {local_ids} before")
+        if any(len(a["workers"]) != 2 or a["status"] != "running"
+               for a in local2):
+            fails.append(f"local allocations not reattached: "
+                         f"{out['restore']['local']}")
+        slurm_ids = [a["id"] for a in slurm2]
+        if len(set(slurm_ids)) != len(slurm_ids) \
+                or len(slurm_ids) != sbatch_calls() - 1 \
+                or not set(slurm_before) <= set(slurm_ids):
+            fails.append(f"Slurm allocations {slurm_ids} for "
+                         f"{sbatch_calls()} sbatch calls (one the probe), "
+                         f"{slurm_before} before the kill")
+        if left:
+            fails.append(f"local allocation groups {left} still run "
+                         f"{ALLOC_EXIT_S} s after alloc remove")
+        lost = [w for r in reports for w in r["lost"]]
+        errors = [e for r in reports for e in r["errors"]]
+        if lost or errors:
+            fails.append(f"simulated workers: lost {lost[:5]}, "
+                         f"errors {errors[:3]}")
+        # on the card every solve runs K1; a rehearsal on the CPU runs
+        # `--scheduler cpu`, whose solves run K1's plain version
+        want = ("device-cuda",) if device.type == "cuda" else (
+            "device-cpu",)
+        checker = GreedyCutScanModel(device=device.type, backend="device")
+        t0 = time.perf_counter()
+        n_ticks = n_queries = 0
+        cases = {}
+        sites = {"tick": 0, "alloc_query": 0}
+        for tag, recs in (("server1", records1), ("server2", records2)):
+            ticks = of(recs, "tick")
+            solved = [r for r in of(recs, "query") if "kwargs" in r]
+            for r in ticks + solved:
+                if not str(r["backend"]).startswith(want):
+                    fails.append(f"{tag}: a solve ran on {r['backend']}")
+                    break
+            # K1's counts by site as each record saw them: the queries'
+            # equal the query solves so far; the ticks' the tick solves
+            # read so far, or one more while a pipelined tick's solve was
+            # dispatched and not yet read
+            n_tick = n_query = 0
+            last = {}
+            for r in recs:
+                n_tick += r["kind"] == "tick"
+                n_query += r["kind"] == "query" and "kwargs" in r
+                if "sites" not in r:
+                    continue
+                last = r
+                if device.type == "cuda" and (
+                        r["sites"]["alloc_query"] != n_query
+                        or not 0 <= r["sites"]["tick"] - n_tick <= 1):
+                    fails.append(f"{tag}: K1 launches by site "
+                                 f"{r['sites']} after {n_tick} tick and "
+                                 f"{n_query} query solves")
+                    break
+            for name, r in (("tick", ticks[-1] if ticks else None),
+                            ("query", solved[-1] if solved else None)):
+                if r is not None and r["residency"]["invalidations"]:
+                    fails.append(f"{tag}: the residency was invalidated "
+                                 f"({r['residency']})")
+            if device.type == "cuda":
+                sites["tick"] += last.get("sites", {}).get("tick", 0)
+                sites["alloc_query"] += last.get("sites", {}).get(
+                    "alloc_query", 0)
+            for n, r in enumerate(ticks):
+                try:
+                    case = check_tick_against_plain(
+                        checker, r["kwargs"], r["counts"], device, n)
+                except AssertionError as e:
+                    fails.append(f"{tag} tick {n}: {e}")
+                    break
+                # the kernel is timed at the widest tick and query
+                if case["_extents"][2] >= cases.get(
+                        "tick", {"_extents": (0, 0, 0)})["_extents"][2]:
+                    cases["tick"] = case
+                n_ticks += 1
+            for n, r in enumerate(solved):
+                try:
+                    case = check_query_against_plain(checker, r, n)
+                except AssertionError as e:
+                    fails.append(f"{tag}: {e}")
+                    break
+                if case["_extents"][2] >= cases.get(
+                        "query", {"_extents": (0, 0, 0)})["_extents"][2]:
+                    cases["query"] = case
+                n_queries += 1
+        plain_check_s = time.perf_counter() - t0
+        if not n_queries or "tick" not in cases:
+            fails.append(f"{n_queries} query solves and "
+                         f"{n_ticks} ticks held")
+        mark("checked")
+        if fails:
+            raise AssertionError("autoalloc: " + "; ".join(fails))
+
+        queries = of(records1, "query") + of(records2, "query")
+        solved = [q for q in queries if "kwargs" in q]
+        ticks_ms = [r["ms"] for r in of(records1, "tick_ms")]
+        out["queries"] = {
+            "run": len(queries), "solved": len(solved),
+            "rows": sorted({int(q["kwargs"]["free"].shape[0])
+                            for q in solved}),
+            "total_ms_p50": _pctl([q["total_ms"] for q in queries], 50),
+            "total_ms_max": max(q["total_ms"] for q in queries),
+            "assemble_ms_p50": _pctl([q["assemble_ms"] for q in solved], 50),
+            "solve_ms_p50": _pctl([q["solve_ms"] for q in solved], 50),
+            "solve_ms_max": max(q["solve_ms"] for q in solved)}
+        log("alloc_queries", **out["queries"], card=card)
+        summary = dict(
+            workers=len(configs) + 1, tasks=n_tasks,
+            access_s=out["access_s"], submit_s=out["submit_s"],
+            queries=out["queries"],
+            add_to_first_submit_s=out["add_to_first_submit_s"],
+            add_to_first_worker_s=out["add_to_first_worker_s"],
+            tick_steady_ms_p50=_pctl(ticks_ms[ALLOC_TICK_SKIP:], 50),
+            tick_steady_ms_p99=_pctl(ticks_ms[ALLOC_TICK_SKIP:], 99),
+            ticks=len(ticks_ms), kill_rc=rc1, restore=out["restore"],
+            remove_to_exit_s=out["remove_to_exit_s"],
+            launches_by_site=sites, ticks_held=n_ticks,
+            queries_held=n_queries, plain_check_s=plain_check_s,
+            path_phases_s=marks, seconds=time.perf_counter() - t_path)
+        log("alloc_summary", **summary, card=card)
+        return summary, cases
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+        for proc in servers + ([worker] if worker is not None else []) + [
+                r["proc"] for r in hq.runs if "proc" in r]:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(5)
+        for g in groups:
+            try:
+                os.killpg(g, 9)
+            except (ProcessLookupError, PermissionError):
+                pass
         shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -6953,6 +7713,16 @@ def main() -> int:
     # phase 18: the north star through the port's own `hq` command line
     cli = cli_path(card, device)
     lap("18_cli")
+    # phase 19: the allocation service, its demand query on K1 beside the
+    # tick, a kill -9 by fault plan mid-submit and the reconciling restore
+    alloc, alloc_cases = alloc_path(card, device)
+    alloc_k1 = {site: kernel_timing(alloc_cases[case], device, step_lat)
+                for site, case in (("tick", "tick"),
+                                   ("alloc_query", "query"))}
+    for site, timing in alloc_k1.items():
+        log("timing", kernel="cut_scan", site=site, path="autoalloc",
+            **timing, card=card)
+    lap("19_autoalloc")
     log("mapping", native=True,
         default_median_ms=ticks["phases_median_ms"]["mapping"],
         server_sync_median_ms=server_summary["sync"]["phases_median_ms"]
@@ -7012,6 +7782,15 @@ def main() -> int:
             if name == "cut_scan" else 0,
             # both `hq server start` processes of phase 18
             "cli_launches": cli["launches"] if name == "cut_scan" else 0,
+            # both servers of phase 19, by launch site, and the kernel's
+            # time at each site's shape there
+            "autoalloc_launches_by_site": alloc["launches_by_site"]
+            if name == "cut_scan" else {"tick": 0, "alloc_query": 0},
+            "autoalloc_ms_by_site": {
+                site: {k: timing[k] for k in ("ms", "plain_ms", "bound_ms",
+                                              "shape")}
+                for site, timing in alloc_k1.items()}
+            if name == "cut_scan" else None,
             # a fused reactor tick without gang rows launches plain K1
             "reactor_fused_launches": react_fused["launches"]["cut_scan_gang"]
             if name == "cut_scan_gang"

@@ -5,7 +5,7 @@ subcommand tree: server / worker / submit / job / task / output-log / alloc /
 journal / dashboard. One binary drives everything; here it is
 `python -m hyperqueue_tpu_torch` (`bin/hq` stays the JAX package's). The
 federated paths (`--shards`, `--standby`, `hq fleet`, the fleet view of
-`hq top`) refuse, naming ROADMAP item 10; the server solves on the CUDA
+`hq top`) refuse, naming ROADMAP item 10b; the server solves on the CUDA
 device unless `--scheduler cpu` asks for the CPU.
 """
 
@@ -115,8 +115,8 @@ def _setup_logging(args=None) -> None:
 
 
 def _refuse_item_10(what: str) -> None:
-    """Exits non-zero: `what` needs the federation plane (autoalloc,
-    federation, leases, ownership), which is not ported yet."""
+    """Exits non-zero: `what` needs the federation plane (federation,
+    leases, ownership), which is not ported yet."""
     fail(f"{what} comes with {serverdir.ITEM_10}")
 
 

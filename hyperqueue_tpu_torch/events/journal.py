@@ -353,6 +353,8 @@ class Journal:
         size at the compaction barrier) are read, so concurrent appends are
         invisible here and are carried over by `finalize` afterwards.
         Output is always v2 framing. Returns (kept, dropped)."""
+        from hyperqueue_tpu_torch.utils import chaos
+
         version = _sniff_version(path)
         kept = dropped = 0
         with open(path, "rb") as src, open(tmp, "wb") as out:
@@ -382,8 +384,8 @@ class Journal:
                     continue
                 out.write(_frame(payload, 2))
                 kept += 1
-                # the chaos plane's "mid-gc" kill site goes here; it comes
-                # with ROADMAP Queue 1 item 10
+                if chaos.ACTIVE:
+                    chaos.fire("server.compact", event="mid-gc")
             out.flush()
             os.fsync(out.fileno())
         return kept, dropped

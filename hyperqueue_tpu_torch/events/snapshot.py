@@ -39,7 +39,7 @@ from pathlib import Path
 from hyperqueue_tpu_torch.events.journal import fsync_dir
 from hyperqueue_tpu_torch.ids import make_task_id, task_id_task
 from hyperqueue_tpu_torch.transport import codec
-from hyperqueue_tpu_torch.utils import clock
+from hyperqueue_tpu_torch.utils import chaos, clock
 
 MAGIC = b"hqtpusn1"
 VERSION = 1
@@ -297,8 +297,7 @@ def capture_job(server, job, bodies: list, body_index: dict,
 def write_snapshot(journal_path: Path, state: dict) -> Path:
     """Durably publish `state` as the newest snapshot.
 
-    Crash matrix (kill -9 injectable at each named chaos point once the
-    chaos plane is ported):
+    Crash matrix (kill -9 injectable at each named chaos point):
     - mid-snapshot-write: only the temp file is torn; .snap/.snap.prev
       untouched.
     - pre-rename: temp complete but unpublished; old snapshots intact.
@@ -316,18 +315,20 @@ def write_snapshot(journal_path: Path, state: dict) -> Path:
         f.write(_LEN.pack(len(payload)))
         half = len(payload) // 2
         f.write(payload[:half])
-        # the chaos plane's "mid-snapshot-write" kill site goes here
-        # (ROADMAP Queue 1 item 10)
+        if chaos.ACTIVE:
+            chaos.fire("server.compact", event="mid-snapshot-write")
         f.write(payload[half:])
         f.write(_LEN.pack(zlib.crc32(payload)))
         f.flush()
         os.fsync(f.fileno())
-    # the "pre-rename" kill site (ROADMAP Queue 1 item 10)
+    if chaos.ACTIVE:
+        chaos.fire("server.compact", event="pre-rename")
     if snap.exists():
         os.replace(snap, prev)
     os.replace(tmp, snap)
     fsync_dir(snap.parent)
-    # the "post-rename" kill site (ROADMAP Queue 1 item 10)
+    if chaos.ACTIVE:
+        chaos.fire("server.compact", event="post-rename")
     return snap
 
 

@@ -467,7 +467,7 @@ class GreedyCutScanModel:
     def prepare(self, free, nt_free, lifetime, needs, sizes, min_time,
                 total=None, all_mask=None, gang_nodes=None, gang_ok=None,
                 group_onehot=None, affinity=None, priorities=None,
-                weights=None) -> dict:
+                weights=None, fresh=False) -> dict:
         """Pad one solve's inputs into the persistent bucket buffers and
         compute the visit classes: returns the kernel's padded host inputs
         (free_p, nt_p, life_p, needs_p, sizes_p, mt_p, total_p, amask_p,
@@ -481,7 +481,8 @@ class GreedyCutScanModel:
         is dropped; otherwise it keys the visit classes, and where some
         weight is <= 0 its positive entries become the policy mask.
         `priorities` and `weights` are taken as solve takes them, and
-        ignored."""
+        ignored. `fresh` pads into new buffers that no later call reuses
+        (solve_query)."""
         _t0 = time.perf_counter()
         n_w, n_r = free.shape
         n_b, n_v, _ = needs.shape
@@ -508,7 +509,8 @@ class GreedyCutScanModel:
                 affinity = None
         has_pmask = affinity is not None and bool(np.any(affinity <= 0))
 
-        buf = self._get_buffers(pw, pb, pr, pv, has_all)
+        buf = (self._new_buffers(pw, pb, pr, pv, has_all) if fresh
+               else self._get_buffers(pw, pb, pr, pv, has_all))
         free_p = buf["free"]
         nt_p = buf["nt"]
         life_p = buf["life"]
@@ -685,11 +687,14 @@ class GreedyCutScanModel:
             policy_mask=place("policy_mask", prep["pmask_p"]),
         )
 
-    def _kernel_dispatch(self, free_d, nt_d, life_d, total_d, inputs):
+    def _kernel_dispatch(self, free_d, nt_d, life_d, total_d, inputs,
+                         site="tick"):
         """Launch the solve's kernel on device tensors (free_d/nt_d updated
         in place) and return its padded counts; the resident and the fresh
-        solve both come here, and a subclass swaps the kernel here."""
-        return greedy_cut_scan(free_d, nt_d, life_d, total=total_d, **inputs)
+        solve both come here, and a subclass swaps the kernel here. `site`
+        names the launch site in K1's counts."""
+        return greedy_cut_scan(free_d, nt_d, life_d, total=total_d,
+                               site=site, **inputs)
 
     def _device_solve(self, prep) -> _DeviceCounts:
         _t0 = time.perf_counter()
@@ -768,7 +773,7 @@ class GreedyCutScanModel:
                 "fresh full-upload solve of the same padded inputs"
             )
 
-    def _fresh_device_counts(self, prep) -> np.ndarray:
+    def _fresh_device_counts(self, prep, site="tick") -> np.ndarray:
         """Full-upload reference solve: no residency, no placement cache.
         The kernel updates free/nt_free (and reads total) in place, so it
         gets COPIES of the padded buffers, never the buffers or the
@@ -783,14 +788,69 @@ class GreedyCutScanModel:
         counts = self._kernel_dispatch(
             put("free", prep["free_p"]), put("nt", prep["nt_p"]),
             put("life", prep["life_p"]), put("total", prep["total_p"]),
-            self._kernel_inputs(prep, put),
+            self._kernel_inputs(prep, put), site=site,
         )
         return counts.cpu().numpy()
+
+    # -- a solve that is no tick's (the autoalloc demand query) ----------
+    def solve_query(self, free, nt_free, lifetime, needs, sizes, min_time,
+                    priorities=None, total=None, all_mask=None, weights=None,
+                    gang_nodes=None, gang_ok=None, group_onehot=None,
+                    affinity=None) -> np.ndarray:
+        """Solve once outside the tick's state; returns the unpadded
+        counts (B, V, W) int32, equal to what `solve` gives on the same
+        inputs.
+
+        The autoalloc demand query (autoalloc/query.py) solves the real
+        workers plus fake rows for the workers a queue could start. Its W
+        differs from the tick's, and the kernel updates free/nt_free in
+        place, so `solve` would replace the tick's resident state (and its
+        mirror) with the query's. This path pads into buffers of its own,
+        not the bucket buffers a pending tick solve is still read from;
+        solves on the host where the ticks are sticky to it and otherwise
+        launches the same kernel (K1's `alloc_query` site) on uploads of
+        its own, on the calling thread's current stream, so after any tick
+        solve dispatched there before it; and leaves the resident tensors,
+        the mirror, the pinned sets, the cost model and the `last_*`
+        telemetry as they were."""
+        prep = self.prepare(
+            free, nt_free, lifetime, needs, sizes, min_time, total, all_mask,
+            gang_nodes=gang_nodes, gang_ok=gang_ok,
+            group_onehot=group_onehot, affinity=affinity, fresh=True,
+        )
+        n_b, n_v, n_w = prep["extents"]
+        if self._sticky_host() is True:
+            last_backend = self.last_backend
+            try:
+                counts = self._host_counts(prep)
+            finally:
+                self.last_backend = last_backend
+        else:
+            counts = self._fresh_device_counts(prep, site="alloc_query")
+        return np.ascontiguousarray(counts[:n_b, :n_v, :n_w])
 
     # -- padded-buffer management -----------------------------------------
     def _worker_bucket(self, n_w: int) -> int:
         """Padded W of a solve over n_w workers."""
         return _bucket(n_w, _WORKER_FLOOR)
+
+    @staticmethod
+    def _new_buffers(pw: int, pb: int, pr: int, pv: int,
+                     has_all: bool) -> dict:
+        """Zeroed padded host buffers of one bucket shape."""
+        buf = {
+            "free": np.zeros((pw, pr), dtype=np.int32),
+            "nt": np.zeros(pw, dtype=np.int32),
+            "life": np.zeros(pw, dtype=np.int32),
+            "needs": np.zeros((pb, pv, pr), dtype=np.int32),
+            "sizes": np.zeros(pb, dtype=np.int32),
+            "mt": np.zeros((pb, pv), dtype=np.int32),
+            "extents": (0, 0, 0, 0),
+        }
+        if has_all:
+            buf["total"] = np.zeros((pw, pr), dtype=np.int32)
+            buf["amask"] = np.zeros((pb, pv, pr), dtype=np.int32)
+        return buf
 
     def _get_buffers(self, pw: int, pb: int, pr: int, pv: int,
                      has_all: bool) -> dict:
@@ -805,18 +865,7 @@ class GreedyCutScanModel:
             self._buffers[key] = buf
         if buf is None:
             self.shape_allocations += 1
-            buf = {
-                "free": np.zeros((pw, pr), dtype=np.int32),
-                "nt": np.zeros(pw, dtype=np.int32),
-                "life": np.zeros(pw, dtype=np.int32),
-                "needs": np.zeros((pb, pv, pr), dtype=np.int32),
-                "sizes": np.zeros(pb, dtype=np.int32),
-                "mt": np.zeros((pb, pv), dtype=np.int32),
-                "extents": (0, 0, 0, 0),
-            }
-            if has_all:
-                buf["total"] = np.zeros((pw, pr), dtype=np.int32)
-                buf["amask"] = np.zeros((pb, pv, pr), dtype=np.int32)
+            buf = self._new_buffers(pw, pb, pr, pv, has_all)
             self._buffers[key] = buf
             # bound the cache: bucket shapes are few (powers of two), but
             # a pathological workload must not grow this without limit

@@ -55,6 +55,11 @@ class MilpModel:
         # must finish well under the worker-heartbeat reaper limit (~32 s)
         self.time_limit_secs = time_limit_secs
 
+    def solve_query(self, **kwargs) -> np.ndarray:
+        """The autoalloc demand query's solve: the MILP keeps no state
+        from one solve to the next, so it is `solve`."""
+        return self.solve(**kwargs)
+
     def solve(
         self,
         free: np.ndarray,       # (W, R) int32

@@ -94,10 +94,11 @@ class MultichipModel(GreedyCutScanModel):
             return "device", "multichip-mesh"
         return super()._backend_decision(shape_key)
 
-    def _kernel_dispatch(self, free_d, nt_d, life_d, total_d, inputs):
+    def _kernel_dispatch(self, free_d, nt_d, life_d, total_d, inputs,
+                         site="tick"):
         mesh = self._get_mesh()
         if not mesh:
             return super()._kernel_dispatch(free_d, nt_d, life_d, total_d,
-                                            inputs)
+                                            inputs, site=site)
         return sharded_cut_scan(mesh, free_d, nt_d, life_d, total=total_d,
                                 **inputs)

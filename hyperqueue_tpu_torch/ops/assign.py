@@ -637,6 +637,7 @@ def greedy_cut_scan(
     free, nt_free, lifetime, needs, sizes, min_time, class_m, order_ids,
     total=None, all_mask=None,
     gang_nodes=None, gang_ok=None, group_onehot=None, policy_mask=None,
+    site="tick",
 ):
     """The cut-scan; returns counts (B, V, W) int32 and updates `free` and
     `nt_free` IN PLACE to the state after the solve (the counterpart of the
@@ -654,7 +655,9 @@ def greedy_cut_scan(
     else in device memory), and counts the launch in
     `greedy_cut_scan.launches` and in `.resident_launches` or
     `.global_launches` (and, when gang rows or a policy mask ride it, in
-    `.gang_launches` too); a refused launch raises. On CPU tensors it runs
+    `.gang_launches` too), and under `site` in `.site_launches` (`tick`,
+    or `alloc_query` for the autoalloc demand query, autoalloc/query.py);
+    a refused launch raises. On CPU tensors it runs
     `greedy_cut_scan_reference`. The launch does not synchronize, except to
     validate a group one-hot (see _group_ids).
     """
@@ -717,6 +720,7 @@ def greedy_cut_scan(
         greedy_cut_scan.global_launches += 1
     if gang_nodes is not None or policy_mask is not None:
         greedy_cut_scan.gang_launches += 1
+    greedy_cut_scan.site_launches[site] += 1
     return counts
 
 
@@ -724,6 +728,9 @@ greedy_cut_scan.launches = 0
 greedy_cut_scan.resident_launches = 0
 greedy_cut_scan.global_launches = 0
 greedy_cut_scan.gang_launches = 0
+# the launch sites of the server's solves
+LAUNCH_SITES = ("tick", "alloc_query")
+greedy_cut_scan.site_launches = dict.fromkeys(LAUNCH_SITES, 0)
 
 
 def reset_launch_counts() -> None:
@@ -731,6 +738,7 @@ def reset_launch_counts() -> None:
     for name in ("launches", "resident_launches", "global_launches",
                  "gang_launches"):
         setattr(greedy_cut_scan, name, 0)
+    greedy_cut_scan.site_launches = dict.fromkeys(LAUNCH_SITES, 0)
 
 
 def _ents(n_r, ring_steps, n_blocks, device):

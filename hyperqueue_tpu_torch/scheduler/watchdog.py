@@ -37,6 +37,8 @@ import time
 
 import numpy as np
 
+from hyperqueue_tpu_torch.utils import chaos
+
 logger = logging.getLogger("hq.watchdog")
 
 DEFAULT_TIMEOUT_S = 5.0
@@ -216,6 +218,12 @@ class SolverWatchdog:
     def solve(self, **kwargs) -> np.ndarray:
         self.last_solve_degraded = False
         self.last_solve_skipped = False
+        return self._guarded(self.model.solve, kwargs)
+
+    def _guarded(self, solve, kwargs) -> np.ndarray:
+        """`solve(**kwargs)` on the primary under the deadline; a failure
+        or timeout benches the primary (or raises, without a fallback) and
+        the fallback solves."""
         # not armed (benched, or a stranded solve still runs) falls through
         # to _run_fallback below
         if self.armed:
@@ -226,7 +234,7 @@ class SolverWatchdog:
                     "re-arming the primary solver (stranded solve drained)"
                 )
             try:
-                result = self._run_primary(kwargs)
+                result = self._run_deadlined(self._poisonable(solve, kwargs))
                 self._last_ran = self.model
                 return result
             except SolveTimeout as e:
@@ -272,8 +280,17 @@ class SolverWatchdog:
             exc_info=not isinstance(error, SolveTimeout),
         )
 
-    def _run_primary(self, kwargs):
-        return self._run_deadlined(lambda: self.model.solve(**kwargs))
+    @staticmethod
+    def _poisonable(solve, kwargs):
+        """`solve(**kwargs)` behind the chaos site `solve`: the poisoned-
+        solve injection runs INSIDE the guarded call so a "hang" exercises
+        the deadline machinery, not the loop."""
+        def call():
+            if chaos.ACTIVE:
+                chaos.fire("solve")
+            return solve(**kwargs)
+
+        return call
 
     def _run_deadlined(self, call):
         """Run `call` on the watchdog thread under the solve deadline."""
@@ -311,8 +328,7 @@ class SolverWatchdog:
 
             try:
                 inner = self._run_deadlined(
-                    lambda: self.model.solve_async(**kwargs)
-                )
+                    self._poisonable(self.model.solve_async, kwargs))
                 self._last_ran = self.model
                 return _WatchdogHandle(self, inner, kwargs)
             except SolveTimeout as e:
@@ -325,6 +341,25 @@ class SolverWatchdog:
         # not armed / no async support / dispatch failed: solve NOW on
         # whatever solve() would have used and box the counts
         return _ReadyHandle(self.solve(**kwargs))
+
+    # --- the autoalloc demand query (autoalloc/query.py) -----------------
+    def solve_query(self, **kwargs) -> np.ndarray:
+        """The demand query's solve, guarded as `solve` guards a tick's:
+        the chaos site `solve` counts it, a failure or timeout benches the
+        primary (or raises, without a fallback), and a benched watchdog
+        answers from the fallback. It runs the model's `solve_query`,
+        which leaves the tick's resident state alone, and keeps the
+        tick's per-solve verdict (`last_solve_degraded`,
+        `last_solve_skipped`, the model that ran last) as it was, so a
+        query between a pipelined tick's dispatch and its take changes
+        nothing the tick reads."""
+        verdict = (self.last_solve_degraded, self.last_solve_skipped,
+                   self._last_ran)
+        try:
+            return self._guarded(self.model.solve_query, kwargs)
+        finally:
+            (self.last_solve_degraded, self.last_solve_skipped,
+             self._last_ran) = verdict
 
     def _run_fallback(self, kwargs) -> np.ndarray:
         if self.fallback is None:

@@ -8,11 +8,13 @@ client RPC of a single server, the metrics endpoint, the SLO engine and
 the sampling profiler. The journal's open and close are `_open_journal`
 and `_close_journal`, which `start()` and `shutdown()` call.
 
-What belongs to autoalloc, federation, leases, ownership and the chaos
-plane waits for ROADMAP Queue 1 item 10: those RPCs answer an error
-naming it, and a constructor keyword (or an `HQ_FAULT_PLAN` at start)
-that needs it refuses. The in-memory transport of the simulator waits
-for item 11.
+The allocation service (`autoalloc/`) runs beside the loops, and the
+chaos plane's server sites fire under `HQ_FAULT_PLAN`. What belongs to
+federation, leases, ownership, worker lending and live migration waits
+for ROADMAP Queue 1 item 10b: those RPCs answer an error naming it, and
+a constructor keyword (or a fault plan naming a federation site) that
+needs it refuses. The in-memory transport of the simulator waits for
+item 11.
 
 Reference: crates/hyperqueue/src/server/bootstrap.rs (init_hq_server),
 crates/tako/src/internal/server/rpc.rs (connection handling) and
@@ -59,7 +61,7 @@ from hyperqueue_tpu_torch.scheduler.watchdog import SolverWatchdog
 from hyperqueue_tpu_torch.server.task import Task, TaskState
 from hyperqueue_tpu_torch.server.worker import Worker, WorkerConfiguration
 from hyperqueue_tpu_torch.transport.aead import WIRE_BACKEND
-from hyperqueue_tpu_torch.utils import profiler
+from hyperqueue_tpu_torch.utils import chaos, profiler
 from hyperqueue_tpu_torch.utils.metrics import REGISTRY
 from hyperqueue_tpu_torch.utils.slo import SloEngine
 from hyperqueue_tpu_torch.utils.trace import TRACER
@@ -138,8 +140,8 @@ DRAIN_TIMEOUT_DEFAULT = 120.0
 
 # the items of ROADMAP Queue 1 that bring what this server refuses
 _ITEM_10 = (
-    "ROADMAP Queue 1 item 10 (autoalloc, federation, leases, ownership "
-    "and the chaos plane)"
+    "ROADMAP Queue 1 item 10b (federation, leases, ownership, worker "
+    "lending and live migration)"
 )
 _ITEM_11 = "ROADMAP Queue 1 item 11 (the deterministic simulator)"
 
@@ -806,7 +808,7 @@ class Server:
         # federation: this server owns shard `shard_id` of a
         # `shard_count`-way static job-id partition rooted at
         # `federation_root` (None = classic standalone server; the only
-        # kind the port runs until item 10, see the refusal above)
+        # kind the port runs until item 10b, see the refusal above)
         if not (0 <= shard_id < max(shard_count, 1)):
             raise ValueError(
                 f"shard id {shard_id} outside 0..{shard_count - 1}"
@@ -909,8 +911,7 @@ class Server:
         )
         self.scheduler_kind = scheduler
         self.access: serverdir.AccessRecord | None = None
-        # the allocation service comes with item 10; the worker plane and
-        # the debug dump read it as absent
+        # the allocation service (autoalloc/service.py), built in start()
         self.autoalloc = None
         self.journal = None
         self.journal_path = journal_path
@@ -944,12 +945,17 @@ class Server:
 
     # ------------------------------------------------------------------
     async def start(self) -> serverdir.AccessRecord:
-        if os.environ.get("HQ_FAULT_PLAN"):
-            # a fault plan names chaos rules this server cannot run (item 10);
-            # running without them would pass off a clean run as a chaos
-            # run, so refuse before anything of the process changes
+        federated = sorted(
+            site for site in chaos.plan_sites()
+            if site.startswith("federation.")
+        )
+        if federated:
+            # a rule at a federation site could never fire here; running
+            # without it would pass off a clean run as a chaos run, so
+            # refuse before anything of the process changes
             raise NotImplementedError(
-                f"HQ_FAULT_PLAN (the chaos plane) comes with {_ITEM_10}"
+                f"HQ_FAULT_PLAN names {', '.join(federated)}: the "
+                f"federation's chaos sites come with {_ITEM_10}"
             )
 
         # GC tuning: a tick allocates tens of thousands of short-lived
@@ -1068,6 +1074,13 @@ class Server:
         serverdir.store_access(instance_dir, self.access)
         self._journal_server_uid(self.access.server_uid)
 
+        from hyperqueue_tpu_torch.autoalloc.service import AutoAllocService
+
+        # restores the allocation table a journal restore left in
+        # `restored_autoalloc`, then runs its loop every
+        # HQ_AUTOALLOC_INTERVAL seconds
+        self.autoalloc = AutoAllocService(self, instance_dir / "autoalloc")
+        self.autoalloc.start()
         self._tasks.append(self._spawn_loop(self._scheduler_loop))
         self._tasks.append(self._spawn_loop(self._heartbeat_reaper))
         self._tasks.append(self._spawn_loop(self._drain_reaper))
@@ -1130,7 +1143,7 @@ class Server:
                 None, restore_from_journal, self
             )
             # the promoted successor's failover annotation on open traces
-            # comes with the federation plane (item 10)
+            # comes with the federation plane (item 10b)
         self.journal.open_for_append()
         if self.journal_plane == "thread":
             self.jplane = JournalPlane(
@@ -1191,9 +1204,14 @@ class Server:
         self._stop_event.set()
 
     async def shutdown(self) -> None:
-        # (the allocation service, the failover watcher and the lease
-        # of item 10 stop here in the JAX package; a standalone server
-        # holds none of them)
+        if getattr(self, "autoalloc", None) is not None:
+            self.autoalloc.stop()
+            # in-flight qdel/scancel calls finish before the process
+            # exits (a lost cancel = a leaked cluster job the journal
+            # already believes cancelled)
+            await self.autoalloc.drain_background()
+        # (the failover watcher and the lease of item 10b stop here in
+        # the JAX package; a standalone server holds neither)
         for wid in list(self._worker_conns):
             self.comm.send_stop(wid)
         await asyncio.sleep(0.05)
@@ -1241,12 +1259,12 @@ class Server:
 
     def _federation_block(self) -> dict | None:
         """The federation section of `hq server info`/`stats`: None on a
-        standalone server, the only kind the port runs (item 10)."""
+        standalone server, the only kind the port runs (item 10b)."""
         return None
 
     def _waits_for_item_10(self, msg: dict) -> dict:
-        """The answer of an RPC whose plane comes with item 10 (alloc
-        queues, worker lending, live migration)."""
+        """The answer of an RPC whose plane comes with item 10b (worker
+        lending, live migration)."""
         return {"op": "error",
                 "message": f"{msg.get('op')!r} comes with {_ITEM_10}"}
 
@@ -1730,9 +1748,20 @@ class Server:
                     self.journal.flush(sync=True)
                 elif not self.journal_flush_period:
                     self.journal.flush()
-        # the chaos plane's kill-at-event-K injection site (after the
-        # journal write + flush, behind a durability barrier) comes with
-        # ROADMAP Queue 1 item 10
+        if chaos.ACTIVE:
+            # kill-at-event-K injection sits AFTER the journal write+flush:
+            # a chaos test killing the server here proves exactly what the
+            # configured flush/fsync policy persisted. A pending group
+            # commit (or the journal plane's in-flight batch) gets a
+            # durability barrier first so the guarantee holds at the
+            # injection point too.
+            if self.jplane is not None:
+                self.jplane.barrier(sync=self.journal_fsync == "always")
+            elif self.journal is not None and self.journal.in_batch:
+                self.journal.flush(sync=self.journal_fsync == "always")
+            chaos.fire(
+                "server.event", event=kind, shard=self.shard_id, ctx=self
+            )
         if self.jplane is not None and (
             self._event_listeners or self._subscribers
         ):
@@ -2088,8 +2117,7 @@ class Server:
     async def compact_journal(self, reason: str = "manual") -> dict:
         """One snapshot + journal-GC cycle.
 
-        Phases (each kill -9-survivable; the chaos site `server.compact` that
-        tests it comes with item 10):
+        Phases (each kill -9-survivable, chaos site `server.compact`):
 
         1. **barrier** (sync on the reactor loop): commit + fsync any open
            group-commit batch so every acknowledged event is durable, then
@@ -2176,7 +2204,8 @@ class Server:
                     stop_at,
                     self.journal_salvage,
                 )
-                # the "pre-swap" kill site (ROADMAP Queue 1 item 10)
+                if chaos.ACTIVE:
+                    chaos.fire("server.compact", event="pre-swap")
                 t_swap = time.perf_counter()
                 # phase 4: synchronous swap — no awaits, so no event can
                 # be appended between close and reopen; the journal
@@ -2198,7 +2227,8 @@ class Server:
             except BaseException:
                 tmp.unlink(missing_ok=True)
                 raise
-            # the "post-swap" kill site (ROADMAP Queue 1 item 10)
+            if chaos.ACTIVE:
+                chaos.fire("server.compact", event="post-swap")
             t_end = time.perf_counter()
             stats = {
                 "reason": reason,
@@ -2592,8 +2622,8 @@ class Server:
         half of the pipelined assignment delivery. The encryption half
         runs on the fan-out sender pool (server/fanout.py) when enabled,
         so N workers' downlinks seal on N threads instead of serializing
-        on this loop. (The chaos plane's per-message send actions come
-        with item 10.)"""
+        on this loop. Chaos actions apply per LOGICAL message so fault
+        plans behave identically under batching."""
         loop = asyncio.get_running_loop()
         pool = self.sendpool
         while True:
@@ -2604,6 +2634,20 @@ class Server:
                     batch.append(queue.get_nowait()[1])
                 except asyncio.QueueEmpty:
                     break
+            if chaos.ACTIVE:
+                injected = []
+                for m in batch:
+                    action = await chaos.on_message(
+                        "server.send", op=m.get("op")
+                    )
+                    if action == "drop":
+                        continue
+                    injected.append(m)
+                    if action == "dup":
+                        injected.append(m)
+                batch = injected
+                if not batch:
+                    continue
             t0 = time.perf_counter()
             payload = (
                 batch[0] if len(batch) == 1
@@ -2625,6 +2669,20 @@ class Server:
             msg = await conn.recv()
             worker.last_heartbeat = clock.monotonic()
             subs = msg["msgs"] if msg.get("op") == "batch" else [msg]
+            if chaos.ACTIVE:
+                # conservative path: chaos actions await between messages,
+                # so the group-commit block (which must stay synchronous)
+                # is skipped and every event keeps its per-event flush
+                for sub in subs:
+                    action = await chaos.on_message(
+                        "server.recv", op=sub.get("op")
+                    )
+                    if action == "drop":
+                        continue
+                    if action == "dup":
+                        self._process_worker_message(worker, sub)
+                    self._process_worker_message(worker, sub)
+                continue
             # batched completion plane: the whole frame is processed
             # synchronously (no awaits). With the journal plane on, the
             # events it produced are enqueued to the commit thread and
@@ -3667,26 +3725,104 @@ class Server:
                 self.check_job_completion(job_id)
         return {"op": "close_job", "closed": closed}
 
+    # --- autoalloc ops ---------------------------------------------------
     async def _client_alloc_add(self, msg: dict) -> dict:
-        return self._waits_for_item_10(msg)
+        from hyperqueue_tpu_torch.autoalloc.state import QueueParams
+
+        params = QueueParams.from_wire(msg["params"])
+        if params.manager not in ("pbs", "slurm", "local"):
+            return {"op": "error",
+                    "message": f"unknown manager {params.manager!r}"}
+        # the local handler has no external manager to probe — a probe
+        # would spawn (and instantly kill) a real worker for nothing
+        if not msg.get("no_dry_run") and params.manager != "local":
+            error = await self.autoalloc.probe_submit(params)
+            if error is not None:
+                return {"op": "error",
+                        "message": f"allocation dry-run failed: {error} "
+                                   "(use --no-dry-run to skip this check)"}
+        queue = self.autoalloc.state.add_queue(params)
+        self.emit_event(
+            "alloc-queue-created",
+            {"queue_id": queue.queue_id, "manager": params.manager,
+             # full params ride the journal: restore rebuilds the queue
+             # exactly (allocation-exact restore)
+             "params": params.to_wire()},
+        )
+        return {"op": "alloc_add", "queue_id": queue.queue_id}
 
     async def _client_alloc_list(self, msg: dict) -> dict:
-        return self._waits_for_item_10(msg)
+        return {
+            "op": "alloc_list",
+            "queues": [q.to_wire() for q in self.autoalloc.state.queues.values()],
+        }
 
     async def _client_alloc_remove(self, msg: dict) -> dict:
-        return self._waits_for_item_10(msg)
+        queue = self.autoalloc.state.queues.get(msg["queue_id"])
+        if queue is None:
+            return {"op": "error", "message": "allocation queue not found"}
+        cancels = [
+            # journals the cancellation + cancels the manager job
+            self.autoalloc.cancel_allocation(
+                queue, alloc, reason="queue-removed"
+            )
+            for alloc in queue.active_allocations()
+        ]
+        self.autoalloc.state.queues.pop(msg["queue_id"], None)
+        self.autoalloc.forget_queue(msg["queue_id"])
+        self.emit_event("alloc-queue-removed", {"queue_id": msg["queue_id"]})
+        if cancels:
+            # the reply must not outrun the manager cancels: a script
+            # doing `alloc remove && server stop` would otherwise exit
+            # with live batch jobs the journal believes cancelled
+            await asyncio.gather(*cancels, return_exceptions=True)
+        return {"op": "ok"}
 
     async def _client_alloc_pause(self, msg: dict) -> dict:
-        return self._waits_for_item_10(msg)
+        queue = self.autoalloc.state.queues.get(msg["queue_id"])
+        if queue is None:
+            return {"op": "error", "message": "allocation queue not found"}
+        queue.state = "paused" if msg.get("pause", True) else "running"
+        if queue.state == "running":
+            queue.consecutive_failures = 0
+            queue.next_submit_at = 0.0
+            # operator resume also lifts a quarantine and forgets its
+            # backoff history
+            queue.clear_quarantine()
+        # journaled so a restore keeps the operator's pause/resume
+        self.emit_event(
+            "alloc-queue-paused" if queue.state == "paused"
+            else "alloc-queue-resumed",
+            {"queue_id": msg["queue_id"], "from": "operator"},
+        )
+        return {"op": "ok", "state": queue.state}
 
     async def _client_alloc_events(self, msg: dict) -> dict:
-        return self._waits_for_item_10(msg)
+        """Scale decision records: why the controller did / did not act
+        (`hq alloc events`)."""
+        return {
+            "op": "alloc_events",
+            "decisions": self.autoalloc.controller.to_wire(),
+        }
 
     async def _client_alloc_log(self, msg: dict) -> dict:
-        return self._waits_for_item_10(msg)
+        """Locate an allocation so the client can read its manager-captured
+        stdout/stderr (reference commands/autoalloc.rs print_allocation_output
+        via AutoAllocRequest::GetAllocationInfo)."""
+        _queue, alloc = self.autoalloc.state.find_allocation(msg["allocation_id"])
+        if alloc is None:
+            return {
+                "op": "error",
+                "message": f"allocation {msg['allocation_id']} not found",
+            }
+        return {"op": "alloc_log", "allocation": alloc.to_wire()}
 
     async def _client_alloc_dry_run(self, msg: dict) -> dict:
-        return self._waits_for_item_10(msg)
+        from hyperqueue_tpu_torch.autoalloc.state import QueueParams
+
+        params = QueueParams.from_wire(msg["params"])
+        result = await self.autoalloc.dry_run(params)
+        return {"op": "alloc_dry_run", **result}
 
     async def _client_task_explain(self, msg: dict) -> dict:
         """Why is this task (not) running? Reference server/explain.rs:11-98 —

@@ -407,13 +407,24 @@ class SamplingProfiler:
     def folded(self) -> str:
         return render_folded(self.folded_counts())
 
+    def _samples(self) -> tuple:
+        """The ring as it stands. The sampler thread appends to it, and a
+        deque that another thread appends to while a Python loop iterates
+        it raises RuntimeError ("deque mutated during iteration"); the
+        copy runs in C, under the interpreter lock, so no append can come
+        between. (The JAX package iterates the ring itself: a stall
+        capture could raise there, and on the server a capture that raised
+        in `note_plane` ended the client drain loop with the reply of the
+        long request it timed.)"""
+        return tuple(self.ring)
+
     def stall_burst(self, window_s: float, limit: int = 40) -> list[dict]:
         """Aggregated stacks sampled in the trailing ``window_s`` — the
         profile-on-stall attachment: what every plane was executing while
         the budget was being blown."""
         cutoff = time.time() - max(window_s, 0.0)
         agg: dict[tuple[str, str, bool], int] = {}
-        for t, plane, stack, active in reversed(self.ring):
+        for t, plane, stack, active in reversed(self._samples()):
             if t < cutoff:
                 break
             key = (plane, stack, active)
@@ -429,7 +440,7 @@ class SamplingProfiler:
         """Per-plane (wall_time, cores) series bucketed from the sample
         ring — the Perfetto counter track for `hq server trace export`."""
         per_bucket: dict[str, dict[float, int]] = {}
-        for t, plane, _stack, active in self.ring:
+        for t, plane, _stack, active in self._samples():
             if not active:
                 continue
             bucket = round(t - (t % bucket_s), 3)

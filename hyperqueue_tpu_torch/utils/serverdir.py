@@ -256,8 +256,8 @@ def shard_for_job(job_id: int, shard_count: int) -> int:
 # record) comes with the federation plane; a plain server directory has no
 # descriptor, which is all `load_federation` needs to tell it from a root
 ITEM_10 = (
-    "ROADMAP Queue 1 item 10 (autoalloc, federation, leases, ownership "
-    "and the chaos plane)"
+    "ROADMAP Queue 1 item 10b (federation, leases, ownership, worker "
+    "lending and live migration)"
 )
 
 

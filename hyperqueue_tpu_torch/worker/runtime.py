@@ -292,13 +292,19 @@ class WorkerRuntime:
                     batch.append(self._sendq.get_nowait())
                 except asyncio.QueueEmpty:
                     break
-            if flush_delay > 0 and len(batch) == 1:
+            if (flush_delay > 0 and len(batch) == 1
+                    and msg.get("op") != "task_running"):
                 # a lone message with no companions queued: wait the
                 # bounded coalescing window so completions landing within
                 # it ride the same frame (one encryption + one syscall +
                 # one server recv wakeup for the burst) — the uplink half
                 # of the batched completion plane. A burst already in the
-                # queue skips the nap: the batch has formed by itself.
+                # queue skips the nap: the batch has formed by itself. A
+                # lone task_running leaves at once: the server stamps a
+                # task's start when the message arrives, so a nap would
+                # move the start later by up to the window and shorten the
+                # run phase of the timeline by as much (the JAX worker
+                # naps here too).
                 try:
                     await asyncio.sleep(flush_delay)
                 except asyncio.CancelledError:

@@ -75,7 +75,10 @@ def test_port_files_exist():
                    "client/dashboard_data.py", "client/dashboard.py",
                    "client/report.py", "client/top.py", "__main__.py",
                    "api/__init__.py", "api/client.py",
-                   "api/function_runner.py", "api/visualization.py"):
+                   "api/function_runner.py", "api/visualization.py",
+                   "autoalloc/__init__.py", "autoalloc/state.py",
+                   "autoalloc/controller.py", "autoalloc/handlers.py",
+                   "autoalloc/query.py", "autoalloc/service.py"):
         assert f"hyperqueue_tpu_torch/{module}" in names, module
     for source in ("csrc/cut_scan.cu", "csrc/cut_scan_step.cuh",
                    "csrc/sharded_scan.cu", "csrc/sync_probe.cu",

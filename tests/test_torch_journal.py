@@ -876,9 +876,9 @@ def test_server_restore_through_open_journal(tmp_path):
     assert kinds == ["server-uid", "job-submitted", "server-uid"]
 
 
-def test_unported_server_keywords_refuse(monkeypatch):
+def test_unported_server_keywords_refuse(monkeypatch, tmp_path):
     """The keywords whose plane is not ported refuse, naming the ROADMAP
-    item that brings it: federation, leases and the chaos plane item 10,
+    item that brings it: federation, leases and their chaos sites item 10b,
     the simulator's in-memory transport item 11. `metrics_port=` and the
     planes of a standalone server are accepted."""
     for kwargs in ({"shard_count": 2}, {"federation_root": "/nonexistent"},
@@ -891,12 +891,37 @@ def test_unported_server_keywords_refuse(monkeypatch):
                           client_plane="reactor", metrics_port=0)
     assert (server.fanout_senders, server.client_plane) == (4, "reactor")
     assert server.requested_metrics_port == 0
-    # a chaos plan in the environment refuses at start(), before the
+    # a chaos plan naming a federation site refuses at start(), before the
     # process's GC settings or any listener change
-    monkeypatch.setenv("HQ_FAULT_PLAN", "server.recv:drop")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    from hyperqueue_tpu_torch.utils import chaos
+
+    monkeypatch.setattr(chaos, "_PLAN", chaos.FaultPlan({"rules": [
+        {"site": "federation.migration", "op": "claim", "action": "kill"},
+        {"site": "server.recv", "action": "drop"}]}))
+    monkeypatch.setattr(chaos, "ACTIVE", True)
+    with pytest.raises(NotImplementedError,
+                       match="federation.migration.*item 10"):
         asyncio.run(server.start())
     assert server._servers == [] and server.access is None
+    # a plan of server sites runs: its rule at the journal's first event
+    # (after the write and flush) fires inside start()
+    monkeypatch.setattr(chaos, "_PLAN", chaos.FaultPlan({"rules": [
+        {"site": "server.event", "event": "server-uid", "action": "raise"}]}))
+    chaotic = _port_server(server_dir=tmp_path / "sd", host="127.0.0.1",
+                           client_port=0, worker_port=0,
+                           journal_path=tmp_path / "j.bin")
+
+    async def start_and_stop():
+        try:
+            await chaotic.start()
+        finally:
+            await chaotic.shutdown()
+
+    with pytest.raises(chaos.ChaosInjectedError):
+        asyncio.run(start_and_stop())
+    kinds = [r["event"] for r in port_journal.Journal.read_all(
+        tmp_path / "j.bin")]
+    assert kinds == ["server-uid"]
 
 
 # --------------------------------------------------------------------------

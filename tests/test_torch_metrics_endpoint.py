@@ -397,7 +397,9 @@ asyncio.run(go())
 
 def test_started_port_server_families_are_the_jax_servers():
     """`hq_solve_mask_rows` included: the port registers it where the JAX
-    package does (resources/map.py)."""
+    package does (resources/map.py); and the `hq_autoalloc_*` families,
+    which the allocation service registers. Only the federation's
+    `hq_federation_*` wait for item 10b."""
     families = {}
     for pkg in ("jax", "port"):
         out = subprocess.run(
@@ -407,12 +409,10 @@ def test_started_port_server_families_are_the_jax_servers():
         assert out.returncode == 0, out.stderr
         families[pkg] = set(json.loads(out.stdout.splitlines()[-1]))
     def planes(names):
-        # the worker-drain families live under hq_autoalloc_ in both
-        # packages and are the port's already
-        return {n for n in names
-                if n.startswith(("hq_autoalloc_", "hq_federation_"))}
+        return {n for n in names if n.startswith("hq_federation_")}
 
     assert "hq_solve_mask_rows" in families["port"]
+    assert "hq_autoalloc_scale_up_seconds" in families["port"]
     assert families["port"] - planes(families["port"]) == \
         families["jax"] - planes(families["jax"])
     assert planes(families["port"]) <= planes(families["jax"])

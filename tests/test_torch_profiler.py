@@ -247,6 +247,43 @@ def test_stall_burst_and_counter_track_views(pkg):
         assert all(cores > 0 for _t, cores in series)
 
 
+def test_ring_views_while_the_sampler_appends():
+    """The port's stall_burst and counter_track read the sample ring on
+    the reactor's thread while the sampler thread appends to it, and
+    never raise. (The JAX package's iterate the deque itself and raise
+    "deque mutated during iteration" under the same load; on a server the
+    stall capture of a long client request raised in `note_plane` and
+    lost that request's reply.)"""
+    import sys
+
+    prof = port_profiler.SamplingProfiler(hz=50.0, ring_capacity=4096)
+    for _ in range(4096):
+        prof.ring.append((time.time(), "plane", "a;b", True))
+    stop = threading.Event()
+
+    def feed():
+        while not stop.is_set():
+            prof.ring.append((time.time(), "plane", "a;b", True))
+
+    feeder = threading.Thread(target=feed, daemon=True)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    views = 0
+    try:
+        feeder.start()
+        deadline = time.monotonic() + 1.0
+        while time.monotonic() < deadline:
+            assert prof.stall_burst(window_s=60.0)
+            assert prof.counter_track(bucket_s=0.5)
+            views += 1
+    finally:
+        sys.setswitchinterval(interval)
+        stop.set()
+        feeder.join(5.0)
+    assert not feeder.is_alive()
+    assert views > 10
+
+
 def test_profiler_start_stop_reset_lifecycle(pkg):
     P, C = pkg.profiler, pkg.clock
     prof = P.SamplingProfiler(hz=97.0)

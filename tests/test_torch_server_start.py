@@ -13,7 +13,9 @@ same scripted workers and client, speaking the wire through a package's
 - a second worker takes part of a third array and drops its connection:
   its tasks requeue onto the first;
 - a silent worker is dropped by the heartbeat reaper (the clock moves);
-- the RPCs of item 10 answer an error naming it (the port only);
+- an allocation queue is listed, added, listed, removed and listed (the
+  same answers from both);
+- the RPCs of item 10b answer an error naming it (the port only);
 - `stop_server` stops the server and every thread it started.
 
 The `registered` frames (minus the uid), every compute entry, the RPC
@@ -325,9 +327,18 @@ def _explain(answer: dict) -> dict:
             if not k.startswith("solver_backend") and k != "decision_tick"}
 
 
-ITEM_10_RPCS = (
+# the allocation queue's life over the client plane: no submit runs in it
+# (the queue is gone before the allocation service's next pass)
+ALLOC_RPCS = (
     {"op": "alloc_list"},
-    {"op": "alloc_add", "manager": "slurm"},
+    {"op": "alloc_add", "params": {"manager": "slurm", "backlog": 1},
+     "no_dry_run": True},
+    {"op": "alloc_list"},
+    {"op": "alloc_remove", "queue_id": 1},
+    {"op": "alloc_list"},
+)
+
+ITEM_10_RPCS = (
     {"op": "worker_lend", "worker_id": 1, "to_shard": 1},
     {"op": "migration_export", "mig": "m1", "job": 1, "to": 1},
 )
@@ -442,6 +453,7 @@ async def run_scenario(pkg, peer, tmp_path: Path, clock: ManualClock,
         stats = await client.request({"op": "server_stats"})
         out["stats_keys"] = sorted(stats)
         out["stats"] = stats
+        out["alloc"] = [await client.request(m) for m in ALLOC_RPCS]
         if pkg.name == "port":
             # (the JAX server would run them: a migration export journals)
             out["item_10"] = [await client.request(m) for m in ITEM_10_RPCS]
@@ -492,7 +504,7 @@ EQUAL_ANSWERS = (
     "explain_big", "cancel", "submit_requeue", "entries_b",
     "entries_a_requeue", "job_wait_requeue", "worker_list",
     "worker_list_all", "worker_info", "worker_info_gone", "stats_keys",
-    "info_keys", "stop", "a_others",
+    "info_keys", "alloc", "stop", "a_others",
 )
 
 
@@ -531,7 +543,11 @@ def test_server_start_matches_jax(tmp_path, client_plane, fanout_senders):
     # the port's server sealed its wire with the backend it names
     assert port_out["stats"]["fanout"]["senders"] == fanout_senders
     assert port_out["stats"]["ingest"]["plane"] == client_plane
-    # the RPCs of item 10 answer an error naming it
+    # the allocation queue came and went on both
+    assert [r["op"] for r in port_out["alloc"]] == [
+        "alloc_list", "alloc_add", "alloc_list", "ok", "alloc_list"]
+    assert port_out["alloc"][2]["queues"][0]["params"]["manager"] == "slurm"
+    # the RPCs of item 10b answer an error naming it
     for resp in port_out["item_10"]:
         assert resp["op"] == "error" and "item 10" in resp["message"]
 
