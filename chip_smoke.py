@@ -21,8 +21,9 @@ and the card (`--resource gpus`), then the north star through the port's
 own command line (`python -m hyperqueue_tpu_torch` for the server, a real
 worker and every client step, beside 1,023 simulated workers), then the
 allocation service, then the port's deterministic simulator (the whole
-server on a virtual clock, with kill -9 and restore, 100,000 tasks on
-1,000 simulated workers), and prints timings. Every process of the port here must run the native codec
+server on a virtual clock, with kill -9 and restore, 15,000 tasks on
+1,000 simulated workers), then two federation shards and a standby, and
+prints timings. Every process of the port here must run the native codec
 (`transport/codec.BACKEND`).
 
 Phases:
@@ -166,13 +167,13 @@ Phases:
  14. the reactor_fused path: the fused north star (8 jobs, 8 groups of 128
      workers) as lazy chunks, the 16 gang tasks of gang_tasks submitted as
      Tasks through on_new_tasks, core.fused_solve and the fused path's
-     policy, 7 ticks on GreedyCutScanModel(backend="device") with prefill;
+     policy, 6 ticks on GreedyCutScanModel(backend="device") with prefill;
      the checks of phase 13 (Core.sanity_check aside), K1g held against
      its plain version, every gang all-or-nothing on idle members of one
      group, no excluded (class, group) pair in the solve's placements, and
      one job paused before tick 4 (its chunks held, a queue-paused entry
-     with the held count on each paused tick, none of its tasks placed)
-     and resumed before tick 6 (everything held back in the queues);
+     with the held count on the paused tick, none of its tasks placed)
+     and resumed before tick 5 (everything held back in the queues);
  15. the journal path: a journaled server (server/bootstrap.Server, the
      default scheduler: SolverWatchdog(GreedyCutScanModel()), K1 on the
      card; journal_plane="thread", reattach_timeout=30) on a virtual clock
@@ -281,21 +282,22 @@ Phases:
      serve_worker_proc, each task held for 15-30 min, CLI_SERVICE_S) and
      one real `hq worker start` with the machine's CPUs and one resource
      no simulated row has (CLI_PIN), then `hq
-     worker wait 1024` (timed). `hq submit --array 1-250000 --cpus 1 --
+     worker wait 1024` (timed). `hq submit --array 1-100000 --cpus 1 --
      true` (CLI_TASKS) streams one array (its time to the
      "submitted" line and its chunks are logged); then small jobs pinned
-     to the real worker by CLI_PIN: an --each-line array of 1,000 lines
+     to the real worker by CLI_PIN: an --each-line array of 250 lines
      echoing $HQ_ENTRY, a `job submit-file` TOML graph with dependencies
      and one task that fails; `hq job wait` on them and `hq job cat` of
-     the --each-line job's stdout, which must hold its 1,000 lines. In a
-     window of 20 s each read command (`job list`, `job info 1`, `task
+     the --each-line job's stdout, which must hold its 250 lines. In a
+     window of 10 s each read command (`job list`, `job info 1`, `task
      list 1`, `worker list` with its 1,024 rows, `server stats`, `top
      --once --output-mode json`, `task explain` on the middle one of job
      1's waiting tasks, found with `hq job task-ids 1 --filter waiting`,
      which must not have finished)
-     runs 3 times, in 3 rounds started 20/3 s apart whose commands run at
-     once (wall times, p50 and max, logged); `hq server start --shards 2`
-     must refuse, naming item 10, and `hq alloc list` answer (no queue;
+     runs 3 times, in 3 rounds started 10/3 s apart whose commands run at
+     once (wall times, p50 and max, logged); `hq server start --shards 2
+     --journal J` must refuse the pair of flags (a shard journals in its
+     shard dir) and `hq alloc list` answer (no queue;
      the allocation service runs idle). Then `hq job cancel
      1` and `hq server stop`: the server must exit 0 within 10 s with
      hq-current gone. `hq server start` again over the journal (timed
@@ -373,6 +375,27 @@ Phases:
      sim_run, sim_determinism, sim_sweep, sim_replay_compare,
      sim_entry_point, sim_soak (wall seconds, virtual tasks a wall second,
      run_tick p50/p95/p99, device memory) and sim_summary lines.
+ 21. the federation path (federation_path): two shard processes and a
+     warm standby (`--standby --no-coordinator`) of the port's CLI over
+     one root, `--lease-timeout 2`, each through ALLOC_SERVER_LAUNCHER;
+     the north star's 1,024 worker rows split 512/512 over the shards
+     (1,023 simulated, shard 1's reattaching to a successor, and one real
+     `worker start --shard 0`); an array of FED_TASKS to each shard from
+     the root (`HQ_SHARD`), `job list`, `fleet status` and `top --once`
+     at the root, `fleet migrate 1 1`, then a SIGKILL of shard 1: the
+     standby claims its lease (epoch 2) and restores it, the workers
+     reattach, the jobs drain. It fails unless every task finished once
+     (job list --all, and the task-finished records of both journals),
+     `server info --shard all` shows epochs 1 and 2 and the promotion,
+     `server stop` at the root stops both servers (the standby exits on
+     SIGINT), every solve of each process ran on the card, K1's launches
+     in each process (both shards and the standby's promoted successor)
+     equal its solves, all resident, and every solve equals the plain
+     version. Logs federation_start, federation_reads,
+     federation_failover (the seconds from the kill to the promotion and
+     to the successor's first finished task), federation_stop and
+     federation_summary (device memory by process) lines; the kernels
+     line's K1 entry carries federation_launches_by_process.
 
 The phase_seconds line gives each phase's seconds.
 
@@ -385,14 +408,20 @@ as the JAX package's do. The mapping line sets the paths' mapping medians
 side by side.
 
 Every profiled kernel time comes from a window whose every launch is held
-against the plain version's outputs, exact; a window in which the profiler
-records no time for the kernel is logged (profiler_empty_window, with what
-it did record) and profiled again, at most twice; after three empty windows
-the same launches are timed back to back between CUDA events queued behind
-a spin, so that they hold no host time (profiler_events_fallback, the
-wrapper's device span; events_check logs it beside the profiler's time at
-phase 4's inputs on every run); the profiler_windows line counts all
-three.
+against the plain version's outputs, exact; the profiler loses kernel
+events as the process ages (its device clock parts from the host's,
+PERF.md §7), so a window in which it kept fewer kernel events than were
+launched (none or some) is logged (profiler_empty_window, with what it did record) and
+profiled again, at most twice; after three such windows the same launches
+are timed back to back between CUDA events queued behind a spin, so that
+they hold no host time (profiler_events_fallback, the wrapper's device
+span; events_check logs it beside the profiler's time at phase 4's
+inputs on every run); a tick window that kept fewer kernel events than
+the wrappers launched is logged (profiler_partial_window); the
+profiler_windows line counts them all and lists each window's process
+uptime, kernel, kept and launched events. `python3 chip_smoke.py
+--profiler-bisect [DIR]` (profiler_bisect) probes phase 4's window at the start,
+in an idle process once a minute, and after phases 16, 17 and 18.
 
 Each server tick prints its backend and backend_reason: "device-cuda" with
 "sync-within-budget" (first solve: no measurement yet, the probe's round
@@ -427,6 +456,9 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+# the process's start, for the uptime profiler_probe logs
+PROCESS_T0 = time.monotonic()
+
 # H100 SXM data-sheet peaks, at the full 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12  # non-tensor rate; the int32 rate is not above it
@@ -445,7 +477,8 @@ N_SERVER_PIPELINED_TICKS = 12
 # the multichip path: the north star over shards of one card (256 workers
 # each), 8 synchronous ticks, then pipelined ones
 N_SHARDS = 4
-N_MULTICHIP_PIPELINED_TICKS = 6
+N_MULTICHIP_SYNC_TICKS = 5
+N_MULTICHIP_PIPELINED_TICKS = 4
 
 # the mu path: the north star with N_MU_WORKERS of its workers one
 # allocation that must pack or idle (min_utilization MU), N_MU_TICKS ticks
@@ -464,18 +497,18 @@ N_MILP_ARMED_TICKS = 3
 N_MILP_BENCHED_TICKS = 2
 
 # the fused path: the JAX server's MAX_FUSED_GANG_ROWS gang rows per tick
-N_FUSED_TICKS = 8
+N_FUSED_TICKS = 3
 MAX_FUSED_GANG_ROWS = 16
 N_JOBS = 8
 N_GROUPS = 8
 N_GANG_TASKS = 160
 # the reactor paths (phases 13 and 14)
-N_REACTOR_TICKS = 8
+N_REACTOR_TICKS = 5
 N_REACTOR_PIPELINED_TICKS = 4
-N_REACTOR_FUSED_TICKS = 7
+N_REACTOR_FUSED_TICKS = 6
 REACTOR_PAUSED_JOB = 2
 REACTOR_PAUSE_TICK = 4
-REACTOR_RESUME_TICK = 6
+REACTOR_RESUME_TICK = 5
 # the journal path: server A's ticks before and after its compaction, the
 # restored server B's ticks, the id runs of the array submits, and the
 # virtual clock's step between ticks
@@ -1077,8 +1110,9 @@ def k2_cases(k1_cases, k1g):
     """name -> (kernel inputs, shards) of every K2 case: the K1 cases over
     2, 4 and 8 shards, the K1g cases over 4, the straddling gangs over 2, 4
     and 8, 32,768 workers (ALL-policy; gang rows and a mask) over 4, the
-    bench instance and the first K1g case over 16 and 32 shards (32 is past
-    any cluster: the grid exchange), and the V x R edge cases over 4."""
+    bench instance and the first K1g case at 64 batches over 16 and 32
+    shards (32 is past any cluster: the grid exchange), and the V x R edge
+    cases over 4 (the widest V over 2)."""
     cases = {}
     for name, case in k1_cases.items():
         for n in (2, 4, 8):
@@ -1090,12 +1124,18 @@ def k2_cases(k1_cases, k1g):
     cases["all_32768x3x8x2_D4"] = (random_case(76, 32768, 3, 8, 2, True), 4)
     cases["gang_mask_32768x3x8x2_G8_D4"] = (
         fused_random_case(77, 32768, 3, 8, 2, 8), 4)
-    first_k1g = next(iter(k1g))
+    # the widest meshes at the bench's and the first K1g case's widths
+    # with 64 batches, not 256: the plain version loops over steps and
+    # shards, and at 256 these four cases took half of the phase's loop
     for n in (16, 32):
-        cases[f"bench_1024x8x256x2_D{n}"] = (bench_instance(), n)
-        cases[f"{first_k1g}_D{n}"] = (pad_workers(k1g[first_k1g], n), n)
+        cases[f"bench_1024x8x64x2_D{n}"] = (bench_instance(n_b=64), n)
+        cases[f"gang_solver_1024x8x64x2_G8_D{n}"] = (
+            solver_gang_case(500, 1024, 8, 64, 2, 8), n)
+    # (the widest V over 2 shards: at 4, with R = 64, it alone took a
+    # quarter of the phase's plain loop)
     for name in K2_VR_CASES:
-        cases[f"{name}_D4"] = (k1_edge_case(name), 4)
+        n = 2 if name == "vr_w64_r64_v2048" else 4
+        cases[f"{name}_D{n}"] = (k1_edge_case(name), n)
     for name in K2G_VR_CASES:
         cases[f"{name}_D4"] = (k1g_edge_case(name), 4)
     return cases
@@ -1423,9 +1463,15 @@ def time_kernel(case, device, reps=50, solve=None):
     return start.elapsed_time(end) / reps, host_ms
 
 
-# profiled kernel windows in this run, and those in which the profiler
-# recorded no time for the kernel
-PROFILED = {"windows": 0, "empty": 0, "events": 0}
+# profiled kernel windows in this run, those in which the profiler
+# recorded no time for the kernel, those in which it kept fewer kernel
+# events than were launched (it loses them as the process ages: it places
+# the device's activity on the host's clock through one calibration a
+# process, and on the card's machine the two clocks part by about 50 us a
+# second, PERF.md §7), and the kernels timed by CUDA events instead
+PROFILED = {"windows": 0, "empty": 0, "partial": 0, "events": 0,
+            # each window: [process uptime s, kernel, kept, launched]
+            "each": []}
 # a case's plain outputs, by the id of its free array (kept alive beside)
 _PLAIN: dict = {}
 
@@ -1449,9 +1495,10 @@ def kernel_device_ms(case, device, reps=20, solve=None,
     """Mean device ms of the kernel `kernel` alone at these inputs, launched
     by `solve` (K1's wrapper by default): the profiler's (CUPTI) kernel time
     over `reps` launches, each of which must equal the plain version exactly
-    (counts, free, nt_free). A window in which the profiler records no time
-    for the kernel is logged with what it did record and profiled again, at
-    most twice; after three empty windows the launches are timed with CUDA
+    (counts, free, nt_free). A window in which the profiler kept fewer kernel
+    events than the `reps` launches (none, or some: a partial window would
+    read low) is logged with what it did record and profiled again, at
+    most twice; after three such windows the launches are timed with CUDA
     events instead (events_device_ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1484,16 +1531,20 @@ def kernel_device_ms(case, device, reps=20, solve=None,
         averages = prof.key_averages()
         events = [e for e in averages if kernel in e.key]
         total_us = sum(e.self_device_time_total for e in events)
-        if total_us > 0:
+        kept = sum(e.count for e in events)
+        PROFILED["each"].append([round(time.monotonic() - PROCESS_T0, 1),
+                                 kernel, kept, reps])
+        if total_us > 0 and kept >= reps:
             return total_us / 1e3 / reps
-        PROFILED["empty"] += 1
+        PROFILED["empty" if total_us <= 0 else "partial"] += 1
         timed = sorted(averages, key=lambda e: -e.device_time_total)[:6]
         log("profiler_empty_window", kernel=kernel, attempt=attempt,
+            kept=kept, launched=reps,
             kernel_events=[(e.key, e.count) for e in events],
             device_events=[(e.key, e.count, e.device_time_total)
                            for e in timed if e.device_time_total > 0],
             events=len(prof.events()))
-        time.sleep(0.5)
+        time.sleep(0.1)
     ms, late = events_device_ms(solve, t, args, opt, want, reps, kernel)
     PROFILED["events"] += 1
     log("profiler_events_fallback", kernel=kernel, ms=ms, reps=reps,
@@ -1545,6 +1596,85 @@ def events_device_ms(solve, t, args, opt, want, reps, kernel):
     return start.elapsed_time(end) / reps, late
 
 
+# host seconds a padded profiler window sleeps before its first launch and
+# after its last synchronize (profiler_probe)
+PROBE_PAD_S = 0.5
+
+
+def profiler_probe(case, device, tag, card, reps=20):
+    """Phase 4's profiler window (kernel_device_ms) alone, at `case`, once
+    unpadded and once with PROBE_PAD_S of host sleep at each end inside the
+    window: logs per window the kernel events the profiler kept, their
+    device ms, and the gap from each launch's runtime call to its kernel's
+    start by correlation id (the profiler's raw timestamps: host clock
+    against the device's, in us). Each launch is held exact. Returns the
+    windows."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hyperqueue_tpu_torch.ops.assign import greedy_cut_scan
+
+    want = plain_outputs(case, device)
+    t = to_device(case, device)
+    args, opt = _args(t)
+    windows = []
+    for pad_s in (0.0, PROBE_PAD_S):
+        states = [(t["free"].clone(), t["nt_free"].clone())
+                  for _ in range(reps + 2)]
+        for f, n in states[:2]:
+            greedy_cut_scan(f, n, *args[2:], **opt)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad_s)
+            outs = [(greedy_cut_scan(f, n, *args[2:], **opt), f, n)
+                    for f, n in states[2:]]
+            torch.cuda.synchronize()
+            time.sleep(pad_s)
+        for out in outs:
+            for name, got, ref in zip(("counts", "free", "nt_free"), out,
+                                      want):
+                if not torch.equal(got, ref):
+                    raise AssertionError(
+                        f"a probed launch differs from the plain version "
+                        f"on {name}")
+        kernels = [e for e in prof.key_averages()
+                   if "cut_scan_kernel" in e.key]
+        launches, starts, ends, sync_end = {}, {}, [], None
+        for ev in prof.profiler.kineto_results.events():
+            corr = ev.correlation_id()
+            if "cut_scan_kernel" in ev.name():
+                starts[corr] = ev.start_ns()
+                ends.append(ev.start_ns() + ev.duration_ns())
+            elif ev.name() in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                               "cuLaunchKernel", "cuLaunchKernelEx"):
+                launches[corr] = ev.start_ns()
+            elif "Synchronize" in ev.name():
+                sync_end = ev.start_ns() + ev.duration_ns()
+        gaps = sorted((starts[c] - launches[c]) / 1e3
+                      for c in starts if c in launches)
+        window = {
+            "at": tag, "pad_s": pad_s,
+            "uptime_s": round(time.monotonic() - PROCESS_T0, 1),
+            "kernel_events": sum(e.count for e in kernels),
+            "kernel_ms": sum(e.self_device_time_total for e in kernels)
+            / 1e3 / reps,
+            "launch_events": len(launches),
+            "raw_kernel_events": len(starts),
+            # the host's return from the synchronize minus the last
+            # kernel's end on the device's clock: never negative when the
+            # two clocks agree
+            "sync_end_minus_last_kernel_end_us":
+                (sync_end - max(ends)) / 1e3 if ends and sync_end else None,
+            "launch_to_kernel_us": {
+                "min": gaps[0], "median": gaps[len(gaps) // 2],
+                "max": gaps[-1]} if gaps else None,
+        }
+        log("profiler_probe", **window, card=card)
+        windows.append(window)
+    return windows
+
+
 def events_check(case, device, profiled_ms, card):
     """K1 at these inputs timed as events_device_ms times it when the
     profiler records nothing, logged beside the profiler's time so that
@@ -1568,10 +1698,16 @@ def time_plain(case, device, reps=3, plain=None) -> float:
 
     plain = plain or greedy_cut_scan_reference
     args, opt = _args(to_device(case, device))
-    plain(*args, **opt)
-    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    plain(*args, **opt)
+    end.record()
+    end.synchronize()
+    # a plain version that takes a second or more is timed by that call
+    if start.elapsed_time(end) >= 1e3:
+        return start.elapsed_time(end)
     start.record()
     for _ in range(reps):
         plain(*args, **opt)
@@ -1830,11 +1966,20 @@ def advance(assignments, rows, rq_map, totals, nt0, rng) -> None:
 def profiled_window(one_tick, n_ticks=3, kernel="cut_scan_kernel"):
     """A short steady window of `n_ticks` calls of one_tick() (each runs,
     checks and applies a tick, as the path does) under torch.profiler: the
-    window's wall ms and the device's busy ms and the kernel's ms in it."""
+    window's wall ms and the device's busy ms and the kernel's ms in it.
+    A window whose profiler kept fewer kernel events than the wrapper
+    counted launches is logged (profiler_partial_window) and counted in
+    PROFILED."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from hyperqueue_tpu_torch.ops import assign
+    from hyperqueue_tpu_torch.parallel import solve
+
+    counter = solve.sharded_cut_scan if "sharded" in kernel \
+        else assign.greedy_cut_scan
     torch.cuda.synchronize()
+    launched = counter.launches
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1842,7 +1987,16 @@ def profiled_window(one_tick, n_ticks=3, kernel="cut_scan_kernel"):
             one_tick()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    launched = counter.launches - launched
     events = prof.key_averages()
+    kept = sum(e.count for e in events if kernel in e.key)
+    PROFILED["windows"] += 1
+    PROFILED["each"].append([round(time.monotonic() - PROCESS_T0, 1),
+                             kernel, kept, launched])
+    if kept < launched:
+        PROFILED["partial"] += 1
+        log("profiler_partial_window", kernel=kernel, kept=kept,
+            launched=launched)
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     kernel_ms = sum(e.self_device_time_total for e in events
                     if kernel in e.key) / 1e3
@@ -4372,9 +4526,9 @@ SERVE_EXIT_S = 10.0
 SERVE_REAL_WORKERS = 16
 SERVE_REAL_RUNNER_POOL = 1
 # phase 17: one worker node, the machine's CPUs and its GPUs
-# (50,000 through PR 11; cut to keep the whole run, phase 18 included,
-# well inside its time limit: 10,000 still drain for 25-45 s)
-NODE_TASKS = 10_000
+# (50,000 at first, then 10,000, which drained for 25-45 s; cut to keep
+# the whole run well inside its time limit)
+NODE_TASKS = 2_000
 NODE_GPU_TASKS = 8
 NODE_DRAIN_S = 180.0
 NODE_OVERVIEW_S = 1.0
@@ -5012,23 +5166,101 @@ class SimWorker:
         self.first_compute = None
         self.stopped = False      # told to stop, or dropped
         self.gone = False         # a send found the connection closed
+        self.server_uid = None
+        # task id -> (instance, variant) of a finish not sent yet: a
+        # reattach declares it running, and sends the finish after
+        self.unsent: dict = {}
 
-    async def connect(self, access):
+    async def connect(self, access, reattach=None):
         from hyperqueue_tpu_torch.transport import auth
 
         t0 = time.perf_counter()
         reader, writer = await asyncio.open_connection(
             "127.0.0.1", access.worker_port)
-        self.conn = await auth.do_authentication(
-            reader, writer, auth.ROLE_WORKER, auth.ROLE_SERVER,
-            access.worker_key_bytes())
-        t1 = time.perf_counter()
-        await self.conn.send({"op": "register", "config": self.config})
-        reply = await self.conn.recv()
+        try:
+            self.conn = await auth.do_authentication(
+                reader, writer, auth.ROLE_WORKER, auth.ROLE_SERVER,
+                access.worker_key_bytes())
+            t1 = time.perf_counter()
+            register = {"op": "register", "config": self.config}
+            if reattach is not None:
+                register["reattach"] = reattach
+            await self.conn.send(register)
+            reply = await self.conn.recv()
+        except BaseException:
+            # a failed or abandoned attempt leaves no socket behind (the
+            # worker runtime's _connect does the same)
+            writer.close()
+            raise
         if reply.get("op") != "registered":
             raise AssertionError(f"register answered {reply}")
         self.wid = reply["worker_id"]
+        self.server_uid = reply.get("server_uid")
+        self.reply = reply
         return t1 - t0, time.perf_counter() - t0
+
+    async def reattach(self):
+        """The server went away (kill -9): wait for a successor's access
+        record in the same server dir, then register again declaring what
+        this worker still runs (and the finishes not sent yet) and its
+        parked tasks, as the worker runtime does (`reattach`); drop what
+        the successor discards (every parked task among it), then read and
+        send on the new connection."""
+        from pathlib import Path
+
+        from hyperqueue_tpu_torch.utils import serverdir
+
+        proc, old_uid, t0 = self.proc, self.server_uid, time.perf_counter()
+        while True:
+            if proc.closing or self.stopped:
+                return
+            try:
+                access = serverdir.load_access(Path(proc.server_dir),
+                                               retry_secs=0.0)
+            except (FileNotFoundError, ValueError, KeyError, TypeError):
+                access = None
+            if access is None or access.server_uid == old_uid:
+                await asyncio.sleep(0.05)
+                continue
+            running = [{"id": tid, "instance": inst, "variant": var}
+                       for tid, (inst, _a, var) in self.running.items()]
+            running += [{"id": tid, "instance": inst, "variant": var}
+                        for tid, (inst, var) in self.unsent.items()]
+            try:
+                async with proc.gate:
+                    # an attempt is bounded, as the worker runtime bounds
+                    # its own (RECONNECT_ATTEMPT_TIMEOUT): in a storm of
+                    # reattaches some handshakes stall (PERF.md §7)
+                    await asyncio.wait_for(self.connect(access, {
+                        "worker_id": self.wid, "server_uid": old_uid,
+                        "running": running,
+                        "blocked": [{"id": e["id"],
+                                     "instance": e["instance"]}
+                                    for e in self.backlog]}),
+                        REATTACH_ATTEMPT_S)
+            except asyncio.TimeoutError:
+                proc.attempts_timed_out += 1
+                continue
+            except (asyncio.IncompleteReadError, ConnectionError, OSError):
+                await asyncio.sleep(0.1)
+                continue
+            except Exception as e:  # noqa: BLE001 - reported, fails the run
+                proc.errors.append(f"worker {self.wid} reattach: {e!r}")
+                return
+            break
+        dropped = set(self.reply.get("discard") or ())
+        for tid in dropped:
+            held = self.running.pop(tid, None)
+            if held is not None:
+                for name, a in held[1]:
+                    self.free[name] += a
+            self.unsent.pop(tid, None)
+        self.outbox = [m for m in self.outbox if m.get("id") not in dropped]
+        self.backlog = []
+        proc.reattaches.append(time.perf_counter() - t0)
+        proc.discarded += len(dropped)
+        self.gone = False
+        proc.readers.append(asyncio.ensure_future(self.read_loop()))
 
     def fits(self, amounts):
         return all(self.free.get(name, 0) >= a for name, a in amounts)
@@ -5037,7 +5269,8 @@ class SimWorker:
         for name, a in amounts:
             self.free[name] -= a
         task_id, instance = entry["id"], entry["instance"]
-        self.running[task_id] = (instance, amounts)
+        self.running[task_id] = (instance, amounts,
+                                 int(entry.get("variant", 0)))
         self.outbox.append({"op": "task_running", "id": task_id,
                             "instance": instance})
         self.proc.started += 1
@@ -5053,6 +5286,7 @@ class SimWorker:
         del self.running[task_id]
         for name, a in held[1]:
             self.free[name] += a
+        self.unsent[task_id] = (instance, held[2])
         self.outbox.append({"op": "task_finished", "id": task_id,
                             "instance": instance})
         self.start_backlog()
@@ -5136,9 +5370,13 @@ class SimWorker:
                 for msg in msgs:
                     self.on_message(msg)
         except (asyncio.IncompleteReadError, ConnectionError, OSError):
-            if not self.stopped and not proc.closing:
-                proc.lost.append(self.wid)
             self.gone = True
+            if proc.server_dir is not None and not self.stopped \
+                    and not proc.closing:
+                # a worker with `--on-server-lost reconnect`: reattach
+                proc.readers.append(proc.loop.create_task(self.reattach()))
+            elif not self.stopped and not proc.closing:
+                proc.lost.append(self.wid)
         except Exception as e:  # noqa: BLE001 - reported, fails the run
             proc.errors.append(f"worker {self.wid}: {e!r}")
         finally:
@@ -5160,18 +5398,31 @@ class SimWorker:
             await self.conn.send_bytes(data)
         except (ConnectionError, OSError):
             # the connection went away: a stop, or a loss the read loop
-            # reports
+            # reports (a reattaching worker sends these messages after)
             self.gone = True
+            self.outbox = msgs + self.outbox
             return
-        self.proc.finished += sum(1 for m in msgs
-                                  if m["op"] == "task_finished")
+        for m in msgs:
+            if m["op"] == "task_finished":
+                self.proc.finished += 1
+                self.unsent.pop(m["id"], None)
 
 
 class SimWorkerProc:
     """The simulated workers of one process and its counters."""
 
-    def __init__(self, index, seed, service_s=SERVE_SERVICE_S):
+    def __init__(self, index, seed, service_s=SERVE_SERVICE_S,
+                 server_dir=None):
         self.index = index
+        # with a server dir, a worker whose server goes away reattaches to
+        # its successor there (SimWorker.reattach); else it counts as lost
+        self.server_dir = server_dir
+        self.reattaches: list = []    # seconds from the loss to registered
+        self.attempts_timed_out = 0
+        self.discarded = 0
+        # the workers' read loops and reattaches, cancelled at the report
+        self.readers: list = []
+        self.gate = None
         self.rng = np.random.default_rng([seed, index])
         self.service_s = service_s
         self.loop = None
@@ -5191,19 +5442,21 @@ class SimWorkerProc:
 
 
 def serve_worker_proc(index, server_dir, configs, seed, conn,
-                      service_s=SERVE_SERVICE_S):
+                      service_s=SERVE_SERVICE_S, reattach=False):
     """A process of simulated workers (spawned; imports only the port's
     transport): connects `configs` to the worker port named by the access
     record, then runs their tasks (each for a time uniform in
     `service_s`) until the parent asks it, over `conn`, to drop its
     busiest worker, to freeze (no more starts or finishes) and to
-    report."""
+    report. With `reattach`, a worker whose server goes away reattaches to
+    the server that next publishes an access record in `server_dir`."""
     from pathlib import Path
 
     from hyperqueue_tpu_torch.transport import codec
     from hyperqueue_tpu_torch.utils import serverdir
 
-    proc = SimWorkerProc(index, seed, service_s)
+    proc = SimWorkerProc(index, seed, service_s,
+                         server_dir=server_dir if reattach else None)
 
     async def main():
         proc.loop = asyncio.get_running_loop()
@@ -5218,7 +5471,7 @@ def serve_worker_proc(index, server_dir, configs, seed, conn,
                     raise
                 await asyncio.sleep(0.02)
         workers = [SimWorker(proc, cfg) for cfg in configs]
-        gate = asyncio.Semaphore(SERVE_CONNECT_CONCURRENCY)
+        gate = proc.gate = asyncio.Semaphore(SERVE_CONNECT_CONCURRENCY)
 
         async def connect(w):
             async with gate:
@@ -5234,7 +5487,8 @@ def serve_worker_proc(index, server_dir, configs, seed, conn,
         t0 = time.perf_counter()
         times = await asyncio.gather(*(connect(w) for w in workers))
         storm_s = time.perf_counter() - t0
-        readers = [asyncio.ensure_future(w.read_loop()) for w in workers]
+        readers = proc.readers
+        readers += [asyncio.ensure_future(w.read_loop()) for w in workers]
         conn.send(("registered", {
             "storm_s": storm_s, "retries": proc.connect_retries,
             "handshake_s": [h for h, _ in times],
@@ -5253,7 +5507,7 @@ def serve_worker_proc(index, server_dir, configs, seed, conn,
             if time.monotonic() - last_beat >= beat:
                 last_beat = time.monotonic()
                 for w in workers:
-                    if not w.stopped:
+                    if not w.stopped and not w.gone:
                         w.outbox.append({"op": "heartbeat"})
             await asyncio.gather(*(w.flush() for w in workers
                                    if w.outbox and not w.stopped))
@@ -5265,7 +5519,7 @@ def serve_worker_proc(index, server_dir, configs, seed, conn,
                 # a dropped connection loses what was not sent yet: the
                 # finishes in its outbox leave those tasks running on the
                 # server, so they requeue with the rest
-                tasks = [(tid, inst) for tid, (inst, _a)
+                tasks = [(tid, inst) for tid, (inst, _a, _v)
                          in victim.running.items()]
                 tasks += [(m["id"], m["instance"]) for m in victim.outbox
                           if m["op"] == "task_finished"]
@@ -5308,6 +5562,9 @@ def serve_worker_proc(index, server_dir, configs, seed, conn,
                     "codec": codec.BACKEND,
                     "workers": len(workers), "stops": proc.stops,
                     "lost": proc.lost, "errors": proc.errors,
+                    "reattaches": proc.reattaches,
+                    "attempts_timed_out": proc.attempts_timed_out,
+                    "discarded": proc.discarded,
                     "entries": len(proc.dispatched),
                     "ids": ids, "instances": inst,
                     "started": proc.started, "finished": proc.finished,
@@ -6180,11 +6437,12 @@ def worker_node_path(card, device):
 # until phase 20 joined the script: at 1M, phase 18 took 365 s of the
 # script's 1,012 s (`task list 1` 159-169 s), and on a slower host the
 # script ran past its 1,200 s limit (NVIDIA H100 80GB HBM3, 700.00 W;
-# PERF.md section 6)
-CLI_TASKS = 250_000
+# PERF.md section 6); 250,000 until phase 21 joined it, when the whole
+# script ran 864-993 s on the card and past 1,200 s on a slower host
+CLI_TASKS = 100_000
 # the small jobs pinned to the real worker: an --each-line array of this
 # many lines, a TOML graph with dependencies and one task that fails
-CLI_EACH_LINE = 1_000
+CLI_EACH_LINE = 250
 # a resource only the real worker declares (`--resource`), one unit a task
 CLI_PIN = "cli_pin"
 CLI_PIN_UNITS = 64
@@ -6198,7 +6456,7 @@ CLI_SERVICE_S = (900.0, 1800.0)
 # the read commands run in CLI_REPEATS rounds started evenly over a window
 # of CLI_WINDOW_S seconds, a round's commands at once (as several users'
 # would), and the window lasts until the last of them returns
-CLI_WINDOW_S = 20.0
+CLI_WINDOW_S = 10.0
 CLI_REPEATS = 3
 # a client command's own time limit, `hq journal report`'s, and `hq job
 # cancel 1`'s: canceling 955k tasks took 24.7-31.8 s in three runs on the
@@ -6363,18 +6621,19 @@ class CliRunner:
         return [sys.executable, "-c", CLI_LAUNCHER, str(run["report"]),
                 *args], run
 
-    def popen(self, args, name, **kwargs):
+    def popen(self, args, name, env=None, **kwargs):
         """A long-lived process (a worker, a streaming submit); its output
-        goes to `<name>.log` unless `kwargs` say otherwise."""
+        goes to `<name>.log` unless `kwargs` say otherwise; `env` adds to
+        the runner's environment."""
         argv, run = self.argv(args)
         kwargs.setdefault("stderr", subprocess.STDOUT)
+        env = {**self.env, **(env or {})}
         run["t0"] = time.perf_counter()
         if "stdout" in kwargs:
-            proc = subprocess.Popen(argv, env=self.env, cwd=self.work,
-                                    **kwargs)
+            proc = subprocess.Popen(argv, env=env, cwd=self.work, **kwargs)
         else:
             with open(self.tmp / f"{name}.log", "wb") as log_f:
-                proc = subprocess.Popen(argv, env=self.env, cwd=self.work,
+                proc = subprocess.Popen(argv, env=env, cwd=self.work,
                                         stdout=log_f, **kwargs)
         run["proc"] = proc
         return proc, run
@@ -6383,16 +6642,17 @@ class CliRunner:
         run["rc"] = rc
         run["s"] = time.perf_counter() - run["t0"]
 
-    def __call__(self, *args, timeout=CLI_COMMAND_S):
+    def __call__(self, *args, timeout=CLI_COMMAND_S, env=None):
         """Runs one command to its end; returns its run (stdout in
-        run["out"], a file)."""
+        run["out"], a file); `env` adds to the runner's environment."""
         argv, run = self.argv(args)
         out = self.tmp / f"out-{run['n']:03d}.txt"
         run["out"] = out
         run["t0"] = time.perf_counter()
         with open(out, "wb") as f:
             try:
-                proc = subprocess.run(argv, env=self.env, cwd=self.work,
+                proc = subprocess.run(argv, env={**self.env, **(env or {})},
+                                      cwd=self.work,
                                       stdout=f, stderr=subprocess.PIPE,
                                       timeout=timeout)
                 rc, err = proc.returncode, proc.stderr
@@ -6404,14 +6664,15 @@ class CliRunner:
 
     def faults(self, refusals):
         """Runs that exited otherwise than asked: 0 for all but the
-        `refusals` (argument tuples), which must exit non-zero naming
-        item 10; and every process's import report."""
+        `refusals` (argument tuples, each to the text its error must
+        hold), which must exit non-zero saying so; and every process's
+        import report."""
         fails = []
         for run in self.runs:
             args = tuple(run["args"])
             if args in refusals:
-                if run.get("rc") in (0, None) or "item 10" not in run.get(
-                        "err", ""):
+                if run.get("rc") in (0, None) or refusals[args] not in \
+                        run.get("err", ""):
                     fails.append(f"{' '.join(args)}: rc {run.get('rc')}, "
                                  f"{run.get('err', '')[-300:]!r}")
             elif run.get("expect_rc", 0) != run.get("rc"):
@@ -6481,8 +6742,9 @@ def cli_path(card, device, n_procs=SERVE_WORKER_PROCS, n_tasks=CLI_TASKS,
     servers, procs, pipes = [], [], []
     worker = None
     out: dict = {}
-    refusals = {("server", "start", "--server-dir", str(server_dir),
-                 "--shards", "2")}
+    refusal = ("server", "start", "--server-dir", str(server_dir),
+               "--shards", "2", "--journal", str(journal))
+    refusals = {refusal: "--journal cannot be combined with --shards"}
 
     def start_server(tag):
         """A server process (CLI_SERVER_LAUNCHER); returns it, its result
@@ -6644,8 +6906,7 @@ def cli_path(card, device, n_procs=SERVE_WORKER_PROCS, n_tasks=CLI_TASKS,
                 run = future.result()
                 times[name].append(run["s"])
                 reads[name] = run
-        hq("server", "start", "--server-dir", str(server_dir),
-           "--shards", "2")
+        hq(*refusal)
         # answered by the idle allocation service
         hq("alloc", "list")
         left = window_s - (time.perf_counter() - t_window)
@@ -6838,9 +7099,11 @@ def cli_path(card, device, n_procs=SERVE_WORKER_PROCS, n_tasks=CLI_TASKS,
 # the autoalloc path, and the demand queries it must run before the reads
 ALLOC_INTERVAL_S = 0.5
 ALLOC_QUERIES = 20
-# the path's array: the north star's 1M. With phase 18's 250,000 the
-# fleet's prefill (up to 512 tasks queued a worker) takes every task,
-# the server's queues hold no batch, and no demand query solves
+# the path's array: the north star's 1M. With 250,000 the fleet's
+# prefill (up to 512 tasks queued a worker) takes every task, the
+# server's queues hold no batch, and no demand query solves; with
+# 600,000 (and 10 queries) the Slurm queue submitted nothing in 122 s
+# before the kill (NVIDIA H100 80GB HBM3, 700.00 W)
 ALLOC_TASKS = 1_000_000
 # run_tick's steady median leaves out the first ticks (tick 0's prefill)
 ALLOC_TICK_SKIP = 5
@@ -6912,14 +7175,23 @@ class AllocRecorder:
             self.sink.flush()
 
     def solve_state(self):
+        import torch
+
         from hyperqueue_tpu_torch.ops import assign
 
         k1 = assign.greedy_cut_scan
-        return {"t": time.time(), "sites": dict(k1.site_launches),
-                "launches": k1.launches,
-                "resident_launches": k1.resident_launches,
-                "backend": getattr(self.model, "last_backend", None),
-                "residency": self.model.resident_stats()}
+        state = {"t": time.time(), "sites": dict(k1.site_launches),
+                 "launches": k1.launches,
+                 "resident_launches": k1.resident_launches,
+                 "gang_launches": k1.gang_launches,
+                 "backend": getattr(self.model, "last_backend", None),
+                 "residency": self.model.resident_stats()}
+        if torch.cuda.is_initialized():
+            state["device_memory"] = {
+                "allocated": torch.cuda.memory_allocated(),
+                "peak": torch.cuda.max_memory_allocated(),
+                "reserved": torch.cuda.memory_reserved()}
+        return state
 
     def tick(self, kwargs, counts):
         self.write({"kind": "tick", "kwargs": kwargs,
@@ -6966,7 +7238,9 @@ def alloc_server_main(record_path, argv):
     recorded; the reactor's run_tick is wrapped in check_assignments and
     timed. A server that stops writes an "end" record (the watchdog's
     stats, K1's counts, the residency, misfits); one that its fault plan
-    kills writes none."""
+    kills writes none. A SIGINT (which ends a standby, the one server
+    process no `hq server stop` ends) stops it as a stop does, with the
+    CLI's exit code for an interrupt."""
     import runpy
 
     from hyperqueue_tpu_torch.autoalloc import query as query_mod
@@ -7041,6 +7315,8 @@ def alloc_server_main(record_path, argv):
                          alter_sys=True)
     except SystemExit as e:
         code = e.code if isinstance(e.code, int) else int(e.code is not None)
+    except KeyboardInterrupt:
+        code = 130
     recorder = held.get("recorder")
     if recorder is not None:
         recorder.write({
@@ -7543,16 +7819,17 @@ def alloc_path(card, device, n_procs=SERVE_WORKER_PROCS,
 # the hash seed of the simulator's child processes: a few str-set orders
 # in the server follow it, so two processes agree only under one seed
 SIM_HASH_SEED = "0"
-# the soak at the simulator's acceptance scale: one uniform array of
-# 20 s tasks over 1,000 workers of 4 CPUs, a server kill at 30 s and six
-# worker kills, each worker back after 2 s
-SIM_SOAK_TASKS = 100_000
+# the soak: one uniform array of 20 s tasks over 1,000 workers of 4 CPUs,
+# a server kill at 30 s and six worker kills, each worker back after 2 s;
+# 15,000 tasks (the simulator's acceptance scale is 100,000, whose soak
+# took 75-136 s of wall time on the card's host, too long for the script)
+SIM_SOAK_TASKS = 15_000
 SIM_SOAK_WORKERS = 1_000
 SIM_SOAK_WORKER_KILLS = ((1, 12.0), (7, 18.0), (13, 44.0), (200, 51.0),
                          (400, 60.0), (650, 70.0))
 # the entry point's own run, once, for its JSON line
 SIM_CLI_ARGS = ["--scheduler", "greedy", "--workload", "bursty",
-                "--workers", "64", "--tasks", "20000", "--json",
+                "--workers", "64", "--tasks", "3000", "--json",
                 "--no-bisect"]
 # the time limit of each of the phase's child processes
 SIM_CHILD_S = 900.0
@@ -8027,6 +8304,417 @@ def sim_path(card, device, n_tasks=SIM_SOAK_TASKS,
             logging.getLogger(name).setLevel(level)
 
 
+# -- phase 21: the federation -------------------------------------------------
+# the tasks of each shard's array (`hq submit --array 1-N`, one cpu each):
+# job 1 on shard 0, job 2 on shard 1; each simulated task runs this long
+# (uniform, s), so that both arrays still run when job 1 moves and shard 1
+# dies, and the phase drains within FED_BUDGET_S
+FED_TASKS = 10_000
+FED_SERVICE_S = (3.0, 6.0)
+# `--lease-timeout` of the shards and the standby, s
+FED_LEASE_S = 2
+# simulated worker processes for each shard
+FED_PROCS_PER_SHARD = 2
+# a simulated worker's reattach attempt is abandoned (and made again)
+# after this many seconds
+REATTACH_ATTEMPT_S = 2.0
+# the limits of the drain after the kill, of a server's exit after `hq
+# server stop` (and the standby's after its SIGINT), and the phase's budget
+FED_DRAIN_S = 120.0
+FED_EXIT_S = 15.0
+FED_BUDGET_S = 60.0
+
+
+def federation_path(card, device, n_tasks=FED_TASKS, service_s=FED_SERVICE_S,
+                    state=None):
+    """Phase 21: the deployment the port documents for a federation, through
+    `python -m hyperqueue_tpu_torch`: two shard processes (`server start
+    --server-dir ROOT --shards 2 --shard-id K --lease-timeout 2`) and one
+    `--standby --no-coordinator`, each through ALLOC_SERVER_LAUNCHER (every
+    solve streamed to a file, so the shard that is killed leaves its solves
+    behind); the north star's 1,024 worker rows split across the shards:
+    simulated workers (serve_worker_proc, FED_PROCS_PER_SHARD processes a
+    shard), 511 to shard 0 and 512 to shard 1, which reattach to a
+    successor, and one real `worker start --shard 0`. One array of
+    `n_tasks` is submitted to each shard from the root (`HQ_SHARD`); `job
+    list`, `fleet status` and `top --once --output-mode json` read the
+    root with both shards up; `fleet migrate 1 1` moves job 1 to shard 1,
+    and shard 1 is killed with SIGKILL. The standby claims its lease
+    (epoch 2), restores it over its journal and the workers reattach; the
+    jobs drain. Checks: every task finished exactly once by `job list
+    --all` and by the two shard journals' `task-finished` records, `server
+    info --shard all` shows the epochs (1 and 2) and the promotion, `server
+    stop` at the root stops both servers (the standby then exits on
+    SIGINT), every solve of each process ran on `device` and, on the card,
+    K1's launches equal each process's solves, resident, and every solve
+    equals the plain version. Logs the steps' seconds (`federation_*`), the
+    time from the kill to the first task the successor finished, and the
+    device memory of each process. Returns the path's summary."""
+    import multiprocessing
+    import shutil
+    import signal
+    import tempfile
+    from pathlib import Path
+
+    from hyperqueue_tpu_torch.events.journal import Journal
+    from hyperqueue_tpu_torch.models.greedy import GreedyCutScanModel
+    from hyperqueue_tpu_torch.utils import serverdir
+
+    t_path = time.perf_counter()
+    marks: dict = {}
+
+    def mark(name):
+        marks[name] = round(time.perf_counter() - t_path, 3)
+
+    worker_rows = (state or journal_state())[1]
+    configs = [cfg.to_wire() for _wid, cfg, _free, _nt in worker_rows]
+    # the real worker takes the first row's place on shard 0
+    half = len(configs) // 2
+    shard_configs = {0: configs[1:half], 1: configs[half:]}
+    mark("state")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    tmp = Path(tempfile.mkdtemp(prefix="hq-fed-"))
+    root = tmp / "root"
+    hq = CliRunner(repo, tmp, root)
+    sched = [] if device.type == "cuda" else ["--scheduler", "cpu"]
+    lease = ["--lease-timeout", str(FED_LEASE_S)]
+    ctx = multiprocessing.get_context("spawn")
+    servers: dict = {}
+    procs, pipes = [], []
+    worker = None
+    out: dict = {}
+
+    def shard_dir(k):
+        return serverdir.shard_path(root, k)
+
+    def start(tag, args):
+        record = tmp / f"{tag}.rec"
+        log_f = open(tmp / f"{tag}.log", "wb")
+        proc = subprocess.Popen(
+            [sys.executable, "-c", ALLOC_SERVER_LAUNCHER, repo, str(record),
+             "server", "start", "--server-dir", str(root), *args, *lease,
+             *sched], env=hq.env, cwd=hq.work, stdout=log_f,
+            stderr=subprocess.STDOUT)
+        log_f.close()
+        servers[tag] = (proc, record)
+
+    def wait_for(what, ready, timeout, step=0.02):
+        t0 = time.perf_counter()
+        while not ready():
+            for tag, (proc, _r) in servers.items():
+                if proc.poll() is not None and tag not in out.get(
+                        "ended", ()):
+                    raise AssertionError(
+                        f"federation: {tag} exited {proc.returncode} "
+                        f"waiting for {what}: "
+                        + (tmp / f"{tag}.log").read_text()[-2000:])
+            if time.perf_counter() - t0 > timeout:
+                raise AssertionError(f"federation: no {what} in "
+                                     f"{timeout} s")
+            time.sleep(step)
+        return time.perf_counter() - t0
+
+    def recv(pipe, what, timeout=180.0):
+        if not pipe.poll(timeout):
+            raise AssertionError(f"federation: no {what} from a worker "
+                                 "process")
+        tag, body = pipe.recv()
+        if tag != what:
+            raise AssertionError(f"federation: {tag} for {what}")
+        return body
+
+    def json_out(run):
+        return json.loads(run["out"].read_text())
+
+    def access_of(k):
+        return (shard_dir(k) / "hq-current" / "access.json").exists()
+
+    def lease_epoch(k):
+        try:
+            return json.loads((shard_dir(k) / "lease.json").read_text())[
+                "epoch"]
+        except (OSError, ValueError, KeyError):
+            return None
+
+    try:
+        # --- the shards, the standby, the workers ---------------------------
+        t0 = time.perf_counter()
+        for k in (0, 1):
+            start(f"shard{k}", ["--shards", "2", "--shard-id", str(k)])
+        start("standby", ["--standby", "--no-coordinator"])
+        for k, cfgs in shard_configs.items():
+            for part in np.array_split(np.arange(len(cfgs)),
+                                       FED_PROCS_PER_SHARD):
+                parent_end, child_end = ctx.Pipe()
+                p = ctx.Process(
+                    target=serve_worker_proc,
+                    name=f"hq-fed-workers-{k}-{len(procs)}",
+                    args=(len(procs), str(shard_dir(k)),
+                          [cfgs[j] for j in part], SEED, child_end,
+                          service_s, k == 1))
+                p.start()
+                procs.append(p)
+                pipes.append(parent_end)
+        out["access_s"] = wait_for("shard access records",
+                                   lambda: access_of(0) and access_of(1),
+                                   180)
+        worker, worker_run = hq.popen(
+            ["worker", "start", "--shard", "0"], "worker")
+        regs = [recv(p, "registered") for p in pipes]
+        waited = [hq("worker", "wait", str(len(shard_configs[0]) + 1),
+                     env={"HQ_SERVER_DIR": str(shard_dir(0))}),
+                  hq("worker", "wait", str(len(shard_configs[1])),
+                     env={"HQ_SERVER_DIR": str(shard_dir(1))})]
+        out["workers_s"] = time.perf_counter() - t0
+        mark("workers")
+        log("federation_start", access_s=out["access_s"],
+            workers_s=out["workers_s"],
+            workers={k: len(c) + (k == 0) for k, c in shard_configs.items()},
+            storm_s=max(r["storm_s"] for r in regs),
+            worker_wait_s=[w["s"] for w in waited],
+            scheduler=sched[-1] if sched else "auto (K1 on the card)",
+            card=card)
+
+        # --- one array to each shard, the reads at the root -----------------
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=3) as pool:
+            subs = [pool.submit(hq, "submit", "--array", f"1-{n_tasks}",
+                                "--cpus", "1", "--", "true",
+                                env={"HQ_SHARD": str(k)}) for k in (0, 1)]
+            subs = [f.result() for f in subs]
+        submitted = [r["out"].read_text().strip() for r in subs]
+        out["submit_s"] = time.perf_counter() - t0
+        mark("submitted")
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=3) as pool:
+            reads = {name: pool.submit(hq, *args) for name, args in (
+                ("job list", ["job", "list", "--output-mode", "json"]),
+                ("fleet status", ["fleet", "status"]),
+                ("top --once", ["top", "--once", "--output-mode", "json"]))}
+            reads = {name: f.result() for name, f in reads.items()}
+        out["reads_s"] = time.perf_counter() - t0
+        listed = sorted(j["id"] for j in json_out(reads["job list"]))
+        status = reads["fleet status"]["out"].read_text()
+        top = json_out(reads["top --once"])
+        log("federation_reads", submit_s=out["submit_s"],
+            submitted=submitted, reads_s=out["reads_s"],
+            each_s={n: r["s"] for n, r in reads.items()}, jobs=listed,
+            fleet_status=status.splitlines()[:4],
+            top_up=sorted(k for k, v in top.get("shards", {}).items()
+                          if v is not None), card=card)
+        mark("reads")
+
+        # --- the migration, the kill, the failover, the drain ---------------
+        migrate = hq("fleet", "migrate", "1", "1")
+        moved = migrate["out"].read_text().strip()
+        mark("migrated")
+        killed_at = time.time()
+        t_kill = time.perf_counter()
+        servers["shard1"][0].kill()
+        servers["shard1"][0].wait(10)
+        out.setdefault("ended", []).append("shard1")
+        promote_s = wait_for("promotion (lease epoch 2)",
+                             lambda: lease_epoch(1) == 2, 60)
+        promoted_access_s = wait_for(
+            "the successor's access record", lambda: access_of(1), 60)
+        mark("promoted")
+
+        def drained():
+            run = hq("job", "list", "--all", "--output-mode", "json")
+            if run["rc"] != 0:
+                # a read while the successor boots may fail; the drain's
+                # end is read again below
+                run["expect_rc"] = run["rc"]
+                return False
+            jobs = json_out(run)
+            return len(jobs) == 2 and all(
+                j["counters"]["finished"] + j["counters"]["failed"]
+                + j["counters"]["canceled"] == n_tasks for j in jobs)
+
+        wait_for("drain", drained, FED_DRAIN_S, step=0.5)
+        drain_s = time.perf_counter() - t_kill
+        mark("drained")
+        final = json_out(hq("job", "list", "--all", "--output-mode", "json"))
+        info = json_out(hq("server", "info", "--shard", "all",
+                           "--output-mode", "json"))
+        fed_info = [r.get("federation") or {} for r in info.get("shards", [])]
+
+        # --- the stop -------------------------------------------------------
+        for p in pipes:
+            p.send(("closing", None))
+        for p in pipes:
+            recv(p, "closing")
+        t0 = time.perf_counter()
+        stop = hq("server", "stop")
+        exits = {}
+        try:
+            exits["shard0"] = servers["shard0"][0].wait(FED_EXIT_S)
+        except subprocess.TimeoutExpired:
+            exits["shard0"] = None
+        out["ended"].append("shard0")
+        # the promoted server retires its lease at a clean stop
+        try:
+            wait_for("the successor's stop",
+                     lambda: not (shard_dir(1) / "lease.json").exists(),
+                     FED_EXIT_S)
+            exits["successor"] = 0
+        except AssertionError:
+            exits["successor"] = None
+        standby = servers["standby"][0]
+        standby.send_signal(signal.SIGINT)
+        out["ended"].append("standby")
+        try:
+            exits["standby"] = standby.wait(FED_EXIT_S)
+        except subprocess.TimeoutExpired:
+            exits["standby"] = None
+        stop_s = time.perf_counter() - t0
+        reports = []
+        for p in pipes:
+            p.send(("report", None))
+            reports.append(recv(p, "report"))
+        for p in procs:
+            p.join(30)
+        try:
+            hq.finish(worker_run, worker.wait(30))
+        except subprocess.TimeoutExpired:
+            hq.finish(worker_run, "timeout")
+        mark("stopped")
+
+        # --- checks ---------------------------------------------------------
+        fails = hq.faults({})
+        if listed != [1, 2]:
+            fails.append(f"job list at the root: {listed}")
+        if "ownership epoch" not in status or "shard 1:" not in status:
+            fails.append(f"fleet status: {status[:300]!r}")
+        if sorted(top.get("shards", {})) != ["0", "1"] or any(
+                v is None for v in top["shards"].values()):
+            fails.append(f"top --once at the root: shards "
+                         f"{ {k: v is not None for k, v in top.get('shards', {}).items()} }")
+        if not all(f"job ID: {k + 1}" in submitted[k] for k in (0, 1)):
+            fails.append(f"submits: {submitted}")
+        if "migrated job 1: shard 0 -> 1" not in moved:
+            fails.append(f"fleet migrate: {moved!r}")
+        for j in final:
+            c = j["counters"]
+            if c["finished"] != n_tasks or c["failed"] or c["canceled"]:
+                fails.append(f"job {j['id']} ended {c}")
+        epochs = [(f.get("shard_id"), f.get("lease_epoch"),
+                   f.get("promoted")) for f in fed_info]
+        if epochs != [(0, 1, False), (1, 2, True)]:
+            fails.append(f"server info --shard all: {epochs}")
+        # (the CLI answers an interrupt with 130)
+        if stop["rc"] != 0 or exits != {"shard0": 0, "successor": 0,
+                                        "standby": 130}:
+            fails.append(f"server stop: rc {stop['rc']}, exits {exits}")
+        # every task finished exactly once across both journals (job 1's
+        # finishes before the move on shard 0, after it on shard 1; job 2's
+        # over both of shard 1's incarnations)
+        finishes: dict = {1: {}, 2: {}}
+        first_after: float | None = None
+        for k in (0, 1):
+            boots = 0
+            for rec in Journal.read_all(shard_dir(k) / "journal.bin"):
+                if rec["event"] == "server-uid":
+                    boots += 1
+                elif rec["event"] == "task-finished":
+                    per = finishes.setdefault(rec["job"], {})
+                    per[rec["task"]] = per.get(rec["task"], 0) + 1
+                    if k == 1 and boots == 2 and first_after is None:
+                        first_after = rec["time"]
+        for job, per in finishes.items():
+            twice = [t for t, n in per.items() if n != 1]
+            if sorted(per) != list(range(1, n_tasks + 1)) or twice:
+                fails.append(f"journals: job {job} has {len(per)} tasks "
+                             f"finished, {len(twice)} more than once")
+        lost = [w for r in reports for w in r["lost"]]
+        errors = [e for r in reports for e in r["errors"]]
+        reattached = [s for r in reports for s in r["reattaches"]]
+        if lost or errors:
+            fails.append(f"simulated workers: lost {lost[:5]}, "
+                         f"errors {errors[:3]}")
+        if len(reattached) != len(shard_configs[1]):
+            fails.append(f"{len(reattached)} of shard 1's "
+                         f"{len(shard_configs[1])} workers reattached")
+        want = f"device-{device.type}"
+        checker = GreedyCutScanModel(device=device.type, backend="device")
+        by_process, memory, n_held = {}, {}, 0
+        t0 = time.perf_counter()
+        for tag, (_proc, record) in servers.items():
+            recs = read_records(record)
+            ticks = [r for r in recs if r["kind"] == "tick"]
+            last = ticks[-1] if ticks else {}
+            by_process[tag] = {"solves": len(ticks),
+                               "launches": last.get("launches", 0),
+                               "resident": last.get("resident_launches", 0)}
+            memory[tag] = last.get("device_memory")
+            if any(r["backend"] != want for r in ticks):
+                fails.append(f"{tag}: solves on "
+                             f"{sorted({str(r['backend']) for r in ticks})}")
+            if device.type == "cuda" and (
+                    last.get("launches") != len(ticks)
+                    or last.get("resident_launches") != len(ticks)
+                    or last.get("gang_launches")):
+                fails.append(f"{tag}: K1 {by_process[tag]} for "
+                             f"{len(ticks)} solves")
+            for n, r in enumerate(ticks):
+                try:
+                    check_tick_against_plain(checker, r["kwargs"],
+                                             r["counts"], device, n)
+                except AssertionError as e:
+                    fails.append(f"{tag} solve {n}: {e}")
+                    break
+                n_held += 1
+            ends = [r for r in recs if r["kind"] == "end"]
+            for r in ends:
+                fails += [f"{tag}: {f}" for f in r["failures"]]
+        if not by_process["standby"]["solves"]:
+            fails.append("the promoted successor solved nothing")
+        plain_check_s = time.perf_counter() - t0
+        mark("checked")
+        if fails:
+            raise AssertionError("federation: " + "; ".join(fails))
+        failover = {
+            "kill_to_promotion_s": promote_s,
+            "kill_to_access_s": promote_s + promoted_access_s,
+            "kill_to_first_successor_finish_s":
+                first_after - killed_at if first_after else None,
+            "reattach_s_p50": _pctl(reattached, 50),
+            "reattach_s_max": max(reattached),
+            "reattach_attempts_timed_out": sum(
+                r["attempts_timed_out"] for r in reports),
+            "discarded": sum(r["discarded"] for r in reports),
+            "drain_s": drain_s, "lease_timeout_s": FED_LEASE_S}
+        log("federation_failover", migrate_s=migrate["s"], moved=moved,
+            **failover, card=card)
+        log("federation_stop", stop_s=stop_s, exits=exits,
+            epochs=epochs, card=card)
+        summary = dict(
+            tasks_per_job=n_tasks, service_s=list(service_s),
+            workers={k: len(c) + (k == 0) for k, c in shard_configs.items()},
+            worker_processes=len(procs), access_s=out["access_s"],
+            submit_s=out["submit_s"], reads_s=out["reads_s"],
+            migrate_s=migrate["s"], failover=failover,
+            launches_by_process=by_process, device_memory=memory,
+            solves_held=n_held, plain_check_s=plain_check_s,
+            finished={str(j): len(p) for j, p in finishes.items()},
+            path_phases_s=marks, seconds=time.perf_counter() - t_path,
+            budget_s=FED_BUDGET_S)
+        log("federation_summary", **summary, card=card)
+        return summary
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+        for proc in [p for p, _r in servers.values()] + (
+                [worker] if worker is not None else []) + [
+                r["proc"] for r in hq.runs if "proc" in r]:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(5)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -8060,6 +8748,10 @@ def main() -> int:
         now = time.perf_counter()
         phase_s[name] = round(now - t_phase[0], 3)
         t_phase[0] = now
+        rss, peak = rss_mb()
+        log("phase_lap", name=name, seconds=phase_s[name],
+            total=round(sum(phase_s.values()), 3), rss_mb=rss,
+            peak_rss_mb=peak)
 
     # phase 1: the card and the builds, all started together; the native
     # codec is already loaded (transport/codec builds it at first import)
@@ -8233,6 +8925,7 @@ def main() -> int:
     m_model = MultichipModel(devices=[device] * N_SHARDS)
     multi, m_model, (m_kwargs, m_counts), m_tick = server_path(
         card, device, m_model, tag="multichip",
+        n_sync=N_MULTICHIP_SYNC_TICKS,
         n_pipelined=N_MULTICHIP_PIPELINED_TICKS)
     m_summary = path_summary(multi)
     log("multichip_ticks", shards=N_SHARDS, **m_summary, card=card)
@@ -8255,6 +8948,15 @@ def main() -> int:
         **k2, card=card)
     log("k2_step_split", **k2_step_split(m_case, device, N_SHARDS, k2),
         card=card)
+    # the states of phases 3-10 (a north star of 1M tasks each) are not
+    # read again: they go before the phases that start servers beside
+    # this process (the server path froze them, as a server freezes its
+    # start-up state)
+    del (model, one_tick, last_case, f_case, f_one_tick, s_model, s_kwargs,
+         s_counts, s_tick, m_model, m_kwargs, m_counts, m_tick, mesh, m_case)
+    gc.unfreeze()
+    gc.collect()
+    torch.cuda.empty_cache()
     lap("9_10_multichip_path")
 
     # phase 11: min-utilization workers at the north star (K1 and the host
@@ -8328,6 +9030,10 @@ def main() -> int:
     log("timing", kernel="cut_scan", site="tick", path="sim", **sim_k1,
         card=card)
     lap("20_sim")
+    # phase 21: two shards and a standby over one root, a migration, a
+    # kill -9 of a shard and its promoted successor
+    fed = federation_path(card, device)
+    lap("21_federation")
     log("mapping", native=True,
         default_median_ms=ticks["phases_median_ms"]["mapping"],
         server_sync_median_ms=server_summary["sync"]["phases_median_ms"]
@@ -8405,6 +9111,10 @@ def main() -> int:
             "sim_ms": {k: sim_k1[k] for k in ("ms", "plain_ms", "bound_ms",
                                               "shape")}
             if name == "cut_scan" else None,
+            # phase 21: each shard process's and the standby's (its
+            # promoted successor's) launches and solves
+            "federation_launches_by_process": fed["launches_by_process"]
+            if name == "cut_scan" else {},
             # a fused reactor tick without gang rows launches plain K1
             "reactor_fused_launches": react_fused["launches"]["cut_scan_gang"]
             if name == "cut_scan_gang"
@@ -8480,5 +9190,66 @@ def main() -> int:
     return 0
 
 
+# the idle probes after phase 18 in profiler_bisect: how many, seconds apart
+BISECT_IDLE_PROBES = 4
+BISECT_IDLE_S = 60.0
+
+
+def profiler_bisect(out_dir=".") -> int:
+    """`python3 chip_smoke.py --profiler-bisect [DIR]`: phase 4's profiler
+    window
+    (profiler_probe, at phase 2's bench instance) alone at the start, then
+    BISECT_IDLE_PROBES times BISECT_IDLE_S apart with the process idle,
+    then after each of phases 16, 17 and 18: which phase, or how much of
+    the process's time, leaves the profiler without device events. Writes
+    the windows to DIR/profiler_bisect.json (DIR: the working directory
+    unless given) as they come and prints them as JSON last."""
+    import torch
+
+    from hyperqueue_tpu_torch.ops.build import load_library
+    from hyperqueue_tpu_torch.utils.native import load_native
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    device = torch.device("cuda")
+    install_native_takes()
+    raise_nofile_limit()
+    card = card_info()
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        builds = [pool.submit(load_library, name)
+                  for name in ("cut_scan", "sync_probe", "sharded_scan")]
+        native = pool.submit(load_native)
+        for f in builds:
+            f.result()
+        if native.result() is None:
+            raise AssertionError("the native host scan did not build")
+    global THREADS
+    THREADS = int(load_library("cut_scan")[0].hq_cut_scan_block_threads())
+    case = bench_instance()
+    os.makedirs(out_dir, exist_ok=True)
+    windows = []
+
+    def probe(tag):
+        windows.extend(profiler_probe(case, device, tag, card))
+        with open(os.path.join(out_dir, "profiler_bisect.json"), "w") as f:
+            json.dump(windows, f, indent=1)
+
+    probe("start")
+    # the process idle first: what time alone does to the windows
+    for i in range(BISECT_IDLE_PROBES):
+        time.sleep(BISECT_IDLE_S)
+        probe(f"idle_{i + 1}")
+    for tag, phase in (("after_16", server_start_path),
+                       ("after_17", worker_node_path),
+                       ("after_18", cli_path)):
+        phase(card, device)
+        probe(tag)
+    print(json.dumps({"profiler_bisect": windows}))
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(profiler_bisect(*sys.argv[2:3])
+             if sys.argv[1:2] == ["--profiler-bisect"] else main())

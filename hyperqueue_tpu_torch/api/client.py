@@ -136,8 +136,8 @@ class Client:
         from hyperqueue_tpu_torch.client.connection import open_session
         from hyperqueue_tpu_torch.utils.serverdir import default_server_dir
 
-        # a classic dir gets a ClientSession; a federation root refuses
-        # (item 10)
+        # a classic dir gets a ClientSession, a federation root a
+        # FederatedSession
         self._session = open_session(
             Path(server_dir) if server_dir else default_server_dir()
         )

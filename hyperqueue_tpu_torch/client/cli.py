@@ -4,8 +4,7 @@ Reference: crates/hyperqueue/src/common/cli.rs:186-211 and bin/hq.rs:432-553 —
 subcommand tree: server / worker / submit / job / task / output-log / alloc /
 journal / dashboard. One binary drives everything; here it is
 `python -m hyperqueue_tpu_torch` (`bin/hq` stays the JAX package's). The
-federated paths (`--shards`, `--standby`, `hq fleet`, the fleet view of
-`hq top`) refuse, naming ROADMAP item 10b; the server solves on the CUDA
+server, a federation's shards and its warm standby solve on the CUDA
 device unless `--scheduler cpu` asks for the CPU.
 """
 
@@ -23,6 +22,7 @@ from hyperqueue_tpu_torch import __version__
 from hyperqueue_tpu_torch.client.connection import (
     ClientError,
     ClientSession,
+    FederatedSession,
     open_session,
 )
 from hyperqueue_tpu_torch.client.output import fail, make_output
@@ -52,7 +52,8 @@ def _server_dir(args) -> Path:
 
 
 def _session(args) -> ClientSession:
-    # open_session refuses a federation root (item 10)
+    # open_session routes through a FederatedSession when the server dir
+    # is a federation root (per-shard routing + fan-out)
     try:
         return open_session(_server_dir(args))
     except FileNotFoundError as e:
@@ -114,12 +115,6 @@ def _setup_logging(args=None) -> None:
     setup_logging(getattr(args, "log_format", None))
 
 
-def _refuse_item_10(what: str) -> None:
-    """Exits non-zero: `what` needs the federation plane (federation,
-    leases, ownership), which is not ported yet."""
-    fail(f"{what} comes with {serverdir.ITEM_10}")
-
-
 def _server_device(scheduler: str) -> str:
     """Where the server's models solve: `--scheduler cpu` asks for the
     CPU; every other choice (`tpu` included) solves on the card, and a
@@ -143,19 +138,35 @@ def cmd_server_start(args) -> None:
 
     profile_out = os.environ.get("HQ_PROFILE")
 
-    # federated shards and the warm standby wait for the federation plane
-    if getattr(args, "standby", False):
-        _refuse_item_10("hq server start --standby")
-    if int(getattr(args, "shards", 0) or 0) >= 1:
-        _refuse_item_10("hq server start --shards")
-    if getattr(args, "failover_watch", False):
-        _refuse_item_10("hq server start --failover-watch")
+    # --- federation -----------------------------------------------------
+    shards = int(getattr(args, "shards", 0) or 0)
+    standby = bool(getattr(args, "standby", False))
+    federated = shards >= 1
+    if federated and not standby and args.journal:
+        # a usage error, answered before the device is resolved (which
+        # imports torch)
+        fail(
+            "--journal cannot be combined with --shards: federated "
+            "shards always journal at <shard-dir>/journal.bin so a "
+            "failover successor knows where to restore from"
+        )
     device = _server_device(args.scheduler)
+    if standby:
+        _run_standby(args, shards, device)
+        return
 
     from hyperqueue_tpu_torch.server.bootstrap import Server
 
+    federation_root = None
     server_dir = _server_dir(args)
     journal = Path(args.journal) if args.journal else None
+    shard_id = int(getattr(args, "shard_id", 0) or 0)
+    if federated:
+        from hyperqueue_tpu_torch.server.federation import shard_journal_path
+
+        federation_root = server_dir
+        server_dir = serverdir.shard_path(federation_root, shard_id)
+        journal = shard_journal_path(federation_root, shard_id)
 
     async def go():
         server = Server(
@@ -195,11 +206,20 @@ def cmd_server_start(args) -> None:
             fanout_senders=args.fanout_senders,
             ingest_window=args.ingest_window,
             lazy_array_threshold=args.lazy_array_threshold,
-            shard_id=int(getattr(args, "shard_id", 0) or 0),
+            shard_id=shard_id,
+            shard_count=shards if federated else 1,
+            federation_root=federation_root,
             lease_timeout=args.lease_timeout,
+            failover_watch=getattr(args, "failover_watch", False),
             device=device,
         )
         access = await server.start()
+        if federated:
+            print(
+                f"| shard {shard_id}/{shards} of federation "
+                f"{federation_root}",
+                flush=True,
+            )
         print(
             f"+-- HyperQueue TPU server [{access.server_uid}] --\n"
             f"| clients: {access.host}:{access.client_port}\n"
@@ -216,6 +236,64 @@ def cmd_server_start(args) -> None:
                         filename=profile_out + ".server")
     else:
         asyncio.run(go())
+
+
+def _run_standby(args, shards: int, device: str) -> None:
+    """`hq server start --standby`: warm failover successor + federation
+    coordinator. Holds no shard of its own; claims dead shards through
+    the atomic lease and boots a full restored Server over each, solving
+    on `device` (the card, or the CPU under `--scheduler cpu`)."""
+    import asyncio
+
+    from hyperqueue_tpu_torch.server.federation import standby_main
+
+    root = _server_dir(args)
+    if shards >= 1:
+        # allow the standby to come up FIRST in a deployment: it can
+        # publish the federation descriptor the shards will join — and
+        # GROW an existing one when restarted with a larger --shards
+        # (online shard add; shrinking is rejected)
+        existing = serverdir.load_federation(root)
+        if existing is not None and shards != int(existing["shard_count"]):
+            serverdir.grow_federation(root, shards)
+        else:
+            serverdir.write_federation(root, shards)
+    # keep in lockstep with Server.federation_server_kwargs() — the
+    # peer-promotion path clones the same subset from a live Server, and
+    # a knob present in one list but not the other makes standby- and
+    # peer-promoted successors behave differently for the same shard
+    server_kwargs = dict(
+        device=device,
+        scheduler=args.scheduler,
+        journal_fsync=args.journal_fsync,
+        journal_flush_period=args.journal_flush_period,
+        journal_compact_interval=args.journal_compact_interval,
+        journal_compact_threshold=args.journal_compact_threshold,
+        journal_salvage=args.journal_salvage,
+        heartbeat_timeout_factor=args.heartbeat_timeout_factor,
+        reattach_timeout=args.reattach_timeout,
+        idle_timeout=args.idle_timeout,
+        client_plane=args.client_plane,
+        journal_plane=args.journal_plane,
+        fanout_senders=args.fanout_senders,
+        policy_file=(
+            Path(args.policy_file) if args.policy_file else None
+        ),
+        lazy_array_threshold=args.lazy_array_threshold,
+    )
+    print(f"+-- HyperQueue TPU standby watching {root} --", flush=True)
+    asyncio.run(standby_main(
+        root,
+        server_kwargs=server_kwargs,
+        lease_timeout=args.lease_timeout,
+        coordinate=not getattr(args, "no_coordinator", False),
+        sample_interval=args.coordinator_interval,
+        rebalance=getattr(args, "rebalance", False),
+        # the standby's endpoint keeps hq_federation_shard_up and
+        # failovers_total scrapeable through shard deaths
+        metrics_port=args.metrics_port,
+        metrics_host=args.metrics_host,
+    ))
 
 
 def cmd_server_stop(args) -> None:
@@ -1515,12 +1593,13 @@ def cmd_job_timeline(args) -> None:
 
 def cmd_server_reset_metrics(args) -> None:
     """Zero the server's metrics plane (registry, tracer spans, tick-phase
-    aggregates) so a benchmark can measure a steady-state window.
-    `--shard K|all` selects shards of a federation root (item 10)."""
+    aggregates) so a benchmark can measure a steady-state window. Under a
+    federation root, `--shard K|all` selects the shard(s) — `all` fans
+    out so one reset opens a fleet-wide window."""
     out = make_output(args.output_mode)
     shard = getattr(args, "shard", None)
     with _session(args) as session:
-        if shard is not None:
+        if shard is not None and not isinstance(session, FederatedSession):
             # selector convention (cf. `hq top --shard`): a classic dir
             # must not silently ignore the flag — the user would believe
             # a shard-targeted window was opened when it was not
@@ -1607,17 +1686,66 @@ def cmd_job_accounting(args) -> None:
     )
 
 
+def cmd_fleet_accounting(args) -> None:
+    """Per-label usage rollup across every shard (`hq fleet accounting`;
+    also answers on a classic dir as a single-shard rollup)."""
+    out = make_output(args.output_mode)
+    with _session(args) as session:
+        if isinstance(session, FederatedSession):
+            result = session.request({"op": "accounting", "shard": "all"})
+            records = [
+                rec for rec in result["shards"] if not rec.get("error")
+            ]
+        else:
+            records = [session.request({"op": "accounting"})]
+    header = ["shard", "label", "jobs", "task s", "cpu s", "gpu s",
+              "wait s", "crash", "run"]
+    rows = []
+    for rec in records:
+        rollup = rec.get("rollup") or {}
+        shard = rec.get("shard", 0)
+        for label, agg in (rollup.get("labels") or {}).items():
+            rows.append([
+                shard, label, agg["jobs"],
+                f"{agg['task_seconds']:.3f}",
+                f"{agg['cpu_seconds']:.3f}",
+                f"{agg['gpu_seconds']:.3f}",
+                f"{agg['wait_seconds']:.3f}",
+                agg["crash_retries"], agg["running"],
+            ])
+        totals = rollup.get("totals")
+        if totals and totals["jobs"]:
+            rows.append([
+                shard, "(total)", totals["jobs"],
+                f"{totals['task_seconds']:.3f}",
+                f"{totals['cpu_seconds']:.3f}",
+                f"{totals['gpu_seconds']:.3f}",
+                f"{totals['wait_seconds']:.3f}",
+                totals["crash_retries"], totals["running"],
+            ])
+    if not rows:
+        out.message("no usage recorded yet")
+        return
+    out.table(header, rows)
+
+
 def cmd_alerts(args) -> None:
-    """`hq alerts`: firing SLO burn-rate alerts + the most recent
-    transitions (`--shard K|all` selects shards of a federation root,
-    item 10)."""
+    """`hq alerts [--shard K|all]`: firing SLO burn-rate alerts + the
+    most recent transitions, per shard."""
     out = make_output(args.output_mode)
     shard = getattr(args, "shard", None)
     with _session(args) as session:
-        if shard is not None:
-            fail(f"--shard needs a federation root; "
-                 f"{_server_dir(args)} is a classic server dir")
-        records = [session.request({"op": "alerts"})]
+        if isinstance(session, FederatedSession):
+            result = session.request(
+                {"op": "alerts", "shard": shard if shard is not None
+                 else "all"}
+            )
+            records = result.get("shards") or [result]
+        else:
+            if shard is not None:
+                fail(f"--shard needs a federation root; "
+                     f"{_server_dir(args)} is a classic server dir")
+            records = [session.request({"op": "alerts"})]
     rows = []
     for rec in records:
         if rec.get("error"):
@@ -3087,7 +3215,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--port", type=int, default=9090,
                    help="port to serve on (0 = ephemeral, printed)")
     p.add_argument("--host", default="0.0.0.0")
-    p.set_defaults(fn=cmd_fleet)
+    p.set_defaults(fn=cmd_fleet_metrics_proxy)
     p = fsub.add_parser(
         "trace-export",
         help="one Perfetto timeline for the whole fleet: a row group "
@@ -3096,7 +3224,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     _add_common(p)
     p.add_argument("output", help="output path (e.g. fleet-trace.json)")
-    p.set_defaults(fn=cmd_fleet)
+    p.set_defaults(fn=cmd_fleet_trace_export)
     p = fsub.add_parser(
         "status",
         help="ownership map: per-shard owned-job counts, in-flight "
@@ -3104,7 +3232,7 @@ def build_parser() -> argparse.ArgumentParser:
              "rebalance verdict",
     )
     _add_common(p)
-    p.set_defaults(fn=cmd_fleet)
+    p.set_defaults(fn=cmd_fleet_status)
     p = fsub.add_parser(
         "migrate",
         help="live-migrate one job to another shard: the source seals "
@@ -3120,14 +3248,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="re-drive every in-flight migration intent left "
                         "in the ownership log by a crashed driver, then "
                         "exit (no job/shard arguments needed)")
-    p.set_defaults(fn=cmd_fleet)
+    p.set_defaults(fn=cmd_fleet_migrate)
     p = fsub.add_parser(
         "accounting",
         help="per-label usage rollup for every shard (task/cpu/gpu/wait "
              "seconds, crash retries) from each shard's ledger",
     )
     _add_common(p)
-    p.set_defaults(fn=cmd_fleet)
+    p.set_defaults(fn=cmd_fleet_accounting)
     p = fsub.add_parser(
         "profile",
         help="folded profiler stacks from every shard in one stream "
@@ -3138,7 +3266,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="sample a fresh N-second window on each shard")
     p.add_argument("--format", choices=["folded", "json"],
                    default="folded")
-    p.set_defaults(fn=cmd_fleet)
+    p.set_defaults(fn=cmd_fleet_profile)
 
     # alerts: SLO burn-rate alert state (ISSUE 18)
     p = sub.add_parser(
@@ -3319,10 +3447,143 @@ def cmd_top(args) -> None:
         raise SystemExit(rc)
 
 
-def cmd_fleet(args) -> None:
-    """`hq fleet ...`: every subcommand reads or drives a federation root
-    (shards, ownership log, migrations)."""
-    _refuse_item_10(f"hq fleet {args.fleet_cmd}")
+def cmd_fleet_metrics_proxy(args) -> None:
+    """`hq fleet metrics-proxy`: one scrape covers the fleet — every
+    shard's exposition under a `shard` label, dead shards visible as
+    hq_federation_shard_up 0."""
+    from hyperqueue_tpu_torch.client.fleet import run_metrics_proxy
+
+    try:
+        run_metrics_proxy(_server_dir(args), args.port, host=args.host)
+    except ValueError as e:
+        fail(str(e))
+    except KeyboardInterrupt:
+        pass
+
+
+def cmd_fleet_trace_export(args) -> None:
+    """`hq fleet trace-export <out.json>`: the whole fleet as one
+    Perfetto timeline, a row group per shard."""
+    from hyperqueue_tpu_torch.client.fleet import export_fleet_trace
+
+    try:
+        trace = export_fleet_trace(_server_dir(args))
+    except ValueError as e:
+        fail(str(e))
+    with open(args.output, "w") as f:
+        json.dump(trace, f)
+    meta = trace.get("metadata") or {}
+    down = meta.get("down") or []
+    make_output(args.output_mode).message(
+        f"fleet trace written to {args.output} "
+        f"({meta.get('shards', 0)} shard(s), "
+        f"{len(trace.get('traceEvents') or ())} event(s)"
+        + (f", DOWN: {down}" if down else "")
+        + "); load at ui.perfetto.dev"
+    )
+
+
+def cmd_fleet_profile(args) -> None:
+    """`hq fleet profile`: folded profiler stacks from every shard in one
+    stream. On a classic server dir it degrades to a single-server
+    profile (same convention as `hq fleet accounting`)."""
+    fed = serverdir.load_federation(_server_dir(args))
+    args.shard = "all" if fed is not None else None
+    cmd_server_profile(args)
+
+
+def cmd_fleet_status(args) -> None:
+    """`hq fleet status`: the ownership map as operators read it —
+    who owns what, what is mid-move, what the rebalancer last did."""
+    from hyperqueue_tpu_torch.client.connection import ClientSession
+    from hyperqueue_tpu_torch.client.fleet import shard_count_of
+    from hyperqueue_tpu_torch.utils.ownership import OwnershipStore
+
+    root = _server_dir(args)
+    try:
+        n = shard_count_of(root)
+    except ValueError as e:
+        fail(str(e))
+    omap = OwnershipStore(root).load()
+    moved_in = omap.owned_counts()
+    lines = [
+        f"federation: {max(n, omap.shard_count)} shard(s) "
+        f"(base {omap.base_shard_count}), "
+        f"ownership epoch {omap.epoch}"
+    ]
+    for k in range(max(n, omap.shard_count)):
+        shard_dir = serverdir.shard_path(root, k)
+        try:
+            with ClientSession(shard_dir, retry_window=2.0) as session:
+                jobs = session.request({"op": "job_list"}).get("jobs", [])
+            owned = len(jobs)
+            live = sum(
+                1 for j in jobs
+                if j.get("status") in ("running", "waiting", "opened")
+            )
+            detail = f"{owned} job(s) owned, {live} active"
+            if moved_in.get(k):
+                detail += f", {moved_in[k]} migrated in"
+        except (OSError, ClientError, FileNotFoundError) as e:
+            detail = f"DOWN ({e})"
+        lines.append(f"  shard {k}: {detail}")
+    in_flight = omap.in_flight()
+    if in_flight:
+        lines.append("in-flight migrations:")
+        for rec in in_flight:
+            lines.append(
+                f"  {rec['mig']}: job {rec['job']} shard {rec['from']} "
+                f"-> {rec['to']} ({rec['phase']})"
+            )
+    else:
+        lines.append("in-flight migrations: none")
+    if omap.verdicts:
+        v = omap.verdicts[-1]
+        moved = v.get("moved")
+        what = (f"moved job {moved}" if moved
+                else "no move" + (f" (job {v['job']})" if v.get("job")
+                                  else ""))
+        lines.append(
+            f"last rebalance: {what} shard {v.get('from')} -> "
+            f"{v.get('to')} — {v.get('reason', '')}"
+        )
+    make_output(args.output_mode).message("\n".join(lines))
+
+
+def cmd_fleet_migrate(args) -> None:
+    """`hq fleet migrate <job> <shard>` (or `--recover`): drive the
+    exactly-once live migration protocol from the CLI."""
+    from hyperqueue_tpu_torch.server.federation import (
+        MigrationError,
+        drive_migration,
+        recover_migrations,
+    )
+
+    root = _server_dir(args)
+    out = make_output(args.output_mode)
+    if args.recover:
+        moves = recover_migrations(root)
+        if not moves:
+            out.message("no in-flight migrations to recover")
+        for move in moves:
+            out.message(
+                f"recovered {move['mig']}: job {move['job']} shard "
+                f"{move['from']} -> {move['to']} ({move['seconds']}s)"
+            )
+        return
+    if args.job_id is None or args.to_shard is None:
+        fail("usage: hq fleet migrate <job_id> <to_shard> "
+             "(or hq fleet migrate --recover)")
+    try:
+        move = drive_migration(root, args.job_id, args.to_shard)
+    except MigrationError as e:
+        fail(str(e))
+    except Exception as e:  # noqa: BLE001 - MigrationClaimed and friends
+        fail(str(e))
+    out.message(
+        f"migrated job {move['job']}: shard {move['from']} -> "
+        f"{move['to']} ({move['mig']}, {move['seconds']}s)"
+    )
 
 
 def cmd_job_submit_file(args) -> None:
@@ -3411,10 +3672,9 @@ def main(argv: list[str] | None = None) -> None:
             args._stdin_data = stdin_data
     try:
         args.fn(args)
-    except (ClientError, ValueError, NotImplementedError) as e:
-        # user-input errors (bad amounts, selectors, resource defs) and the
-        # refusals of what is not ported yet must be one clean line, not a
-        # traceback
+    except (ClientError, ValueError) as e:
+        # user-input errors (bad amounts, selectors, resource defs) must be
+        # one clean line, not a traceback
         fail(str(e))
     except FileNotFoundError as e:
         fail(str(e))

@@ -65,7 +65,7 @@ _RETRIABLE = (ConnectionError, OSError, asyncio.IncompleteReadError,
 
 class ClientError(Exception):
     """Server-reported error. `code`/`owner` carry the machine-readable
-    half of coded errors (ISSUE 17): code="wrong-shard" + owner=<shard>
+    half of coded errors: code="wrong-shard" + owner=<shard>
     is the redirect hint a federated client retries on; code="migrating"
     means the job is sealed mid-move — retry shortly."""
 
@@ -213,26 +213,297 @@ class ClientSession:
 
 
 class FederatedSession:
-    """The federated client session (per-shard routing and fan-out over a
-    federation root) comes with the federation plane; the name stays so
-    that imports resolve."""
+    """ClientSession-shaped facade over a federated server dir.
+
+    Routes each request to the shard that owns it — through a cached
+    :class:`~hyperqueue_tpu_torch.client.routing.Resolver` over the federation
+    root's ownership log (modulo partition until a job migrates), so any
+    request naming a job routes directly; a shard that answers
+    ``wrong-shard`` (the job migrated since the cache was read) triggers
+    one refresh-and-retry toward the owner it names, and ``migrating``
+    (the job is mid-move) a short wait-and-retry. Cluster-wide reads
+    (job_list, worker_list) fan out to every live shard and merge;
+    submits/open_job pick a shard round-robin from a random start (pin
+    with HQ_SHARD). Per-shard ClientSessions open lazily and are reused,
+    each with the full reconnect/retry machinery — so a request that
+    lands during a shard failover rides it out exactly like against a
+    restarting standalone server.
+    """
+
+    # ops fanned out to every shard, responses merged; a shard with no
+    # running server is skipped (a cleanly-stopped shard's jobs are
+    # still listed by its siblings)
+    _FAN_OUT = frozenset({"job_list", "worker_list", "stop_server"})
 
     def __init__(self, server_dir: Path, retry_window: float | None = None,
                  shard_count: int | None = None):
-        raise NotImplementedError(
-            f"federated sessions come with {serverdir.ITEM_10}"
-        )
+        from hyperqueue_tpu_torch.client.routing import Resolver
+
+        self.server_dir = Path(server_dir)
+        self.retry_window = retry_window
+        if shard_count is None:
+            fed = serverdir.load_federation(self.server_dir)
+            if fed is None:
+                raise ValueError(f"no federation at {server_dir}")
+            shard_count = fed["shard_count"]
+        # ALL job routing goes through the resolver: ownership
+        # map when one exists, the boot-time modulo otherwise. Its shard
+        # count folds in shards added online, which the descriptor count
+        # the caller read may predate.
+        self.resolver = Resolver(self.server_dir, shard_count)
+        self.shard_count = self.resolver.shard_count
+        self._sessions: dict[int, ClientSession] = {}
+        env_shard = os.environ.get("HQ_SHARD")
+        self._pin_submits = env_shard not in (None, "")
+        if self._pin_submits:
+            try:
+                self._submit_shard = int(env_shard) % self.shard_count
+            except ValueError:
+                import logging
+
+                logging.getLogger("hq.client").warning(
+                    "ignoring malformed HQ_SHARD=%r; picking randomly",
+                    env_shard,
+                )
+                self._pin_submits = False
+        if not self._pin_submits:
+            self._submit_shard = random.randrange(self.shard_count)
+
+    # --- shard sessions -------------------------------------------------
+    def shard_session(self, shard_id: int) -> ClientSession:
+        session = self._sessions.get(shard_id)
+        if session is None:
+            try:
+                session = ClientSession(
+                    serverdir.shard_path(self.server_dir, shard_id),
+                    retry_window=self.retry_window,
+                )
+            except FileNotFoundError as e:
+                # sessions open lazily INSIDE request(), past the CLI's
+                # construction-time FileNotFoundError handling — surface
+                # a clean client error, not a raw traceback
+                raise ClientError(str(e)) from e
+            self._sessions[shard_id] = session
+        return session
+
+    def _drop_session(self, shard_id: int) -> None:
+        """Forget a shard's cached session, closing its socket + private
+        event loop (popping without close would leak both)."""
+        session = self._sessions.pop(shard_id, None)
+        if session is not None:
+            try:
+                session.close()
+            except Exception:  # noqa: BLE001 - already broken
+                pass
+
+    def session_for_job(self, job_id: int) -> ClientSession:
+        return self.shard_session(self.resolver.shard_for_job(job_id))
+
+    def _request_routed(self, job_id: int, msg: dict, timeout) -> dict:
+        """Job-routed request with ONE wrong-shard redirect: a stale
+        route (the job migrated after the resolver's read — or HQ_SHARD
+        pinned the old owner) answers code="wrong-shard" with the owner;
+        refresh the map and retry there. code="migrating" waits out the
+        move's seal window, then routes by the refreshed map."""
+        deadline = clock.monotonic() + 10.0
+        redirected = False
+        while True:
+            try:
+                return self.session_for_job(job_id).request(msg, timeout)
+            except ClientError as e:
+                if e.code == "migrating" and clock.monotonic() < deadline:
+                    time.sleep(0.2)
+                    self.resolver.refresh()
+                    continue
+                if e.code != "wrong-shard" or redirected:
+                    raise
+                redirected = True
+                self.resolver.refresh()
+                if e.owner is not None:
+                    return self.shard_session(int(e.owner)).request(
+                        msg, timeout
+                    )
+
+    def submit_session(self) -> ClientSession:
+        """The shard for a NEW job: round-robin from a random start so
+        independent clients spread; HQ_SHARD pins it."""
+        shard = self._submit_shard
+        if not self._pin_submits:
+            self._submit_shard = (shard + 1) % self.shard_count
+        return self.shard_session(shard)
+
+    # worker-targeted ops: worker ids are allocated PER SHARD and collide
+    # across shards, so these must name their shard explicitly — routing
+    # a bare id anywhere would silently hit the wrong shard's worker
+    _WORKER_OPS = frozenset({"worker_stop", "worker_info"})
+
+    # --- routing --------------------------------------------------------
+    def request(self, msg: dict, timeout: float | None = None) -> dict:
+        op = msg.get("op")
+        if op in self._WORKER_OPS or (
+            op == "worker_list" and msg.get("shard") is not None
+        ):
+            shard = msg.pop("shard", None)
+            if shard is None:
+                raise ClientError(
+                    "federation: worker ids are per shard; pass --shard K"
+                )
+            return self.shard_session(int(shard)).request(msg, timeout)
+        if op in self._FAN_OUT:
+            return self._fan_out(msg, timeout)
+        if "job_ids" in msg:
+            return self._by_job_ids(msg, timeout)
+        if "job_id" in msg and msg["job_id"] is not None:
+            return self._request_routed(msg["job_id"], msg, timeout)
+        if op in ("submit", "open_job"):
+            job_id = (msg.get("job") or {}).get("job_id")
+            if job_id:
+                return self._request_routed(job_id, msg, timeout)
+            return self.submit_session().request(msg, timeout)
+        shard = msg.pop("shard", None)
+        if shard in ("all", -1, "-1") and op in (
+            "server_info", "server_stats", "reset_metrics", "alerts",
+            "accounting", "profile",
+        ):
+            # per-shard fan-out: one record per shard (tick latencies and
+            # lease states are per-shard facts — never summed; a
+            # reset_metrics window must cover every shard's registry)
+            records = [
+                resp if resp is not None
+                else {"op": op, "shard_id": k, "error": str(err)}
+                for k, resp, err in self._per_shard(msg, timeout)
+            ]
+            return {"op": op, "shards": records}
+        try:
+            shard_id = int(shard) if shard is not None else 0
+        except (TypeError, ValueError):
+            # a typo'd --shard must not silently answer with shard 0's
+            # state (e.g. its lease/promoted flags) labeled as another's
+            raise ClientError(
+                f"invalid shard selector {shard!r}; pass "
+                f"0..{self.shard_count - 1} or 'all'"
+            ) from None
+        if not (0 <= shard_id < self.shard_count):
+            raise ClientError(
+                f"shard {shard_id} outside 0..{self.shard_count - 1}"
+            )
+        return self.shard_session(shard_id).request(msg, timeout)
+
+    def _per_shard(self, msg: dict, timeout):
+        """Request every shard in turn, yielding (shard, response, error)
+        with error set (and the dead session dropped) instead of raising
+        — a down shard must not fail a cluster-wide read."""
+        for shard in range(self.shard_count):
+            try:
+                yield shard, self.shard_session(shard).request(
+                    dict(msg), timeout
+                ), None
+            except (FileNotFoundError, ConnectionError, OSError,
+                    ClientError) as e:
+                self._drop_session(shard)
+                yield shard, None, e
+
+    def _by_job_ids(self, msg: dict, timeout) -> dict:
+        if not msg["job_ids"]:
+            # empty selector: any shard answers the empty request
+            return self.shard_session(0).request(msg, timeout)
+        migrating_deadline = clock.monotonic() + 10.0
+        for attempt in range(32):
+            groups: dict[int, list[int]] = {}
+            for job_id in msg["job_ids"]:
+                groups.setdefault(
+                    self.resolver.shard_for_job(job_id), []
+                ).append(job_id)
+            responses = []
+            try:
+                for shard, ids in sorted(groups.items()):
+                    sub = dict(msg)
+                    sub["job_ids"] = ids
+                    responses.append(
+                        self.shard_session(shard).request(sub, timeout)
+                    )
+            except ClientError as e:
+                # a group routed to a shard that lost (or is losing)
+                # those jobs: refresh the map and re-group. wrong-shard
+                # answers each imply a REAL committed migration (a
+                # long-blocked `job wait` sees one per rebalancer move,
+                # so a single retry is not enough); migrating is a
+                # transient seal window and gets a bounded wait instead
+                if e.code == "wrong-shard" and attempt < 31:
+                    self.resolver.refresh()
+                    continue
+                if e.code == "migrating" and (
+                    clock.monotonic() < migrating_deadline
+                ):
+                    time.sleep(0.2)
+                    self.resolver.refresh()
+                    continue
+                raise
+            return _merge_responses(responses)
+
+    def _fan_out(self, msg: dict, timeout) -> dict:
+        responses = []
+        errors: list[Exception] = []
+        for _shard, resp, err in self._per_shard(msg, timeout):
+            # a shard with no running server is skipped (its siblings
+            # still answer); errors kept in case ALL are down
+            if resp is not None:
+                responses.append(resp)
+            else:
+                errors.append(err)
+        if not responses:
+            raise errors[0] if errors else ClientError("no live shards")
+        return _merge_responses(responses)
+
+    def close(self) -> None:
+        for session in self._sessions.values():
+            try:
+                session.close()
+            except Exception:  # noqa: BLE001 - close the rest regardless
+                pass
+        self._sessions.clear()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def _merge_responses(responses: list[dict]) -> dict:
+    """Merge per-shard responses of one fan-out op: lists concatenate,
+    numbers sum, everything else keeps the first shard's value (`op` and
+    friends are identical across shards anyway)."""
+    if len(responses) == 1:
+        return responses[0]
+    merged: dict = dict(responses[0])
+    for resp in responses[1:]:
+        for key, value in resp.items():
+            if key not in merged:
+                merged[key] = value
+            elif isinstance(value, list) and isinstance(merged[key], list):
+                merged[key] = merged[key] + value
+            elif isinstance(value, (int, float)) and not isinstance(
+                value, bool
+            ) and isinstance(merged[key], (int, float)):
+                merged[key] = merged[key] + value
+    return merged
 
 
 def open_session(server_dir: Path, retry_window: float | None = None):
-    """ClientSession for a classic server dir — the CLI's one entry point.
-    A federation root refuses (load_federation names item 10)."""
-    serverdir.load_federation(Path(server_dir))
-    return ClientSession(server_dir, retry_window=retry_window)
+    """ClientSession for a classic server dir, FederatedSession when
+    `server_dir` is a federation root — the CLI's one entry point."""
+    fed = serverdir.load_federation(Path(server_dir))
+    if fed is None:
+        return ClientSession(server_dir, retry_window=retry_window)
+    return FederatedSession(
+        server_dir, retry_window=retry_window,
+        shard_count=fed["shard_count"],
+    )
 
 
 class SubmitStream:
-    """Pipelined chunked submit over one ClientSession (ISSUE 10).
+    """Pipelined chunked submit over one ClientSession.
 
     Chunks are tagged with (stream uid, chunk index) and sent without
     waiting for each response; the client keeps a bounded in-flight
@@ -258,6 +529,21 @@ class SubmitStream:
                  window: int | None = None, uid: str | None = None):
         from hyperqueue_tpu_torch.utils.trace import new_trace_id
 
+        self._fed: FederatedSession | None = None
+        if isinstance(session, FederatedSession):
+            # a stream lives on ONE shard at a time: the owning shard for
+            # a pinned job id, a submit shard otherwise. The federated
+            # session is KEPT: if the job migrates mid-stream
+            # the shard answers a coded error and the stream re-resolves,
+            # switches shards, and replays its unacked chunks — the
+            # destination imported the stream's applied-index set, so the
+            # replay dedups exactly-once.
+            self._fed = session
+            job_id = header.get("job_id")
+            session = (
+                session.session_for_job(job_id)
+                if job_id else session.submit_session()
+            )
         self.session = session
         self.header = dict(header)
         if window is None:
@@ -273,6 +559,7 @@ class SubmitStream:
         self._next_index = 0
         self._unacked: dict[int, dict] = {}
         self._sealed = False
+        self._redirects = 0
 
     # --- wire helpers (session-loop, with reconnect + replay) -----------
     def _replay_unacked(self) -> None:
@@ -322,6 +609,12 @@ class SubmitStream:
 
         ack = self._with_retry(step)
         if not isinstance(ack, dict) or ack.get("op") == "error":
+            code = ack.get("code") if isinstance(ack, dict) else None
+            if code in ("wrong-shard", "migrating") and (
+                self._fed is not None
+            ):
+                self._follow_migration(ack.get("owner"), code)
+                return self._recv_ack()
             msg = (ack or {}).get("message", "server error")
             err = ClientError(msg)
             if isinstance(ack, dict):
@@ -341,6 +634,38 @@ class SubmitStream:
         # total must still cover it
         if frame is not None:
             self.n_tasks += _frame_task_count(frame)
+
+    def _follow_migration(self, owner, code: str) -> None:
+        """The stream's job moved (or is moving) mid-stream: switch to
+        the owning shard's session and replay every unacked chunk there.
+        Bounded — a stream bouncing between shards means routing itself
+        is broken, and looping would mask that."""
+        self._redirects += 1
+        if self._redirects > 8:
+            raise ClientError(
+                "submit stream redirected too many times; "
+                "federation routing is inconsistent"
+            )
+        fed = self._fed
+        # the abandoned session's socket may hold unread error responses
+        # for chunks still in flight when the first error arrived; drop
+        # it from the cache so no later request reads a stale reply
+        for shard_id, cached in list(fed._sessions.items()):
+            if cached is self.session:
+                fed._drop_session(shard_id)
+        fed.resolver.refresh()
+        if code == "migrating" or owner is None:
+            # mid-move seal window: wait for the commit to land, then
+            # route by the refreshed ownership map
+            time.sleep(0.25)
+            fed.resolver.refresh()
+            owner = fed.resolver.shard_for_job(
+                self.job_id
+                if self.job_id is not None
+                else self.header.get("job_id")
+            )
+        self.session = fed.shard_session(int(owner))
+        self._replay_unacked()
 
     def _send_frame(self, frame: dict) -> None:
         while len(self._unacked) >= self.window:
@@ -410,10 +735,15 @@ def _frame_task_count(frame: dict) -> int:
 
 def _resolve_stream_dir(server_dir: Path, shard: int = 0) -> Path:
     """Streaming surfaces (journal stream, dashboard, subscribe) attach
-    to ONE server; a federation root, whose shards each stream their own
-    lineage, refuses until the federation plane is ported (item 10)."""
-    serverdir.load_federation(Path(server_dir))
-    return Path(server_dir)
+    to ONE server: against a federation root, resolve to a shard's
+    nested dir (default shard 0 — pass `shard`, or the shard dir itself,
+    for another; cross-shard event-stream merging is not a thing, each
+    shard's journal is its own lineage)."""
+    server_dir = Path(server_dir)
+    fed = serverdir.load_federation(server_dir)
+    if fed is not None:
+        return serverdir.shard_path(server_dir, shard)
+    return server_dir
 
 
 def _streaming_request(server_dir: Path, request: dict, on_subscribed=None,

@@ -8,8 +8,7 @@ signal source for the autoscaler (queue depth, pending reasons, per-worker
 load); top is its human face.
 
 ``--once`` prints a single sample (JSON under ``--output-mode json``) and
-exits — the scriptable/testing entry point. The fleet view over a
-federation root comes with the federation plane (ROADMAP item 10).
+exits — the scriptable/testing entry point.
 """
 
 from __future__ import annotations
@@ -122,22 +121,237 @@ def _render(sample: dict, ticker: deque, dropped: int) -> str:
     return "\n".join(lines)
 
 
+def _alert_badge(sample: dict | None, state: str) -> str:
+    """SLO alert badge for one shard. A DOWN shard has no
+    sample to carry its badge, but its very downness IS the
+    shard-availability SLO breach — render that instead of a blank."""
+    if sample is None:
+        return "avail!" if state != "up" else "-"
+    alerts = sample.get("alerts") or {}
+    firing = alerts.get("firing", 0)
+    if not firing:
+        return "ok"
+    worst = alerts.get("worst") or "page"
+    mark = "!" if worst == "page" else "~"
+    return f"{firing}{mark}{worst}"
+
+
+def _fleet_row(shard: int, state: str, sample: dict | None) -> str:
+    """One shard's line in the fleet table (DOWN shards render a row —
+    that is the whole point; the client never crashes on a dead shard)."""
+    badge = _alert_badge(sample, state)
+    if sample is None:
+        return f"{shard:>5} {state.upper():<9} {'-':>5} {'-':>7} " \
+               f"{'-':>7} {'-':>7} {'-':>7} {'-':>6} {'-':>8} {'-':>5} " \
+               f"{badge:>7}"
+    fed = sample.get("federation") or {}
+    lag = (sample.get("lag") or {}).get("loop") or {}
+    label = "UP"
+    if fed.get("promoted"):
+        label = "UP*"  # promoted successor
+    borrowed = fed.get("workers_borrowed", 0)
+    return (
+        f"{shard:>5} {label:<9} "
+        f"{fed.get('lease_epoch', '-'):>5} "
+        f"{sample.get('n_workers', 0):>7} "
+        f"{borrowed:>7} "
+        f"{sample.get('running', 0):>7} "
+        f"{sample.get('ready', 0) + sample.get('mn_queued', 0):>7} "
+        f"{len(sample.get('pending_reasons') or {}):>6} "
+        + (f"{lag['last_ms']:>8.1f} " if lag.get("last_ms") is not None
+           else f"{'-':>8} ")
+        + f"{sample.get('alloc_quarantined', 0):>5} "
+        + f"{badge:>7}"
+    )
+
+
+def _backlog_convergence(samples: dict) -> str | None:
+    """One line tracking the rebalancer's target function: max/mean
+    backlog ratio across live shards (the hysteresis band is 1.5x — the
+    line makes a rebalance visibly converge under `hq top`)."""
+    backlogs = {
+        k: (s.get("ready", 0) + s.get("mn_queued", 0))
+        for k, s in samples.items() if s is not None
+    }
+    if len(backlogs) < 2:
+        return None
+    mean = sum(backlogs.values()) / len(backlogs)
+    hot = max(backlogs, key=backlogs.get)
+    if mean <= 0:
+        return "backlog: balanced (all empty)"
+    ratio = backlogs[hot] / mean
+    return (
+        f"backlog: max {backlogs[hot]} (shard {hot}) mean {mean:.1f} "
+        f"ratio {ratio:.2f}x"
+        + (" — imbalanced (rebalance target >1.50x)" if ratio > 1.5
+           else " — converged")
+    )
+
+
+def _render_fleet(states: dict, samples: dict, ticker: deque,
+                  lend_flows: dict, ownership: dict | None = None) -> str:
+    """The fleet view: per-shard health rows + backlog convergence +
+    in-flight migrations + lending flows + merged event ticker.
+    Everything but the ownership block comes off the FleetFeed — no
+    polling; the ownership block is one lock-free log read per frame."""
+    up = sum(1 for s in states.values() if s == "up")
+    lines = [
+        f"hq fleet — {len(states)} shard(s), {up} up",
+        f"{'shard':>5} {'state':<9} {'epoch':>5} {'workers':>7} "
+        f"{'borrow':>7} {'running':>7} {'backlog':>7} {'wait':>6} "
+        f"{'lag ms':>8} {'quar':>5} {'alerts':>7}",
+    ]
+    for shard in sorted(states):
+        state = "up" if states[shard] == "up" else "down"
+        lines.append(_fleet_row(shard, state, samples.get(shard)))
+    conv = _backlog_convergence(samples)
+    if conv:
+        lines.append(conv)
+    if ownership:
+        for rec in ownership.get("in_flight") or ():
+            lines.append(
+                f"migrating: job {rec['job']} shard {rec['from']} -> "
+                f"{rec['to']} ({rec['phase']}, {rec['mig']})"
+            )
+        if ownership.get("moved"):
+            lines.append(
+                f"ownership: epoch {ownership.get('epoch', 0)}, "
+                f"{ownership['moved']} job(s) on non-home shards"
+            )
+    if lend_flows:
+        lines.append(
+            "lend flows: " + "  ".join(
+                f"{a}→{b} ×{n}"
+                for (a, b), n in sorted(lend_flows.items())
+            )
+        )
+    if ticker:
+        lines.append("")
+        lines.append("recent events:")
+        for rec in list(ticker)[-10:]:
+            t = time.strftime("%H:%M:%S", time.localtime(rec.get("time", 0)))
+            rest = {
+                k: v for k, v in rec.items()
+                if k not in ("time", "seq", "event", "desc", "metrics",
+                             "hw", "shard")
+            }
+            lines.append(
+                f"  {t} [shard {rec.get('shard')}] "
+                f"{rec.get('event')} {rest}"
+            )
+    return "\n".join(lines)
+
+
+def _note_lend_flow(rec: dict, lend_flows: dict) -> None:
+    """Fold one structured lend event into the flow counters: the
+    lender's worker-lost carries `lent_to`, the borrower's
+    worker-connected carries `lent_from` (no string parsing).
+    Counted from the lender side only, so one move is one increment."""
+    if rec.get("event") == "worker-lost" and rec.get("lent_to") is not None:
+        key = (rec.get("shard"), rec["lent_to"])
+        lend_flows[key] = lend_flows.get(key, 0) + 1
+
+
+def run_fleet_top(server_dir: Path, interval: float = 1.0,
+                  once: bool = False, output_mode: str = "cli") -> int:
+    """`hq top` against a federation root: the whole fleet as one view,
+    fed by one FleetFeed (a subscribe stream per shard, merged). A
+    killed shard flips to DOWN and back to UP after its successor
+    promotes — the view rides failovers, it never crashes on them."""
+    from hyperqueue_tpu_torch.client.fleet import FleetFeed, fleet_snapshot
+
+    def ownership_block() -> dict | None:
+        from hyperqueue_tpu_torch.utils.ownership import OwnershipStore
+
+        try:
+            omap = OwnershipStore(server_dir).load()
+        except OSError:
+            return None
+        return {
+            "epoch": omap.epoch,
+            "moved": len(omap.assignments),
+            "in_flight": omap.in_flight(),
+        }
+
+    if once:
+        samples = fleet_snapshot(server_dir, sample_interval=min(
+            max(interval, 0.2), 1.0
+        ))
+        states = {
+            k: ("up" if s is not None else "down")
+            for k, s in samples.items()
+        }
+        if output_mode == "json":
+            out = {
+                str(k): (
+                    {kk: vv for kk, vv in s.items() if kk != "op"}
+                    if s is not None else None
+                )
+                for k, s in samples.items()
+            }
+            print(json.dumps({"shards": out}))
+        else:
+            print(_render_fleet(states, samples, deque(), {},
+                                ownership_block()))
+        return 0
+
+    ticker: deque = deque(maxlen=64)
+    lend_flows: dict = {}
+    is_tty = sys.stdout.isatty()
+    feed = FleetFeed(server_dir, sample_interval=max(interval, 0.2))
+    try:
+        with feed:
+            for frame in feed.frames():
+                op = frame.get("op")
+                if op == "events":
+                    for rec in frame.get("records") or ():
+                        _note_lend_flow(rec, lend_flows)
+                        if not str(rec.get("event", "")).startswith(
+                            _TICKER_SKIP
+                        ):
+                            ticker.append(rec)
+                elif op not in ("sample", "shard-down", "shard-up"):
+                    continue
+                view = _render_fleet(
+                    dict(feed.states), dict(feed.last_sample), ticker,
+                    lend_flows, ownership_block(),
+                )
+                if is_tty:
+                    sys.stdout.write("\x1b[H\x1b[J" + view + "\n")
+                else:
+                    sys.stdout.write(view + "\n---\n")
+                sys.stdout.flush()
+    except KeyboardInterrupt:
+        return 0
+    return 0
+
+
 def run_top(server_dir: Path, interval: float = 1.0, once: bool = False,
             output_mode: str = "cli", shard: int | None = None) -> int:
     """Drive the live view until interrupted (or one sample with --once).
 
-    The fleet view of a federation root, and ``--shard K`` with it, come
-    with the federation plane: a root refuses (item 10)."""
+    Against a federation root this is the FLEET view (all shards, DOWN
+    rows included) unless ``--shard K`` focuses one shard — which uses
+    the classic single-server view over that shard's subscribe feed."""
     from hyperqueue_tpu_torch.client.connection import subscribe
     from hyperqueue_tpu_torch.utils import serverdir
 
-    serverdir.load_federation(Path(server_dir))
+    fed = serverdir.load_federation(Path(server_dir))
+    if shard is None and fed is not None:
+        return run_fleet_top(server_dir, interval=interval, once=once,
+                             output_mode=output_mode)
     if shard is not None:
-        # the info|stats --shard convention: a classic dir must not
-        # silently ignore the flag
-        print(f"--shard needs a federation root; {server_dir} is a "
-              "classic server dir", file=sys.stderr)
-        return 1
+        # the info|stats --shard convention: a typo'd selector fails
+        # loudly instead of hanging on a nonexistent shard dir, and a
+        # classic dir must not silently ignore the flag
+        if fed is None:
+            print(f"--shard needs a federation root; {server_dir} is a "
+                  "classic server dir", file=sys.stderr)
+            return 1
+        count = int(fed["shard_count"])
+        if not (0 <= shard < count):
+            print(f"shard {shard} outside 0..{count - 1}", file=sys.stderr)
+            return 1
 
     ticker: deque = deque(maxlen=64)
     last_sample: dict | None = None

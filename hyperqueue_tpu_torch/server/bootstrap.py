@@ -9,13 +9,15 @@ the sampling profiler. The journal's open and close are `_open_journal`
 and `_close_journal`, which `start()` and `shutdown()` call.
 
 The allocation service (`autoalloc/`) runs beside the loops, and the
-chaos plane's server sites fire under `HQ_FAULT_PLAN`. What belongs to
-federation, leases, ownership, worker lending and live migration waits
-for ROADMAP Queue 1 item 10b: those RPCs answer an error naming it, and
-a constructor keyword (or a fault plan naming a federation site) that
-needs it refuses. With `memory_transport=True` the server opens no
-listener: the deterministic simulator (`sim/`) injects its connections
-through `accept_worker`/`accept_client`.
+chaos plane's server sites fire under `HQ_FAULT_PLAN`. A federated server
+(`federation_root=`, `shard_count=`) holds its shard's lease from before
+the journal opens to the end, is fenced (and stops without stopping its
+workers) when a successor claims the lease, lends idle workers and
+exports or imports jobs live (`server/federation.py` drives both); with
+`failover_watch=True` it also promotes dead siblings in its own process.
+With `memory_transport=True` the server opens no listener: the
+deterministic simulator (`sim/`) injects its connections through
+`accept_worker`/`accept_client`.
 
 Reference: crates/hyperqueue/src/server/bootstrap.rs (init_hq_server),
 crates/tako/src/internal/server/rpc.rs (connection handling) and
@@ -138,12 +140,6 @@ _TASK_QUEUE_AGE = REGISTRY.histogram(
 
 # default deadline for a drain nobody bounded explicitly
 DRAIN_TIMEOUT_DEFAULT = 120.0
-
-# the items of ROADMAP Queue 1 that bring what this server refuses
-_ITEM_10 = (
-    "ROADMAP Queue 1 item 10b (federation, leases, ownership, worker "
-    "lending and live migration)"
-)
 
 # reusable/stateless, so one instance serves every frame
 _NOOP_BATCH = contextlib.nullcontext()
@@ -651,23 +647,9 @@ class Server:
         # "always" = fsync after every event (survives an OS crash at the
         # cost of one fsync per event).
         # device: where the scheduler's models solve (the card unless the
-        # caller asks for the CPU, as everywhere in the port).
-        #
-        # Keywords whose plane is not ported yet are stored as the JAX
-        # server stores them; a value that would need that plane refuses
-        # here instead of being ignored.
-        unported = {
-            "federation_root": federation_root is not None,
-            "shard_count": shard_count > 1,
-            "promoted": bool(promoted),
-            "failover_watch": bool(failover_watch),
-        }
-        refused = [name for name, used in unported.items() if used]
-        if refused:
-            raise NotImplementedError(
-                f"Server({', '.join(refused)}=...) needs a plane that comes "
-                f"with {_ITEM_10}"
-            )
+        # caller asks for the CPU, as everywhere in the port). A promoted
+        # successor gets it from federation_server_kwargs, so it solves
+        # where its predecessor did.
         self.server_dir = Path(server_dir)
         self.host = host or socket.gethostname()
         self.client_port = client_port
@@ -812,8 +794,9 @@ class Server:
         self._stream_jobs: dict[str, int] = {}
         # federation: this server owns shard `shard_id` of a
         # `shard_count`-way static job-id partition rooted at
-        # `federation_root` (None = classic standalone server; the only
-        # kind the port runs until item 10b, see the refusal above)
+        # `federation_root` (None = classic standalone server). The shard
+        # dir holds an atomic lease renewed by _lease_renew_loop; losing
+        # it to a successor FENCES this instance (it stops immediately).
         if not (0 <= shard_id < max(shard_count, 1)):
             raise ValueError(
                 f"shard id {shard_id} outside 0..{shard_count - 1}"
@@ -825,7 +808,12 @@ class Server:
         )
         self.lease_timeout = float(lease_timeout)
         self.promoted = promoted
+        self.lease = None
+        self.fenced = False
+        # --failover-watch: this shard also volunteers as a successor for
+        # dead sibling shards (claims gated on being idle itself)
         self.failover_watch = failover_watch
+        self._watcher = None
         # graceful drains in flight: wid -> {deadline, started, source};
         # the drain reaper stops each worker once it settles idle or the
         # deadline escalates the drain to a clean stop
@@ -950,19 +938,6 @@ class Server:
 
     # ------------------------------------------------------------------
     async def start(self) -> serverdir.AccessRecord:
-        federated = sorted(
-            site for site in chaos.plan_sites()
-            if site.startswith("federation.")
-        )
-        if federated:
-            # a rule at a federation site could never fire here; running
-            # without it would pass off a clean run as a chaos run, so
-            # refuse before anything of the process changes
-            raise NotImplementedError(
-                f"HQ_FAULT_PLAN names {', '.join(federated)}: the "
-                f"federation's chaos sites come with {_ITEM_10}"
-            )
-
         # GC tuning: a tick allocates tens of thousands of short-lived
         # objects (assignments, messages); default thresholds fire gen-0
         # collections mid-tick and add ~30 ms pauses (measured as 20 ms ->
@@ -978,9 +953,53 @@ class Server:
             # memory, so sim servers skip the GC tuning entirely
             gc.set_threshold(100_000, 50, 25)
 
+        if self.federation_root is not None:
+            import secrets as _secrets
+
+            from hyperqueue_tpu_torch.utils.lease import ShardLease
+
+            existing_fed = serverdir.load_federation(self.federation_root)
+            if (
+                existing_fed is not None
+                and self.shard_count > int(existing_fed["shard_count"])
+            ):
+                # online shard add: booting shard N of an N+1-way count
+                # against an N-way root GROWS the federation in place —
+                # descriptor rewritten, ownership log records the join,
+                # sibling shards keep running untouched
+                serverdir.grow_federation(
+                    self.federation_root, self.shard_count
+                )
+            else:
+                serverdir.write_federation(
+                    self.federation_root, self.shard_count
+                )
+            # claim the shard BEFORE touching the journal: the lease is
+            # what guarantees one journal appender per shard — a double
+            # start (or a failover race) must fail here, not interleave
+            # records. Raises LeaseHeldError while the holder is alive.
+            self.lease = ShardLease(self.server_dir, self.lease_timeout)
+            self.lease_owner = f"{socket.gethostname()}:{os.getpid()}:" + (
+                _secrets.token_hex(4)
+            )
+            lease_rec = self.lease.acquire(self.lease_owner)
+            logger.info(
+                "shard %d/%d lease acquired (epoch %d%s)",
+                self.shard_id, self.shard_count, lease_rec["epoch"],
+                ", promoted successor" if self.promoted else "",
+            )
+            # renew from the moment the claim lands: a promotion whose
+            # journal restore outlasts --lease-timeout must not look
+            # stale to ANOTHER successor mid-restore (two claimants =
+            # two journal appenders, the exact thing the lease forbids)
+            self._tasks.append(self._spawn_loop(self._lease_renew_loop))
+
         # the journal block: restore, appender, commit thread (the uid
         # record is journaled below, once the access record names it)
         await self._open_journal()
+        # after the restore (which may replace self.jobs): pin this
+        # shard's job-id allocator to its congruence class
+        self._apply_job_id_partition()
 
         # pre-shared deployment (reference generate-access + serverdir.rs):
         # an access file pins ports and both plane keys so workers/clients on
@@ -1105,6 +1124,20 @@ class Server:
         self._tasks.append(self._spawn_loop(self._drain_reaper))
         self._tasks.append(self._spawn_loop(self._loop_lag_monitor))
         self._tasks.append(self._spawn_loop(self._slo_loop))
+        if self.federation_root is not None and self.failover_watch:
+            # idle-peer successor mode: this shard claims dead siblings,
+            # but only while its own ready backlog is empty (a drowning
+            # shard leaves the claim to the standby or another peer)
+            from hyperqueue_tpu_torch.server.federation import FailoverWatcher
+
+            self._watcher = FailoverWatcher(
+                self.federation_root,
+                server_kwargs=self.federation_server_kwargs(),
+                lease_timeout=self.lease_timeout,
+                own_shard=self.shard_id,
+                eligible=lambda: self.core.queues.total_ready() == 0,
+            )
+            self._tasks.append(self._spawn_loop(self._watcher.run))
         if self.ingest_plane is not None:
             self._tasks.append(self._spawn_loop(self._ingest_drain_loop))
         if self.journal is not None and (
@@ -1157,13 +1190,32 @@ class Server:
         if self.journal_path.exists() or snapshot_mod.have_snapshot(
             self.journal_path
         ):
-            # off the event loop: a multi-second journal replay inline
-            # would freeze the loop's other work
+            # off the event loop: nothing else references this Server
+            # yet, and a peer shard promoting a dead sibling
+            # (--failover-watch) runs THIS start() on its own live
+            # reactor — a multi-second journal replay inline would
+            # freeze its scheduler, heartbeats, and worker plane
             await asyncio.get_running_loop().run_in_executor(
                 None, restore_from_journal, self
             )
-            # the promoted successor's failover annotation on open traces
-            # comes with the federation plane (item 10b)
+            if self.promoted and self.core.traces.enabled:
+                # fleet trace stitching: every trace still open at
+                # promotion lived through the shard death — stamp the
+                # failover (lease epoch) so `hq task trace` and the fleet
+                # export show the seam
+                stamped = self.core.traces.annotate_open({
+                    "kind": "failover",
+                    "shard": self.shard_id,
+                    "lease_epoch": (
+                        self.lease.epoch if self.lease else 0
+                    ),
+                    "time": clock.now(),
+                })
+                if stamped:
+                    logger.info(
+                        "stamped failover annotation on %d open "
+                        "trace(s)", stamped,
+                    )
         self.journal.open_for_append()
         if self.journal_plane == "thread":
             self.jplane = JournalPlane(
@@ -1230,11 +1282,18 @@ class Server:
             # exits (a lost cancel = a leaked cluster job the journal
             # already believes cancelled)
             await self.autoalloc.drain_background()
-        # (the failover watcher and the lease of item 10b stop here in
-        # the JAX package; a standalone server holds neither)
-        for wid in list(self._worker_conns):
-            self.comm.send_stop(wid)
-        await asyncio.sleep(0.05)
+        if self._watcher is not None:
+            # peer-successor mode: shards this process promoted into are
+            # full Servers of their own — stop them with us
+            await self._watcher.shutdown()
+        if not self.fenced:
+            for wid in list(self._worker_conns):
+                self.comm.send_stop(wid)
+            await asyncio.sleep(0.05)
+        # a FENCED instance must NOT stop its workers: they are the
+        # promoted successor's fleet now — closing the connections below
+        # makes them reconnect (and reattach) to it, a `stop` op would
+        # kill them unconditionally
         for t in self._tasks:
             t.cancel()
         for t in list(self._client_tasks):
@@ -1258,7 +1317,19 @@ class Server:
         # the solve thread ends with the server (the JAX package leaves it
         # parked as a daemon)
         self.model.close()
+        # and so does the device-resident state: a successor promoted in a
+        # standby or a peer shard (and one fenced there) stops while its
+        # process lives on
+        invalidate = getattr(self.model.model, "invalidate_resident", None)
+        if invalidate is not None:
+            invalidate()
         self._close_journal()
+        if self.lease is not None:
+            # clean stop: retire the lease so failover watchers never
+            # promote a successor for a deliberately-stopped shard. A
+            # FENCED instance skips this implicitly (release() refuses to
+            # delete a lease it no longer owns).
+            self.lease.release()
         # a clean stop retires the hq-current symlink so clients see "no
         # server" instead of a dead address (reference server stop removes
         # the symlink; test_server.py delete_symlink_after_server_stop).
@@ -1277,16 +1348,129 @@ class Server:
         except OSError:
             pass  # cleanup is best-effort; a dead link is still harmless
 
-    def _federation_block(self) -> dict | None:
-        """The federation section of `hq server info`/`stats`: None on a
-        standalone server, the only kind the port runs (item 10b)."""
-        return None
+    # --- federation ----------------------------------------------------
+    def federation_server_kwargs(self) -> dict:
+        """The config subset a promoted sibling Server clones from this
+        one (FailoverWatcher in peer-successor mode). Ports and keys are
+        NOT cloned — a successor publishes a fresh access record and the
+        reconnect machinery re-reads it. `device` is cloned: a successor
+        solves where its predecessor did (the card, or the CPU where the
+        caller asked for it), never on a fallback. Keep in lockstep with
+        the standby path's server_kwargs in cli._run_standby."""
+        return dict(
+            device=self.device,
+            scheduler=self.scheduler_kind,
+            schedule_min_delay=self.schedule_min_delay,
+            journal_fsync=self.journal_fsync,
+            journal_flush_period=self.journal_flush_period,
+            journal_compact_interval=self.journal_compact_interval,
+            journal_compact_threshold=self.journal_compact_threshold,
+            journal_salvage=self.journal_salvage,
+            heartbeat_timeout_factor=self.heartbeat_timeout_factor,
+            reattach_timeout=self.reattach_timeout,
+            idle_timeout=self.idle_timeout,
+            client_plane=self.client_plane,
+            journal_plane=self.journal_plane,
+            fanout_senders=self.fanout_senders,
+            policy_file=self.policy_file,
+            lazy_array_threshold=(
+                self.lazy_array_threshold
+                if self.lazy_array_threshold < (1 << 62) else 0
+            ),
+        )
 
-    def _waits_for_item_10(self, msg: dict) -> dict:
-        """The answer of an RPC whose plane comes with item 10b (worker
-        lending, live migration)."""
-        return {"op": "error",
-                "message": f"{msg.get('op')!r} comes with {_ITEM_10}"}
+    def _apply_job_id_partition(self) -> None:
+        """Pin the job-id allocator to this shard's congruence class:
+        shard k of N allocates ids with (id - 1) % N == k, so shards
+        never collide and a job id alone routes a client. Applied after
+        the journal restore — the restored watermark is carried into the
+        strided counter."""
+        if self.shard_count <= 1:
+            return
+        counter = self.jobs.job_id_counter
+        from hyperqueue_tpu_torch.ids import IdCounter
+
+        base_count = self.shard_count
+        if self.federation_root is not None:
+            fed = serverdir.load_federation(self.federation_root)
+            if fed:
+                base_count = int(fed.get("base_shard_count",
+                                         fed["shard_count"]))
+        if self.shard_id >= base_count:
+            # shard added online: the modulo classes are frozen
+            # at base_shard_count, so this shard allocates from its
+            # reserved high id block instead — the id alone still routes
+            from hyperqueue_tpu_torch.utils.ownership import added_shard_block
+
+            lo, _hi = added_shard_block(self.shard_id, base_count)
+            blocked = IdCounter(start=lo + 1, stride=1)
+            blocked.ensure_above(counter.peek() - 1)
+            self.jobs.job_id_counter = blocked
+            return
+        strided = IdCounter(
+            start=self.shard_id + 1, stride=base_count
+        )
+        strided.ensure_above(counter.peek() - 1)
+        self.jobs.job_id_counter = strided
+
+    async def _lease_renew_loop(self) -> None:
+        """Renew this shard's lease on ~timeout/3; a renewal that finds a
+        successor's claim means this instance was presumed dead and has
+        been FENCED — stop immediately rather than keep a second
+        scheduler + journal appender alive."""
+        interval = max(self.lease.timeout / 3.0, 0.05)
+        while True:
+            await asyncio.sleep(interval)
+            try:
+                ok = self.lease.renew()
+            except OSError as e:
+                # a transient FS error must not fence a healthy shard;
+                # the NEXT renewal either succeeds or the staleness clock
+                # runs out honestly
+                logger.warning("lease renew failed (%s); retrying", e)
+                continue
+            if not ok:
+                claim = self.lease.read() or {}
+                logger.critical(
+                    "shard %d lease claimed by successor %r (epoch %s); "
+                    "this instance is fenced — stopping",
+                    self.shard_id, claim.get("owner"), claim.get("epoch"),
+                )
+                self.fenced = True
+                self.stop()
+                return
+
+    def _federation_block(self) -> dict | None:
+        """The federation section of `hq server info`/`stats` (None on a
+        standalone server)."""
+        if self.federation_root is None:
+            return None
+        lease = (self.lease.read() if self.lease else None) or {}
+        borrowed = sum(
+            1
+            for w in self.core.workers.values()
+            if getattr(w.configuration, "lent_from", -1) >= 0
+        )
+        age = self.lease.age_seconds() if self.lease else None
+        return {
+            "shard_id": self.shard_id,
+            "shard_count": self.shard_count,
+            "partition": (
+                f"(job_id - 1) % {self.shard_count} == {self.shard_id}"
+            ),
+            "lease_owner": lease.get("owner"),
+            "lease_epoch": lease.get("epoch"),
+            "lease_age_seconds": (
+                round(age, 3) if age is not None else None
+            ),
+            "promoted": self.promoted,
+            "fenced": self.fenced,
+            "workers_lent": self.workers_lent_total,
+            "workers_borrowed": borrowed,
+            "jobs_migrated_out": len(self.migrated_out),
+            "jobs_migrating_out": len(self.migrating_out),
+            "jobs_migrated_in": len(self.migrations_in),
+        }
 
     # --- health plane ---------------------------------------------------
     async def _slo_loop(self) -> None:
@@ -1322,6 +1506,18 @@ class Server:
             )
             checks["journal_plane"] = "ok" if alive else "dead"
             ok = ok and alive
+        if self.lease is not None:
+            age = self.lease.age_seconds()
+            held = (
+                not self.fenced
+                and age is not None
+                and age < self.lease_timeout
+            )
+            checks["lease"] = (
+                "ok" if held else
+                ("fenced" if self.fenced else "stale")
+            )
+            ok = ok and held
         armed = bool(self.model.stats().get("armed"))
         checks["solver"] = "ok" if armed else "degraded"
         ok = ok and armed
@@ -1371,8 +1567,49 @@ class Server:
         return self.slo.badge()
 
     async def _client_worker_lend(self, msg: dict) -> dict:
-        return self._waits_for_item_10(msg)
+        """Lend an IDLE worker to another shard: order it to re-register
+        there (federation coordinator RPC). No task state moves — that is
+        the whole point: elasticity without migration."""
+        wid = int(msg["worker_id"])
+        target = int(msg["to_shard"])
+        if self.federation_root is None:
+            return {"op": "error", "message": "not a federated server"}
+        if not (0 <= target < self.shard_count) or target == self.shard_id:
+            return {"op": "error", "message": f"bad target shard {target}"}
+        worker = self.core.workers.get(wid)
+        if worker is None:
+            return {"op": "error", "message": f"worker {wid} not found"}
+        if worker.assigned_tasks or worker.prefilled_tasks:
+            # never lend a busy worker: its running tasks belong to THIS
+            # shard's journal and must finish (or reattach) here
+            return {"op": "worker_lend", "lent": False, "reason": "busy"}
+        if worker.configuration.on_server_lost != "reconnect":
+            # a lent worker must survive the borrower dying (reattach to
+            # its successor) — any other policy would make the lend a
+            # one-way trip to a worker exit on the first hiccup
+            return {"op": "worker_lend", "lent": False, "reason": "policy"}
+        self._lent_workers[wid] = target
+        self.workers_lent_total += 1
+        self.comm.send_redirect(wid, target, self.shard_id)
+        logger.info(
+            "lending idle worker %d to shard %d", wid, target,
+            extra={"worker": wid},
+        )
+        return {"op": "worker_lend", "lent": True, "to_shard": target}
 
+    # --- live job migration --------------------------------------------
+    def _migration_barrier(self) -> None:
+        """Durability barrier for the migration protocol: the journaled
+        migration record must be ON DISK before the RPC reply leaves —
+        kill -9 right after the ack must replay to the same decision."""
+        if self.journal is None:
+            return
+        if self.jplane is not None:
+            self.jplane.barrier(sync=True)
+        else:
+            if self.journal.in_batch:
+                self.journal.commit_batch()
+            self.journal.flush(sync=True)
 
     def _owned_elsewhere(self, job_id, rid=None) -> dict | None:
         """wrong-shard / migrating guard: an error dict when this shard
@@ -1406,13 +1643,255 @@ class Server:
         return None
 
     async def _client_migration_export(self, msg: dict) -> dict:
-        return self._waits_for_item_10(msg)
+        """Phase 1 of a live migration (driver RPC): seal + drain the job
+        and return a self-contained, versioned migration record.
+
+        Sealing = pause (READY held, lazy chunks detached in chunk form,
+        prefilled retracted) + RECALL of ASSIGNED/RUNNING tasks (resources
+        released, worker's incarnation canceled, instance bumped — the
+        fence). The `migration-out` journal record carries only {mig, to,
+        fence}, NOT the record: a source crash after the barrier restores
+        the job PAUSED, and a re-driven export rebuilds an equivalent
+        record from that state — safe because the sealed job made no
+        progress in between."""
+        from hyperqueue_tpu_torch.events import snapshot as snapshot_mod
+
+        mig = str(msg.get("mig") or "")
+        job_id = int(msg.get("job", 0))
+        to_shard = int(msg.get("to", -1))
+        if not mig:
+            return {"op": "error", "message": "migration_export needs mig"}
+        guard = self._owned_elsewhere(job_id)
+        if guard is not None and guard.get("code") == "wrong-shard":
+            return guard
+        out = self.migrating_out.get(job_id)
+        if out is not None and out.get("mig") != mig:
+            return {"op": "error",
+                    "message": f"job {job_id} is sealed by migration "
+                               f"{out.get('mig')!r}, not {mig!r}"}
+        job = self.jobs.jobs.get(job_id)
+        if job is None:
+            return {"op": "error", "message": f"unknown job {job_id}"}
+        if out is None:
+            reactor.pause_jobs(self.core, self.comm, [job_id])
+            recall_ids = [
+                make_task_id(job_id, info.job_task_id)
+                for info in job.tasks.values()
+                if info.status in ("waiting", "running")
+            ]
+            reactor.recall_tasks(self.core, self.comm, recall_ids)
+            self.migrating_out[job_id] = {"mig": mig, "to": to_shard}
+            fence = self._job_fence(job_id, job)
+            self.emit_event(
+                "migration-out",
+                {"job": job_id, "mig": mig, "to": to_shard, "fence": fence},
+            )
+            self._migration_barrier()
+        bodies: list = []
+        body_index: dict = {}
+        requests: list = []
+        request_index: dict = {}
+        record = {
+            "version": 1,
+            "mig": mig,
+            "job": job_id,
+            "from": self.shard_id,
+            "to": to_shard,
+            "fence": self._job_fence(job_id, job),
+            "bodies": bodies,
+            "requests": requests,
+            "job_state": snapshot_mod.capture_job(
+                self, job, bodies, body_index, requests, request_index
+            ),
+            # accrued usage rides the record: the destination
+            # seeds it from the journaled migration-in, the source drops
+            # its row at the migration-out-done tombstone — the ledger
+            # moves exactly once, with the job
+            "accounting": self.accounting.export_job(job_id),
+        }
+        return {"op": "migration_export", "mig": mig, "record": record}
+
+    def _job_fence(self, job_id: int, job) -> int:
+        """Highest instance id this shard could have issued for the job:
+        the destination floors every imported task AT it, so any late
+        uplink from this (possibly SIGSTOP'd) shard's workers carries a
+        strictly smaller instance id and is discarded over there."""
+        fence = int(self.core.instance_fence_floor)
+        for info in job.tasks.values():
+            task = self.core.tasks.get(
+                make_task_id(job_id, info.job_task_id)
+            )
+            if task is not None:
+                fence = max(fence, task.instance_id)
+        return fence
 
     async def _client_migration_import(self, msg: dict) -> dict:
-        return self._waits_for_item_10(msg)
+        """Phase 2: durably adopt a migration record. The `migration-in`
+        journal record embeds the WHOLE record before any in-memory state
+        changes — kill -9 after the barrier replays the import; kill
+        before it leaves nothing, and the driver re-sends. Duplicate
+        imports (re-driven migrations) ack dup instead of double-seeding
+        — same exactly-once discipline as SubmitStream chunk replay."""
+        rec = msg.get("record") or {}
+        mig = str(msg.get("mig") or rec.get("mig") or "")
+        job_id = rec.get("job_state", {}).get("id")
+        if not mig or job_id is None:
+            return {"op": "error", "message": "malformed migration record"}
+        if mig in self.migrations_in or job_id in self.jobs.jobs:
+            return {"op": "migration_import", "mig": mig, "dup": True}
+        self.emit_event(
+            "migration-in", {"job": job_id, "mig": mig, "record": rec}
+        )
+        self._apply_migration_record(rec)
+        self.migrations_in[mig] = job_id
+        self._migration_barrier()
+        return {"op": "migration_import", "mig": mig, "dup": False}
 
     async def _client_migration_finalize(self, msg: dict) -> dict:
-        return self._waits_for_item_10(msg)
+        """Phase 3 (post-commit): drop the sealed source copy, leaving a
+        journaled tombstone for wrong-shard redirects. Idempotent — the
+        driver may re-send after a crash on either side."""
+        mig = str(msg.get("mig") or "")
+        job_id = int(msg.get("job", 0))
+        to_shard = int(msg.get("to", -1))
+        if job_id in self.migrated_out or job_id not in self.jobs.jobs:
+            return {"op": "migration_finalize", "mig": mig, "dup": True}
+        self.emit_event(
+            "migration-out-done",
+            {"job": job_id, "mig": mig, "to": to_shard},
+        )
+        job = self.jobs.jobs.pop(job_id)
+        for job_task_id in job.tasks:
+            self.core.tasks.pop(make_task_id(job_id, job_task_id), None)
+        self.core.paused_jobs.discard(job_id)
+        self.core.paused_held.pop(job_id, None)
+        self.core.lazy.forget_job(job_id)
+        for uid in job.streams:
+            self._stream_jobs.pop(uid, None)
+        # job_wait callers must not hang on a job that left: wake them —
+        # their follow-up job_info gets the wrong-shard redirect
+        for event in self._job_waiters.pop(job_id, ()):
+            event.set()
+        self.migrating_out.pop(job_id, None)
+        self.migrated_out[job_id] = to_shard
+        self._migration_barrier()
+        return {"op": "migration_finalize", "mig": mig, "dup": False}
+
+    def _apply_migration_record(self, rec: dict) -> None:
+        """Install an exported job into the LIVE server (the in-memory
+        twin of restore's migration-in replay — events/restore.py
+        _seed_migration_record covers the post-crash path). Lazy chunks
+        re-register in chunk form: importing a 1M-task lazy array is
+        O(chunks), never O(tasks)."""
+        jd = rec["job_state"]
+        bodies = rec.get("bodies") or []
+        requests = rec.get("requests") or []
+        job_id = jd["id"]
+        # a job can migrate BACK to a shard that once exported it: the
+        # old wrong-shard tombstone must die with the import, or this
+        # shard keeps redirecting requests for a job it owns again
+        self.migrating_out.pop(job_id, None)
+        self.migrated_out.pop(job_id, None)
+        job = self.jobs.create_job(
+            name=jd["name"],
+            submit_dir=jd["submit_dir"],
+            max_fails=jd["max_fails"],
+            is_open=jd["open"],
+            job_id=job_id,
+        )
+        job.submitted_at = jd["submitted_at"]
+        job.cancel_reason = jd["cancel_reason"]
+        job.submits = list(jd["submits"])
+        status_of: dict[int, str] = {}
+        for tid, status, error, finished_at, started_at, submitted_at in (
+            jd["done"]
+        ):
+            self.jobs.attach_task(job, tid)
+            info = job.tasks[tid]
+            info.submitted_at = submitted_at
+            info.status = status
+            info.error = error
+            info.finished_at = finished_at
+            if started_at:
+                info.started_at = started_at
+            job.counters[status] += 1
+            status_of[tid] = status
+        for uid, s in (jd.get("streams") or {}).items():
+            job.streams[uid] = {
+                "applied": set(s["applied"]), "sealed": bool(s["sealed"]),
+            }
+            if not s["sealed"]:
+                job.open_streams += 1
+            self._stream_jobs[uid] = job_id
+        fence = max(
+            int(rec.get("fence", 0)), int(self.core.instance_fence_floor)
+        )
+        new_tasks = []
+        for t in jd["pending"]:
+            tid = t["id"]
+            self.jobs.attach_task(job, tid)
+            job.tasks[tid].submitted_at = t["submitted_at"]
+            deps = tuple(
+                make_task_id(job_id, d)
+                for d in t.get("deps", ())
+                if status_of.get(d) != "finished"
+            )
+            if any(
+                status_of.get(d) in ("failed", "canceled")
+                for d in t.get("deps", ())
+            ):
+                job.tasks[tid].status = "canceled"
+                job.counters["canceled"] += 1
+                continue
+            task = Task(
+                task_id=make_task_id(job_id, tid),
+                rq_id=self.core.intern_rqv(rqv_from_wire(
+                    requests[t["rq"]], self.core.resource_map
+                )),
+                priority=(int(t.get("priority", 0)),
+                          encode_sched_priority(job_id)),
+                body=bodies[t["b"]],
+                entry=t.get("entry"),
+                deps=deps,
+                crash_limit=int(t.get("crash_limit", 5)),
+            )
+            task.crash_counter = int(t.get("crashes", 0))
+            # monotonic across the move: floor at the source's fence,
+            # then bump past it — the source's recalled incarnations
+            # (and a SIGSTOP'd source's late uplinks) are all stale here
+            task.instance_id = int(t.get("instance", 0))
+            task.fence_instance(fence)
+            new_tasks.append(task)
+        if new_tasks:
+            reactor.on_new_tasks(self.core, self.comm, new_tasks)
+        for spec in jd.get("lazy") or ():
+            rqv = rqv_from_wire(
+                requests[spec["rq"]], self.core.resource_map
+            )
+            chunk = ArrayChunk(
+                job_id=job_id,
+                rq_id=self.core.intern_rqv(rqv),
+                priority=(int(spec.get("priority", 0)),
+                          encode_sched_priority(job_id)),
+                body=bodies[spec["b"]],
+                crash_limit=int(spec.get("crash_limit", 5)),
+                id_range=(
+                    tuple(spec["id_range"]) if "id_range" in spec else None
+                ),
+                ids=(
+                    [int(i) for i in spec["ids"]]
+                    if "ids" in spec else None
+                ),
+                entries=spec.get("entries"),
+                submitted_at=float(spec.get("submitted_at") or 0.0),
+                ready_at=float(spec.get("ready_at") or 0.0),
+                trace=spec.get("trace"),
+            )
+            self.core.lazy.register(self.core, chunk)
+            for dead in spec.get("dead") or ():
+                self.core.lazy.drop_id(self.core, job_id, dead)
+        self.check_job_completion(job_id)
+        self.comm.ask_for_scheduling()
 
     # --- metrics --------------------------------------------------------
     def _collect_metrics(self) -> None:
@@ -1484,6 +1963,38 @@ class Server:
                 "hq_ingest_clients",
                 "client connections held by the connection plane",
             ).set(len(self.ingest_plane.clients))
+        if self.federation_root is not None:
+            fed = self._federation_block() or {}
+            REGISTRY.gauge(
+                "hq_federation_lease_age_seconds",
+                "seconds since this shard's lease was last renewed "
+                "(staleness past the timeout makes the shard claimable)",
+            ).set(fed.get("lease_age_seconds") or 0.0)
+            REGISTRY.counter(
+                "hq_federation_workers_lent_total",
+                "idle workers this shard ordered to re-register with "
+                "another shard (federation coordinator lending)",
+            ).set_total(self.workers_lent_total)
+            REGISTRY.gauge(
+                "hq_federation_workers_borrowed",
+                "currently-registered workers lent to this shard by a "
+                "sibling (register carried lent_from)",
+            ).set(fed.get("workers_borrowed") or 0)
+            REGISTRY.counter(
+                "hq_federation_jobs_moved_total",
+                "jobs this shard finished migrating out (ownership "
+                "tombstone journaled; live migration)",
+            ).set_total(len(self.migrated_out))
+            try:
+                from hyperqueue_tpu_torch.utils.ownership import OwnershipStore
+
+                REGISTRY.gauge(
+                    "hq_federation_ownership_epoch",
+                    "last epoch in the federation ownership log (the "
+                    "fencing token of the migration protocol)",
+                ).set(OwnershipStore(self.federation_root).current_epoch())
+            except OSError:
+                pass
         # usage accounting rollup: per-label resource-time
         # totals from the ledger, rebuilt each scrape so labels whose jobs
         # all migrated away vanish instead of lingering at stale values
@@ -4576,6 +5087,18 @@ class Server:
             sample["profile"] = {
                 plane: agg["cpu"]
                 for plane, agg in profiler.PROFILER.plane_shares().items()
+            }
+        if self.federation_root is not None:
+            # fleet view context — all in-memory reads, no lease-file I/O
+            # on the sample path (self.lease.epoch is the holder's
+            # authoritative copy)
+            sample["federation"] = {
+                "shard_id": self.shard_id,
+                "shard_count": self.shard_count,
+                "lease_epoch": self.lease.epoch if self.lease else 0,
+                "promoted": self.promoted,
+                "workers_lent": self.workers_lent_total,
+                "workers_borrowed": borrowed,
             }
         autoalloc = getattr(self, "autoalloc", None)
         if autoalloc is not None and autoalloc.state.queues:

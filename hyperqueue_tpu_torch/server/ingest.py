@@ -61,6 +61,10 @@ INGEST_STALLS = REGISTRY.counter(
 )
 
 _CLOSE = object()  # outbound-queue sentinel: sender exits
+# how long a stopping plane lets each connection's sender write the frames
+# already queued (the `stop_server` answer among them) before it closes
+# the connections
+STOP_FLUSH_SECS = 1.0
 
 
 class ClientChannel:
@@ -249,16 +253,29 @@ class IngestPlane:
         if loop is None:
             return
 
-        def shutdown() -> None:
+        async def shutdown() -> None:
             if self._server is not None:
                 self._server.close()
+            # the replies queued before the stop reach their clients
+            # first: a client whose `stop_server` answer is lost retries
+            # against a server that is gone, and fails
+            flushes = [asyncio.ensure_future(channel.outq.join())
+                       for channel in self.clients if not channel.closed]
+            if flushes:
+                _done, late = await asyncio.wait(flushes,
+                                                 timeout=STOP_FLUSH_SECS)
+                for fut in late:
+                    fut.cancel()
             for channel in list(self.clients):
                 channel.closed = True
                 channel.conn.close()
             loop.stop()
 
+        def begin() -> None:
+            asyncio.ensure_future(shutdown())
+
         try:
-            loop.call_soon_threadsafe(shutdown)
+            loop.call_soon_threadsafe(begin)
         except RuntimeError:
             return
         if self._thread is not None:
@@ -348,9 +365,9 @@ class IngestPlane:
         pool = self.sendpool
         while True:
             frame = await channel.outq.get()
-            if frame is _CLOSE:
-                return
             try:
+                if frame is _CLOSE:
+                    return
                 if pool is not None and pool.enabled:
                     t0 = time.perf_counter()
                     data = await pool.encode(self.loop, conn, frame)
@@ -362,3 +379,7 @@ class IngestPlane:
                 channel.closed = True
                 conn.close()
                 return
+            finally:
+                # counted out of the queue once written (or dropped), so a
+                # stopping plane can wait for what was queued before it
+                channel.outq.task_done()

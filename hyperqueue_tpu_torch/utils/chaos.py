@@ -186,12 +186,6 @@ def _load() -> None:
 _load()
 
 
-def plan_sites() -> set[str]:
-    """The sites the active plan's rules name (empty without a plan)."""
-    plan = _PLAN
-    return {rule.site for rule in plan.rules} if plan is not None else set()
-
-
 def install_plan(plan: "FaultPlan | dict | None") -> None:
     """Install a plan programmatically (simulator / in-process tests).
 

@@ -12,9 +12,7 @@ with its own instance dirs, journal, and lease file, plus a root-level
 ``federation.json`` naming the shard count. Job ids partition statically:
 shard k of N owns every job id with ``(job_id - 1) % N == k``, so a job id
 alone routes a client to its shard and shards allocate without
-coordination. The port has the shard-path helpers; the descriptor
-functions (`write_federation`, `grow_federation`, `load_federation`)
-raise until the federation plane is ported (ROADMAP Queue 1 item 10).
+coordination.
 """
 
 from __future__ import annotations
@@ -252,33 +250,119 @@ def shard_for_job(job_id: int, shard_count: int) -> int:
     return (int(job_id) - 1) % max(int(shard_count), 1)
 
 
-# the federation descriptor (write, online growth and its ownership-log
-# record) comes with the federation plane; a plain server directory has no
-# descriptor, which is all `load_federation` needs to tell it from a root
-ITEM_10 = (
-    "ROADMAP Queue 1 item 10b (federation, leases, ownership, worker "
-    "lending and live migration)"
-)
-
-
 def write_federation(root: Path, shard_count: int) -> dict:
-    raise NotImplementedError(
-        f"the federation descriptor comes with {ITEM_10}"
-    )
+    """Publish (or validate) the root-level federation descriptor and
+    create the shard dirs. Idempotent; a conflicting shard count is a
+    hard error — the partition is static for the journal lineages'
+    lifetime (re-sharding would re-home job ids between journals). The
+    check-then-write runs under a flock so N concurrently-booting shards
+    with DISAGREEING --shards values cannot both pass validation."""
+    import fcntl
+
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    lock_fd = os.open(root / ".federation.lock", os.O_CREAT | os.O_RDWR,
+                      0o600)
+    try:
+        fcntl.flock(lock_fd, fcntl.LOCK_EX)
+        existing = load_federation(root)
+        if existing is not None:
+            if existing["shard_count"] != shard_count:
+                raise ValueError(
+                    f"federation at {root} has {existing['shard_count']} "
+                    f"shard(s); refusing to restart it with {shard_count} "
+                    f"(online growth goes through grow_federation / "
+                    f"`hq server start --shard-id {existing['shard_count']}"
+                    f" --shards {existing['shard_count'] + 1}`)"
+                )
+            return existing
+        record = {
+            "version": 1,
+            "shard_count": int(shard_count),
+            # the MODULO partition width, frozen forever: online shard
+            # adds bump shard_count but never this — pre-existing job
+            # ids are baked into the original journal lineages
+            "base_shard_count": int(shard_count),
+        }
+        _publish_federation(root, record)
+        for k in range(shard_count):
+            shard_path(root, k).mkdir(exist_ok=True)
+        return record
+    finally:
+        os.close(lock_fd)
+
+
+def _publish_federation(root: Path, record: dict) -> None:
+    tmp = root / f".{FEDERATION_FILE}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
+        json.dump(record, f, indent=2)
+        f.flush()
+        os.fsync(f.fileno())
+    tmp.replace(root / FEDERATION_FILE)
+    from hyperqueue_tpu_torch.events.journal import fsync_dir
+
+    fsync_dir(root)
 
 
 def grow_federation(root: Path, shard_count: int) -> dict:
-    raise NotImplementedError(
-        f"the federation descriptor comes with {ITEM_10}"
-    )
+    """Grow an existing federation to `shard_count` shards ONLINE.
+
+    The explicit growth path: rewrites the descriptor with the
+    larger count (base_shard_count unchanged — the modulo partition stays
+    frozen at the boot-time width), creates the new shard dirs, and
+    journals a shard-add record per new shard in the ownership log so
+    clients and the coordinator learn the new member without any restart
+    of the existing shards. Shrinking remains a hard error."""
+    import fcntl
+
+    root = Path(root)
+    lock_fd = os.open(root / ".federation.lock", os.O_CREAT | os.O_RDWR,
+                      0o600)
+    try:
+        fcntl.flock(lock_fd, fcntl.LOCK_EX)
+        existing = load_federation(root)
+        if existing is None:
+            raise ValueError(
+                f"no federation at {root} to grow; boot one with --shards"
+            )
+        old_count = int(existing["shard_count"])
+        if shard_count < old_count:
+            raise ValueError(
+                f"federation at {root} has {old_count} shard(s); shrinking "
+                f"to {shard_count} is not supported — drain instead"
+            )
+        if shard_count == old_count:
+            return existing
+        record = dict(existing)
+        record["shard_count"] = int(shard_count)
+        record["base_shard_count"] = int(existing["base_shard_count"])
+        _publish_federation(root, record)
+        for k in range(shard_count):
+            shard_path(root, k).mkdir(exist_ok=True)
+    finally:
+        os.close(lock_fd)
+    from hyperqueue_tpu_torch.utils.ownership import OwnershipStore
+
+    store = OwnershipStore(root)
+    for k in range(old_count, shard_count):
+        store.record_shard_add(k, shard_count)
+    return record
 
 
 def load_federation(root: Path) -> dict | None:
-    """None for a classic single-server dir; a federation root (one with a
-    descriptor) refuses until the federation plane is ported."""
+    """The federation descriptor at `root`, or None for a classic
+    single-server dir."""
     path = Path(root) / FEDERATION_FILE
     if not path.exists():
         return None
-    raise NotImplementedError(
-        f"{root} is a federation root; federations come with {ITEM_10}"
+    with open(path) as f:
+        data = json.load(f)
+    if int(data.get("shard_count", 0)) < 1:
+        raise ValueError(f"malformed federation descriptor {path}")
+    data["shard_count"] = int(data["shard_count"])
+    # a descriptor without base_shard_count never grew, so the modulo
+    # width IS the shard count
+    data["base_shard_count"] = int(
+        data.get("base_shard_count", data["shard_count"])
     )
+    return data

@@ -151,6 +151,16 @@ class PortCliEnv(HqEnv):
         return super().start_server("--scheduler", "cpu", *extra,
                                     env_extra=env_extra)
 
+    def start_shard(self, shard_id: int, shard_count: int, *extra: str,
+                    env_extra=None) -> str:
+        return super().start_shard(shard_id, shard_count, "--scheduler",
+                                   "cpu", *extra, env_extra=env_extra)
+
+    def start_standby(self, *extra: str, env_extra=None) -> str:
+        # a promoted successor solves where the standby's flags say
+        return super().start_standby("--scheduler", "cpu", *extra,
+                                     env_extra=env_extra)
+
     def command(self, args: list[str], cwd=None, expect_fail=False,
                 timeout=60.0, with_stderr=False) -> str:
         result = run_port_cli_inprocess(args, self.server_dir,

@@ -10,10 +10,14 @@ on the CPU.
   and chunks, the stdin chunker, directives, job files, the JSON log
   formatter and `make_output` in its three modes give equal results and
   equal exceptions (type, message, exit code and stderr) in both packages.
-- Refusals: `hq server start --shards/--standby/--failover-watch`, every
-  `hq fleet` subcommand and `hq top` on a federation root exit non-zero
-  naming ROADMAP item 10; without CUDA the default `hq server start`
-  exits non-zero and serves nothing.
+- The federated paths without a running shard: every `hq fleet`
+  subcommand, `hq top`, `job list`, `worker start` and `journal stream`
+  on a federation root or a plain directory answer as the JAX CLI does;
+  `hq server start --shards/--standby` without CUDA exits non-zero
+  saying so and writes nothing (no host fallback), and a
+  `--failover-watch` shard on the CPU holds its lease until `server
+  stop`. Without CUDA the default `hq server start` exits non-zero and
+  serves nothing.
 - Imports: a `hq worker start` process and client processes of the port
   (`submit`, `job info` with pending reasons, `task explain`, `top`,
   `journal report`, `dashboard --replay`) load neither torch, numpy,
@@ -53,6 +57,7 @@ from test_torch_cli_e2e import (
     port_env_base,
     run_port_cli_inprocess,
 )
+from utils_e2e import _run_cli_inprocess, wait_until
 
 # one intra-op thread per process: the suite runs in several worker
 # processes at once
@@ -379,25 +384,111 @@ FLEET = [["fleet", "metrics-proxy"], ["fleet", "trace-export", "t.json"],
     ["server", "start", "--failover-watch", "--scheduler", "cpu"],
     *FLEET,
 ], ids=lambda a: " ".join(a))
-def test_federated_paths_refuse_naming_item_10(args, tmp_path):
-    result = run_port_cli_inprocess(args, tmp_path / "server", tmp_path,
-                                    60)
-    assert result.returncode == 1, result.stdout
-    assert "item 10" in result.stderr and result.stderr.startswith(
-        "error: "), result.stderr
-    assert not (tmp_path / "server" / "hq-current").exists()
+def test_federated_paths_refuse_naming_item_10(args, tmp_path, monkeypatch):
+    """Until the federation was ported, each of these exited 1 naming
+    ROADMAP item 10. Now: a shard or a standby solves on the card, so
+    without CUDA it exits 1 saying so before it writes anything (it never
+    falls back to the host); a `--failover-watch` shard on the CPU takes
+    its lease and releases it at `server stop`; and each `hq fleet`
+    subcommand answers as the JAX CLI's does, on a federation root with
+    no shard running and on a plain directory."""
+    if args[0] == "server" and "cpu" not in args:
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        result = run_port_cli_inprocess(args, tmp_path / "server",
+                                        tmp_path, 60)
+        assert result.returncode == 1, result.stdout
+        assert "CUDA" in result.stderr and "--scheduler cpu" in \
+            result.stderr, result.stderr
+        assert not (tmp_path / "server").exists()
+        # a shard with its own journal is a usage error, answered before
+        # the device (and so torch) is asked for
+        result = run_port_cli_inprocess([*args, "--journal", "j.bin"],
+                                        tmp_path / "server", tmp_path, 60)
+        if "--standby" not in args:
+            assert result.returncode == 1
+            assert "--journal cannot be combined with --shards" in \
+                result.stderr, result.stderr
+        return
+    if args[0] == "server":
+        root = tmp_path / "root"
+        shard = subprocess.Popen(
+            [sys.executable, "-m", "hyperqueue_tpu_torch", *args,
+             "--server-dir", str(root), "--shards", "2", "--shard-id", "1",
+             "--lease-timeout", "2"],
+            env=port_env_base(), stdout=subprocess.DEVNULL,
+            stderr=subprocess.STDOUT)
+        try:
+            lease = root / "shard-0001" / "lease.json"
+            wait_until(lambda: (root / "shard-0001" / "hq-current").exists()
+                       and lease.exists(), timeout=60,
+                       message="the shard's access record and lease")
+            assert json.loads(lease.read_text())["epoch"] == 1
+            assert json.loads((root / "federation.json").read_text())[
+                "shard_count"] == 2
+            stop = run_port_cli_inprocess(
+                ["server", "stop"], root / "shard-0001", tmp_path, 60)
+            assert stop.returncode == 0, stop.stderr
+            assert shard.wait(timeout=30) == 0
+        finally:
+            if shard.poll() is None:
+                shard.kill()
+                shard.wait()
+        assert not lease.exists()  # a clean stop retires the lease
+        return
+    if args[1] == "metrics-proxy":
+        # an ephemeral port: the default 9090 may be taken here
+        args = [*args, "--port", "0", "--host", "127.0.0.1"]
+    answers = {}
+    for name, run in (("jax", _run_cli_inprocess),
+                      ("port", run_port_cli_inprocess)):
+        root = tmp_path / name / "root"
+        root.mkdir(parents=True)
+        jax_serverdir.write_federation(root, 2)
+        plain = tmp_path / name / "plain"
+        outs = []
+        for where in (plain, root):
+            if where is root and args[1] == "metrics-proxy":
+                continue  # serves until stopped
+            r = run(args, where, tmp_path / name, 60)
+            outs.append((r.returncode, r.stdout.replace(str(tmp_path / name),
+                                                        "T"),
+                         r.stderr.replace(str(tmp_path / name), "T")))
+        answers[name] = outs
+    assert answers["port"] == answers["jax"]
+    assert answers["port"][0][0] == 1  # a plain dir is no federation root
 
 
 def test_top_and_session_on_a_federation_root_refuse(tmp_path):
-    root = tmp_path / "root"
-    root.mkdir()
-    jax_serverdir.write_federation(root, 2)
-    for args in (["top", "--once", "--output-mode", "json"],
-                 ["job", "list"], ["worker", "start", "--cpus", "1"],
-                 ["journal", "stream"]):
-        result = run_port_cli_inprocess(args, root, tmp_path, 60)
-        assert result.returncode == 1, (args, result.stdout)
-        assert "item 10" in result.stderr, (args, result.stderr)
+    """Until the federation was ported, these refused naming item 10 on a
+    federation root. Now, on a root with no shard running, `hq top` shows
+    every shard DOWN, `job list` and `worker start` name the shard whose
+    server is missing and `journal stream` (shard 0's) ends at once, as
+    in the JAX CLI."""
+    answers = {}
+    for name, run in (("jax", _run_cli_inprocess),
+                      ("port", run_port_cli_inprocess)):
+        root = tmp_path / name / "root"
+        root.mkdir(parents=True)
+        jax_serverdir.write_federation(root, 2)
+        outs = []
+        for args in (["top", "--once", "--output-mode", "json"],
+                     ["job", "list"], ["journal", "stream"]):
+            r = run(args, root, tmp_path, 60)
+            # the fleet view's shards arrive in either order
+            out = json.loads(r.stdout) if args[0] == "top" else r.stdout
+            outs.append((r.returncode, out,
+                         r.stderr.replace(str(root), "ROOT")))
+        # a worker picks its shard at random: either one's is named
+        r = run(["worker", "start", "--cpus", "1"], root, tmp_path, 60)
+        assert r.returncode == 1
+        assert "no running server found in " + str(root / "shard-000") \
+            in r.stderr, r.stderr
+        answers[name] = outs
+    assert answers["port"] == answers["jax"]
+    top, job_list, stream = answers["port"]
+    assert top[1] == {"shards": {"0": None, "1": None}}
+    assert job_list[0] == 1 and "ROOT/shard-0000" in job_list[2]
+    assert stream[0] == 0
 
 
 def test_default_server_start_refuses_without_cuda(tmp_path, monkeypatch):

@@ -82,7 +82,9 @@ def test_port_files_exist():
                    "sim/__init__.py", "sim/__main__.py", "sim/loop.py",
                    "sim/transport.py", "sim/faults.py", "sim/workloads.py",
                    "sim/worker.py", "sim/client.py", "sim/invariants.py",
-                   "sim/harness.py", "sim/replay.py"):
+                   "sim/harness.py", "sim/replay.py", "utils/lease.py",
+                   "utils/ownership.py", "server/federation.py",
+                   "client/routing.py", "client/fleet.py"):
         assert f"hyperqueue_tpu_torch/{module}" in names, module
     for source in ("csrc/cut_scan.cu", "csrc/cut_scan_step.cuh",
                    "csrc/sharded_scan.cu", "csrc/sync_probe.cu",

@@ -877,15 +877,26 @@ def test_server_restore_through_open_journal(tmp_path):
 
 
 def test_unported_server_keywords_refuse(monkeypatch, tmp_path):
-    """The keywords whose plane is not ported refuse, naming the ROADMAP
-    item that brings it: federation, leases and their chaos sites item 10b.
-    The simulator's in-memory transport follows the JAX server's rule: it
-    needs the in-loop client plane. `metrics_port=` and the planes of a
-    standalone server are accepted."""
+    """Every keyword of the JAX server is ported: the federation's
+    (`shard_count`, `federation_root`, `promoted`, `failover_watch`) are
+    stored as the JAX server stores them, and a chaos plan naming a
+    federation site no longer refuses (a standalone server never reaches
+    that site). The simulator's in-memory transport follows the JAX
+    server's rule: it needs the in-loop client plane. `metrics_port=` and
+    the planes of a standalone server are accepted. (Until the federation
+    was ported, the federation's keywords and chaos sites refused here.)"""
+    fields = ("shard_id", "shard_count", "federation_root", "promoted",
+              "failover_watch", "lease", "fenced", "lease_timeout")
     for kwargs in ({"shard_count": 2}, {"federation_root": "/nonexistent"},
-                   {"promoted": True}, {"failover_watch": True}):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            _port_server(server_dir="/nonexistent", **kwargs)
+                   {"promoted": True}, {"failover_watch": True},
+                   {"shard_count": 3, "shard_id": 2, "lease_timeout": 2.0}):
+        port = _port_server(server_dir="/nonexistent", **kwargs)
+        jax = _jax_server(server_dir="/nonexistent", **kwargs)
+        assert {f: getattr(port, f) for f in fields} == \
+            {f: getattr(jax, f) for f in fields}
+    for server_cls in (_port_server, _jax_server):
+        with pytest.raises(ValueError, match="shard id 2 outside 0..1"):
+            server_cls(server_dir="/nonexistent", shard_count=2, shard_id=2)
     for server_cls in (_port_server, _jax_server):
         with pytest.raises(ValueError, match="client_plane='reactor'"):
             server_cls(server_dir="/nonexistent", memory_transport=True)
@@ -897,18 +908,25 @@ def test_unported_server_keywords_refuse(monkeypatch, tmp_path):
                           client_plane="reactor", metrics_port=0)
     assert (server.fanout_senders, server.client_plane) == (4, "reactor")
     assert server.requested_metrics_port == 0
-    # a chaos plan naming a federation site refuses at start(), before the
-    # process's GC settings or any listener change
+    # a chaos plan naming a federation site: a standalone server starts
+    # and stops under it (the site fires only in a federation's driver)
     from hyperqueue_tpu_torch.utils import chaos
 
     monkeypatch.setattr(chaos, "_PLAN", chaos.FaultPlan({"rules": [
         {"site": "federation.migration", "op": "claim", "action": "kill"},
         {"site": "server.recv", "action": "drop"}]}))
     monkeypatch.setattr(chaos, "ACTIVE", True)
-    with pytest.raises(NotImplementedError,
-                       match="federation.migration.*item 10"):
-        asyncio.run(server.start())
-    assert server._servers == [] and server.access is None
+    fed_plan = _port_server(server_dir=tmp_path / "fed", host="127.0.0.1",
+                            client_port=0, worker_port=0,
+                            client_plane="reactor")
+
+    async def start_then_stop(srv):
+        try:
+            return await srv.start()
+        finally:
+            await srv.shutdown()
+
+    assert asyncio.run(start_then_stop(fed_plan)).server_uid
     # a plan of server sites runs: its rule at the journal's first event
     # (after the write and flush) fires inside start()
     monkeypatch.setattr(chaos, "_PLAN", chaos.FaultPlan({"rules": [
@@ -917,14 +935,8 @@ def test_unported_server_keywords_refuse(monkeypatch, tmp_path):
                            client_port=0, worker_port=0,
                            journal_path=tmp_path / "j.bin")
 
-    async def start_and_stop():
-        try:
-            await chaotic.start()
-        finally:
-            await chaotic.shutdown()
-
     with pytest.raises(chaos.ChaosInjectedError):
-        asyncio.run(start_and_stop())
+        asyncio.run(start_then_stop(chaotic))
     kinds = [r["event"] for r in port_journal.Journal.read_all(
         tmp_path / "j.bin")]
     assert kinds == ["server-uid"]

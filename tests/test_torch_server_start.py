@@ -15,7 +15,10 @@ same scripted workers and client, speaking the wire through a package's
 - a silent worker is dropped by the heartbeat reaper (the clock moves);
 - an allocation queue is listed, added, listed, removed and listed (the
   same answers from both);
-- the RPCs of item 10b answer an error naming it (the port only);
+- the federation's RPCs on a standalone server: a worker lend refuses
+  (not a federated server), a live export of the first job seals it and
+  journals its `migration-out`, a malformed import and the finalize of an
+  unknown job answer as the JAX server's do;
 - `stop_server` stops the server and every thread it started.
 
 The `registered` frames (minus the uid), every compute entry, the RPC
@@ -338,9 +341,11 @@ ALLOC_RPCS = (
     {"op": "alloc_list"},
 )
 
-ITEM_10_RPCS = (
+FEDERATION_RPCS = (
     {"op": "worker_lend", "worker_id": 1, "to_shard": 1},
     {"op": "migration_export", "mig": "m1", "job": 1, "to": 1},
+    {"op": "migration_import", "record": {}},
+    {"op": "migration_finalize", "mig": "m2", "job": 99, "to": 1},
 )
 
 
@@ -454,9 +459,8 @@ async def run_scenario(pkg, peer, tmp_path: Path, clock: ManualClock,
         out["stats_keys"] = sorted(stats)
         out["stats"] = stats
         out["alloc"] = [await client.request(m) for m in ALLOC_RPCS]
-        if pkg.name == "port":
-            # (the JAX server would run them: a migration export journals)
-            out["item_10"] = [await client.request(m) for m in ITEM_10_RPCS]
+        out["federation"] = [await client.request(m)
+                             for m in FEDERATION_RPCS]
         out["metrics_port"] = server.metrics_port
         out["stop"] = await client.request({"op": "stop_server"})
         await asyncio.wait_for(server.run_until_stopped(), WAIT_S)
@@ -504,7 +508,7 @@ EQUAL_ANSWERS = (
     "explain_big", "cancel", "submit_requeue", "entries_b",
     "entries_a_requeue", "job_wait_requeue", "worker_list",
     "worker_list_all", "worker_info", "worker_info_gone", "stats_keys",
-    "info_keys", "alloc", "stop", "a_others",
+    "info_keys", "alloc", "federation", "stop", "a_others",
 )
 
 
@@ -547,9 +551,15 @@ def test_server_start_matches_jax(tmp_path, client_plane, fanout_senders):
     assert [r["op"] for r in port_out["alloc"]] == [
         "alloc_list", "alloc_add", "alloc_list", "ok", "alloc_list"]
     assert port_out["alloc"][2]["queues"][0]["params"]["manager"] == "slurm"
-    # the RPCs of item 10b answer an error naming it
-    for resp in port_out["item_10"]:
-        assert resp["op"] == "error" and "item 10" in resp["message"]
+    # the federation's RPCs ran on the standalone server: the lend
+    # refuses, the export sealed job 1 (its record carries the job), the
+    # malformed import errs and the unknown job's finalize is a no-op
+    lend, export, bad_import, finalize = port_out["federation"]
+    assert lend == {"op": "error", "message": "not a federated server"}
+    assert export["op"] == "migration_export"
+    assert export["record"]["job_state"]["id"] == 1
+    assert bad_import["op"] == "error"
+    assert finalize["dup"] is True
 
 
 def test_jax_transport_peers_against_the_port_server(tmp_path):

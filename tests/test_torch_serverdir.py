@@ -7,8 +7,8 @@ single-plane records; `load_access` riding out a torn record and failing
 fast without a server. The `hq-current` lifecycle: each instance dir
 repoints it, and a started port server's clean stop retires it only while
 it still names that server's instance. A plain directory has no
-federation descriptor in either package; a federation root refuses in the
-port, naming ROADMAP item 10.
+federation descriptor in either package; a descriptor either package
+writes, grows or refuses, the other reads the same.
 """
 
 from __future__ import annotations
@@ -129,22 +129,37 @@ def test_load_access_without_a_server_fails_fast(tmp_path, pkg):
 
 
 def test_federation_descriptor_waits_for_item_10(tmp_path):
-    for fn in (port_serverdir.write_federation,
-               port_serverdir.grow_federation):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            fn(tmp_path, 2)
+    """Until the federation was ported, the port's descriptor functions
+    refused naming item 10; now they write, grow and load the JAX
+    package's descriptor."""
+    port_root = tmp_path / "port-root"
+    desc = port_serverdir.write_federation(port_root, 2)
+    assert desc == jax_serverdir.load_federation(port_root) == {
+        "version": 1, "shard_count": 2, "base_shard_count": 2}
+    assert port_serverdir.write_federation(port_root, 2) == desc
+    for ours in (port_serverdir, jax_serverdir):
+        with pytest.raises(ValueError, match="refusing to restart"):
+            ours.write_federation(port_root, 3)
+        with pytest.raises(ValueError, match="shrinking"):
+            ours.grow_federation(port_root, 1)
+        with pytest.raises(ValueError, match="no federation"):
+            ours.grow_federation(tmp_path, 2)
     # a plain server directory is no federation root, in either package
     plain = tmp_path / "plain"
     plain.mkdir()
     assert jax_serverdir.load_federation(plain) is None
     assert port_serverdir.load_federation(plain) is None
-    # a root whose descriptor the JAX package wrote refuses in the port
+    # a root whose descriptor the JAX package wrote loads in the port,
+    # and grows online there (the ownership log records the new shard)
     root = tmp_path / "root"
     root.mkdir()
     jax_serverdir.write_federation(root, 2)
-    assert jax_serverdir.load_federation(root)["shard_count"] == 2
-    with pytest.raises(NotImplementedError, match="item 10"):
-        port_serverdir.load_federation(root)
+    assert port_serverdir.load_federation(root) == \
+        jax_serverdir.load_federation(root)
+    grown = port_serverdir.grow_federation(root, 3)
+    assert grown["shard_count"] == 3 and grown["base_shard_count"] == 2
+    assert jax_serverdir.load_federation(root) == grown
+    assert (root / "ownership.log").read_text().count('"shard-add"') == 1
     # the shard-path helpers are the JAX package's
     for k in (0, 7, 12):
         assert port_serverdir.shard_path(tmp_path, k) == \

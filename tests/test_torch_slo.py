@@ -3,11 +3,9 @@ the CPU.
 
 The cases of tests/test_slo.py run twinned: each against both packages
 (`pkg` parametrizes them; each package has its own process-wide metrics
-registry, which its SLO engine exports into). The readiness case drops
-the lease half in the port: leases come with the federation plane
-(ROADMAP Queue 1 item 10), so a port server's readiness has no lease
-check. Then both engines judge the same observations and must agree on
-every transition.
+registry, which its SLO engine exports into), the readiness case's lease
+half included. Then both engines judge the same observations and must
+agree on every transition.
 """
 
 from __future__ import annotations
@@ -260,26 +258,21 @@ def test_server_readyz_flips_on_journal_death_and_lease_loss(tmp_path, pkg):
     hok, hdetail = server._probe_healthz()
     assert hok and "uptime" in hdetail
 
-    if pkg.name == "jax":
-        # lease loss: an expired (or fenced) lease means a successor may
-        # own the shard — this process must fail readiness immediately
-        server.lease_timeout = 15.0
-        server.lease = _FakeLease(age=3.0)
-        ok, detail = server._probe_readyz()
-        assert ok and detail["checks"]["lease"] == "ok"
-        server.lease = _FakeLease(age=99.0)
-        ok, detail = server._probe_readyz()
-        assert not ok and detail["checks"]["lease"] == "stale"
-        server.lease = _FakeLease(age=3.0)
-        server.fenced = True
-        ok, detail = server._probe_readyz()
-        assert not ok and detail["checks"]["lease"] == "fenced"
-        server.fenced = False
-        server.lease = None
-    else:
-        # the port holds no lease (item 10): readiness never asks
-        assert not hasattr(server, "lease")
-        assert "lease" not in server._probe_readyz()[1]["checks"]
+    # lease loss: an expired (or fenced) lease means a successor may own
+    # the shard — this process must fail readiness immediately
+    server.lease_timeout = 15.0
+    server.lease = _FakeLease(age=3.0)
+    ok, detail = server._probe_readyz()
+    assert ok and detail["checks"]["lease"] == "ok"
+    server.lease = _FakeLease(age=99.0)
+    ok, detail = server._probe_readyz()
+    assert not ok and detail["checks"]["lease"] == "stale"
+    server.lease = _FakeLease(age=3.0)
+    server.fenced = True
+    ok, detail = server._probe_readyz()
+    assert not ok and detail["checks"]["lease"] == "fenced"
+    server.fenced = False
+    server.lease = None
 
     # a firing page alert marks the server not-ready for NEW work
     server.slo._firing[("tick-latency", "page")] = {
