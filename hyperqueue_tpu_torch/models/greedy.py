@@ -54,6 +54,7 @@ from hyperqueue_tpu_torch.ops.assign import (
 from hyperqueue_tpu_torch.parallel.resident import DeviceResidency
 from hyperqueue_tpu_torch.utils import clock
 from hyperqueue_tpu_torch.utils.constants import INF_TIME
+from hyperqueue_tpu_torch.utils.trace import ranges as _ranges
 
 # smallest bucket of each padded dimension
 _WORKER_FLOOR = 8
@@ -254,6 +255,8 @@ class _DeviceCounts:
         model = self._model
         prep = self._prep
         t0 = time.perf_counter()
+        ranges = _ranges()
+        ranges.begin("device_sync")
         if self._event is not None:
             self._event.synchronize()
         counts, free_after, nt_after = (t.numpy() for t in self._host)
@@ -261,6 +264,7 @@ class _DeviceCounts:
         if self._pinned is not None:
             self._pinned.busy = False
         sync_ms = (time.perf_counter() - t0) * 1e3
+        ranges.end("device_sync")
         # the cost the TICK pays: dispatch + readback wait. A synchronous
         # solve calls result() at once, so sync_ms holds the whole device
         # execution; a pipelined one calls it a tick later, when the
@@ -615,8 +619,11 @@ class GreedyCutScanModel:
     # -- host path ---------------------------------------------------------
     def _host_solve(self, prep) -> _ReadyCounts:
         _t0 = time.perf_counter()
+        ranges = _ranges()
+        ranges.begin("solve_dispatch")
         counts = self._host_counts(prep)
         _t1 = time.perf_counter()
+        ranges.end("solve_dispatch")
         n_b, n_v, n_w = prep["extents"]
         out = np.ascontiguousarray(counts[:n_b, :n_v, :n_w])
         _t2 = time.perf_counter()
@@ -698,6 +705,8 @@ class GreedyCutScanModel:
 
     def _device_solve(self, prep) -> _DeviceCounts:
         _t0 = time.perf_counter()
+        ranges = _ranges()
+        ranges.begin("solve_dispatch")
         res = self._res
         free_d, nt_d, life_d, total_d = res.sync(
             prep["free_p"], prep["nt_p"], prep["life_p"], prep["total_p"]
@@ -726,6 +735,7 @@ class GreedyCutScanModel:
             event = None
             host = (live, free_d.clone(), nt_d.clone())
         prep["dispatch_ms"] = (time.perf_counter() - _t0) * 1e3
+        ranges.end("solve_dispatch")
         self.last_backend = f"device-{self.device.type}"
         self._resident_solves += 1
         return _DeviceCounts(self, res, host, event, prep, pinned)

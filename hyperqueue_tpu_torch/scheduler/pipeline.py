@@ -38,6 +38,7 @@ from __future__ import annotations
 import time as _time
 from dataclasses import dataclass, field
 from hyperqueue_tpu_torch.utils import clock
+from hyperqueue_tpu_torch.utils.trace import ranges as _ranges
 
 
 @dataclass(slots=True)
@@ -101,8 +102,11 @@ class TickPipeline:
             return []
         self.pending = None
         _t0 = _time.perf_counter()
+        ranges = _ranges()
+        ranges.begin("pipeline_wait")
         counts = pending.handle.result()
         _t1 = _time.perf_counter()
+        ranges.end("pipeline_wait")
         self.last_wait_ms = (_t1 - _t0) * 1e3
         if phases is not None:
             phases["pipeline_wait"] = (

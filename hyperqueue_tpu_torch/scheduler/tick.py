@@ -38,6 +38,7 @@ import numpy as np
 from hyperqueue_tpu_torch.ops.assign import scarcity_weights
 from hyperqueue_tpu_torch.resources.map import ResourceIdMap, ResourceRqMap
 from hyperqueue_tpu_torch.resources.request import AllocationPolicy
+from hyperqueue_tpu_torch.utils.trace import ranges as _ranges
 from hyperqueue_tpu_torch.scheduler.queues import (
     BLEVEL_STRIDE,
     Priority,
@@ -649,12 +650,15 @@ def _run_main_solve(queues, workers, rq_map, resource_map, model, batches,
                     decision=None, pipeline=None, gang_ok=None,
                     group_ids=None, policy=None):
     _t0 = _time.perf_counter()
+    ranges = _ranges()
+    ranges.begin("assemble")
     kwargs = assemble_solve_inputs(
         workers, batches, rq_map, resource_map, cpu_floor=cpu_floor,
         dense=dense, key_cache=key_cache, gang_ok=gang_ok,
         group_ids=group_ids, policy=policy,
     )
     _t1 = _time.perf_counter()
+    ranges.end("assemble")
     if pipeline is not None and hasattr(model, "solve_async"):
         # pipelined dispatch: enqueue the solve and return WITHOUT mapping
         # — the caller maps this solve at the top of its next tick
@@ -748,6 +752,8 @@ def _map_counts(queues, batches, worker_ids, counts,
     ids (_native_map_take); gang ticks take per cell in Python.
     """
     _t2 = _time.perf_counter()
+    ranges = _ranges()
+    ranges.begin("mapping")
     assignments: list[Assignment] = []
     try:
         counts = np.asarray(counts)
@@ -829,6 +835,7 @@ def _map_counts(queues, batches, worker_ids, counts,
             phases["mapping"] = phases.get("mapping", 0.0) + (
                 _time.perf_counter() - _t2
             ) * 1e3
+        ranges.end("mapping")
 
 
 def _solve_mu_workers(queues, mu_rows, rq_map, resource_map):

@@ -55,6 +55,21 @@ class DenseSnapshot:
     lifetime: np.ndarray         # (W,) int32 seconds
 
 
+# entries of a tick's `phases` that are no phase of it: the time since
+# the tick before that the record carries (the workers' answers, the
+# collector's passes by where they fell) and their counts
+PHASES_APART = ("since_ms", "since_n")
+# phases that tile another phase (prefill_fill + prefill_retract =
+# prefill): kept and shown, but counted once in shares()
+SUB_PHASES = ("prefill_fill", "prefill_retract")
+
+
+def tick_phases(phases: dict):
+    """(name, ms) of the tick's own phases, sub-phases included."""
+    return ((name, ms) for name, ms in phases.items()
+            if name not in PHASES_APART)
+
+
 @dataclass
 class TickPhaseStats:
     """Per-phase tick latency breakdown, recorded once per tick.
@@ -71,7 +86,7 @@ class TickPhaseStats:
 
     def record(self, phases: dict) -> None:
         self.ticks += 1
-        for name, ms in phases.items():
+        for name, ms in tick_phases(phases):
             self.totals_ms[name] = self.totals_ms.get(name, 0.0) + ms
             self.last_ms[name] = ms
             if ms > self.max_ms.get(name, 0.0):
@@ -97,12 +112,14 @@ class TickPhaseStats:
 
         A latency regression then names the phase whose share grew
         rather than one opaque wall-clock number."""
-        total = sum(self.totals_ms.values())
+        totals = {name: t for name, t in self.totals_ms.items()
+                  if name not in SUB_PHASES}
+        total = sum(totals.values())
         if total <= 0:
             return {}
         return {
             name: round(t / total, 4)
-            for name, t in sorted(self.totals_ms.items())
+            for name, t in sorted(totals.items())
         }
 
 

@@ -2444,7 +2444,6 @@ class Server:
             self.comm.scheduling_event.clear()
             t0 = time.perf_counter()
             n = reactor.schedule(self.core, self.comm, self.events, self.model)
-            TRACER.record("scheduler/tick", time.perf_counter() - t0)
             # the tick runs synchronously on the loop: its duration IS the
             # solve plane's loop occupancy (stall watchdog included)
             self.note_plane("solve", time.perf_counter() - t0)

@@ -28,7 +28,7 @@ from hyperqueue_tpu_torch.server.lazy import LazyStore
 from hyperqueue_tpu_torch.server.task import Task, TaskState
 from hyperqueue_tpu_torch.server.worker import Worker
 from hyperqueue_tpu_torch.utils.flight import FlightRecorder
-from hyperqueue_tpu_torch.utils.trace import TaskTraceStore
+from hyperqueue_tpu_torch.utils.trace import GC_PASSES, TaskTraceStore
 
 
 @dataclass
@@ -96,11 +96,22 @@ class Core:
     # submits register O(chunks) records here; the queues materialize
     # per-task state only at dispatch/prefill time
     lazy: LazyStore = field(default_factory=LazyStore)
+    # the detailed timeline (utils/trace.timeline_on), read by schedule()
+    # once a tick: while on, the workers' answers sum their time here
+    # until the next tick's record takes it
+    timeline_on: bool = False
+    answers_s: float = 0.0
+    answers_n: int = 0
+    # GC_PASSES.totals() at the last tick's record (at creation before
+    # the first): the next record carries the collector's time since
+    gc_mark: tuple = ()
 
     def __post_init__(self) -> None:
         # the queues consult the lazy store for batch sizing and
         # materializing takes; takes need the core for task creation
         self.queues.bind_lazy(self.lazy, self)
+        GC_PASSES.install()
+        self.gc_mark = GC_PASSES.totals()
 
     def bump_membership(self) -> None:
         self.membership_epoch += 1

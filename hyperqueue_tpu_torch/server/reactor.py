@@ -23,12 +23,18 @@ from hyperqueue_tpu_torch.scheduler.queues import (
     encode_sched_priority,
 )
 from hyperqueue_tpu_torch.scheduler.tick import Batch, create_batches, run_tick
+from hyperqueue_tpu_torch.scheduler.tick_cache import tick_phases
 from hyperqueue_tpu_torch.server.core import Core
 from hyperqueue_tpu_torch.server.task import Task, TaskState
 from hyperqueue_tpu_torch.server.worker import Worker
 from hyperqueue_tpu_torch.transport.framing import attach_trace_wire
 from hyperqueue_tpu_torch.utils.metrics import REGISTRY
-from hyperqueue_tpu_torch.utils.trace import TRACER
+from hyperqueue_tpu_torch.utils.trace import (
+    GC_PASSES,
+    TRACER,
+    ranges as _ranges,
+    timeline_on,
+)
 from hyperqueue_tpu_torch.utils import clock
 
 logger = logging.getLogger(__name__)
@@ -39,7 +45,7 @@ logger = logging.getLogger(__name__)
 _TICK_PHASE_SECONDS = REGISTRY.histogram(
     "hq_tick_phase_seconds",
     "scheduler tick latency per phase (snapshot/batches/gangs/assemble/"
-    "solve/mapping/prefill/decide/total)",
+    "solve/mapping/prefill/prefill_fill/prefill_retract/decide/total)",
     labels=("phase",),
 )
 _TICKS_TOTAL = REGISTRY.counter(
@@ -500,55 +506,81 @@ def requeue_reattach_expired(core: Core, comm: Comm, task: Task) -> None:
     comm.ask_for_scheduling()
 
 
+# The workers' answers (on_task_running / _finished / _failed and
+# on_retract_response): while the timeline is on, each call adds its time
+# and a count of one to the core's sums, which the next tick's record
+# takes; while it is off, the cost is the one attribute test.
+def _answer_start() -> float:
+    GC_PASSES.place = "answers"
+    return _time.perf_counter()
+
+
+def _answer_end(core: Core, t0: float) -> None:
+    core.answers_s += _time.perf_counter() - t0
+    core.answers_n += 1
+    GC_PASSES.place = "other"
+
+
 def on_task_running(
     core: Core, events: EventSink, task_id: int, instance_id: int,
     wtrace: dict | None = None
 ) -> None:
-    task = core.tasks.get(task_id)
-    if task is None or task.instance_id != instance_id or task.is_done:
-        return  # stale message from a previous incarnation
-    if task.state is TaskState.ASSIGNED:
-        if task.prefilled:
-            # the prefilled task actually started: account its resources now
-            worker = core.workers.get(task.assigned_worker)
-            if worker is not None:
-                worker.prefilled_tasks.discard(task_id)
-                worker.assign(
-                    task_id,
-                    core.variant_amounts(
-                        task.rq_id, task.assigned_variant, worker
-                    ),
-                )
-            task.prefilled = False
-            task.retract_pending = False
-        task.state = TaskState.RUNNING
-        task.t_started = clock.now()
-        workers = list(task.mn_workers) or [task.assigned_worker]
-        events.on_task_started(
-            task_id, instance_id, workers, task.assigned_variant,
-            wtrace=wtrace,
-        )
+    t0 = _answer_start() if core.timeline_on else 0.0
+    try:
+        task = core.tasks.get(task_id)
+        if task is None or task.instance_id != instance_id or task.is_done:
+            return  # stale message from a previous incarnation
+        if task.state is TaskState.ASSIGNED:
+            if task.prefilled:
+                # the prefilled task actually started: account its
+                # resources now
+                worker = core.workers.get(task.assigned_worker)
+                if worker is not None:
+                    worker.prefilled_tasks.discard(task_id)
+                    worker.assign(
+                        task_id,
+                        core.variant_amounts(
+                            task.rq_id, task.assigned_variant, worker
+                        ),
+                    )
+                task.prefilled = False
+                task.retract_pending = False
+            task.state = TaskState.RUNNING
+            task.t_started = clock.now()
+            workers = list(task.mn_workers) or [task.assigned_worker]
+            events.on_task_started(
+                task_id, instance_id, workers, task.assigned_variant,
+                wtrace=wtrace,
+            )
+    finally:
+        if t0:
+            _answer_end(core, t0)
 
 
 def on_task_finished(
     core: Core, comm: Comm, events: EventSink, task_id: int, instance_id: int,
     wtrace: dict | None = None
 ) -> None:
-    task = core.tasks.get(task_id)
-    if task is None or task.instance_id != instance_id or task.is_done:
-        return
-    _release_task_resources(core, task)
-    task.state = TaskState.FINISHED
-    events.on_task_finished(task_id, wtrace=wtrace)
-    for consumer_id in sorted(task.consumers):
-        consumer = core.tasks.get(consumer_id)
-        if consumer is None or consumer.state is not TaskState.WAITING:
-            continue
-        consumer.unfinished_deps -= 1
-        if consumer.unfinished_deps == 0:
-            _make_ready(core, consumer)
-    task.consumers.clear()
-    comm.ask_for_scheduling()
+    t0 = _answer_start() if core.timeline_on else 0.0
+    try:
+        task = core.tasks.get(task_id)
+        if task is None or task.instance_id != instance_id or task.is_done:
+            return
+        _release_task_resources(core, task)
+        task.state = TaskState.FINISHED
+        events.on_task_finished(task_id, wtrace=wtrace)
+        for consumer_id in sorted(task.consumers):
+            consumer = core.tasks.get(consumer_id)
+            if consumer is None or consumer.state is not TaskState.WAITING:
+                continue
+            consumer.unfinished_deps -= 1
+            if consumer.unfinished_deps == 0:
+                _make_ready(core, consumer)
+        task.consumers.clear()
+        comm.ask_for_scheduling()
+    finally:
+        if t0:
+            _answer_end(core, t0)
 
 
 def on_task_failed(
@@ -560,13 +592,18 @@ def on_task_failed(
     message: str,
     wtrace: dict | None = None,
 ) -> None:
-    task = core.tasks.get(task_id)
-    if task is None or task.instance_id != instance_id or task.is_done:
-        return
-    _release_task_resources(core, task)
-    task.state = TaskState.FAILED
-    _propagate_failure(core, events, task, message, wtrace=wtrace)
-    comm.ask_for_scheduling()
+    t0 = _answer_start() if core.timeline_on else 0.0
+    try:
+        task = core.tasks.get(task_id)
+        if task is None or task.instance_id != instance_id or task.is_done:
+            return
+        _release_task_resources(core, task)
+        task.state = TaskState.FAILED
+        _propagate_failure(core, events, task, message, wtrace=wtrace)
+        comm.ask_for_scheduling()
+    finally:
+        if t0:
+            _answer_end(core, t0)
 
 
 def _propagate_failure(
@@ -799,6 +836,16 @@ def schedule(
     # core.tick_stats at the end and surfaced via `hq server stats`
     phases: dict = {}
     _t_tick = _time.perf_counter()
+    # the detailed timeline, read once a tick: while a torch profiler
+    # records, each phase is also a profiler range of its name
+    core.timeline_on = timeline_on()
+    ranges = _ranges(core.timeline_on)
+    ranges.begin("total")
+    GC_PASSES.place = "tick"
+    # the workers' answers since the tick before (summed while the
+    # timeline was on), for this tick's record
+    answers_s, answers_n = core.answers_s, core.answers_n
+    core.answers_s, core.answers_n = 0.0, 0
     # one wall-clock stamp per tick: every task assigned this tick shares it
     # (the timeline's resolution is the tick itself)
     now = clock.now()
@@ -830,6 +877,8 @@ def schedule(
         for w in core.workers.values()
         if not (w.mn_task or w.mn_reserved or w.draining)
     )
+    if core.mn_queue:
+        ranges.begin("gangs")
     if core.mn_queue and not fused_tick:
         top_sn = _top_sn_priority(core)
         remaining_mn = []
@@ -977,7 +1026,7 @@ def schedule(
             gang_assigned += 1
         core.mn_queue = remaining_mn
         phases["gangs"] = (_time.perf_counter() - _t_phase) * 1e3
-        TRACER.record("scheduler/gangs", _time.perf_counter() - _t_phase)
+        ranges.end("gangs")
 
     # --- fused gangs: the head of the mn queue rides the dense solve as
     # all-or-nothing gang rows (scheduler/tick.py Batch.gang_nodes; kernel
@@ -1006,6 +1055,7 @@ def schedule(
                 ))
         core.mn_queue = remaining_mn
         phases["gangs"] = (_time.perf_counter() - _t_phase) * 1e3
+        ranges.end("gangs")
 
     # Soft drain for fused gangs: the kernel holds members WITHIN one
     # solve, but between ticks the prefill phase would keep piling backlog
@@ -1115,6 +1165,7 @@ def schedule(
     fairness_placed: tuple | None = None
     if have_workers and (core.queues.total_ready() or run_gangs_fused):
         _t_batches = _time.perf_counter()
+        ranges.begin("batches")
         batches = create_batches(core.queues)
         gang_ok = group_ids = None
         if run_gangs_fused:
@@ -1130,6 +1181,7 @@ def schedule(
                 gang_ok.append(1 if w.is_idle() else 0)
                 group_ids.append(gmap.setdefault(w.group, len(gmap)))
         phases["batches"] = (_time.perf_counter() - _t_batches) * 1e3
+        ranges.end("batches")
         if core.policy is not None:
             # weighted objective (--policy-file): resolve this tick's
             # affinity rows + priority boosts against the tick's worker
@@ -1280,12 +1332,17 @@ def schedule(
                             "members"
                         ),
                     })
-        TRACER.record("scheduler/solve", _time.perf_counter() - _t_phase)
 
     # --- proactive prefilling: push extra top-priority tasks to busy
     # workers so short tasks pipeline without a server round-trip per task
-    # (reference mapping.rs:159 process_proactive_filling, max 40/worker) ---
+    # (reference mapping.rs:159 process_proactive_filling, max 40/worker).
+    # Two sub-phases tile `prefill`: `prefill_fill` (budgets, reservations,
+    # the take-and-message loop) and `prefill_retract` (displacement and
+    # rebalance below) ---
     _t_phase = _time.perf_counter()
+    if prefill:
+        ranges.begin("prefill")
+        ranges.begin("prefill_fill")
     if prefill and core.queues.total_ready():
         budgets = {
             w.worker_id: PREFILL_MAX - len(w.prefilled_tasks)
@@ -1390,6 +1447,10 @@ def schedule(
                         per_worker_msgs.setdefault(
                             worker.worker_id, []
                         ).append(_compute_message(core, task, variant))
+    _t_fill = _time.perf_counter()
+    if prefill:
+        ranges.end("prefill_fill")
+        ranges.begin("prefill_retract")
 
     # --- displacement: strictly-higher-user-priority READY work must not
     # sit in the queues while lower-priority prefilled backlog holds the
@@ -1532,8 +1593,12 @@ def schedule(
                 if victims:
                     _RETRACTED_TOTAL.labels("rebalance").inc(len(victims))
                     comm.send_retract(donor.worker_id, victims)
-        phases["prefill"] = (_time.perf_counter() - _t_phase) * 1e3
-        TRACER.record("scheduler/prefill", _time.perf_counter() - _t_phase)
+        _t_end = _time.perf_counter()
+        phases["prefill"] = (_t_end - _t_phase) * 1e3
+        phases["prefill_fill"] = (_t_fill - _t_phase) * 1e3
+        phases["prefill_retract"] = (_t_end - _t_fill) * 1e3
+        ranges.end("prefill_retract")
+        ranges.end("prefill")
 
     for worker_id, msgs in per_worker_msgs.items():
         comm.send_compute(worker_id, msgs)
@@ -1546,6 +1611,7 @@ def schedule(
     record = None
     if record_decision:
         _t_phase = _time.perf_counter()
+        ranges.begin("decide")
         try:
             # tick-local: only a solve that actually ran THIS tick can mark
             # it degraded (a stale flag from a previous tick must not leak)
@@ -1595,8 +1661,12 @@ def schedule(
                              "goes unrecorded", core.tick_counter)
             record = None
         phases["decide"] = (_time.perf_counter() - _t_phase) * 1e3
+        ranges.end("decide")
 
     phases["total"] = (_time.perf_counter() - _t_tick) * 1e3
+    ranges.end("total")
+    GC_PASSES.place = "other"
+    _record_since(core, phases, answers_s, answers_n)
     core.tick_stats.record(phases)
     if core.policy is not None:
         # fairness/prediction telemetry: one ledger fold + two dict reads
@@ -1612,11 +1682,11 @@ def schedule(
         _ASSIGNED_TOTAL.inc(assigned)
     if prefilled:
         _PREFILLED_TOTAL.inc(prefilled)
-    for name, ms in phases.items():
+    for name, ms in tick_phases(phases):
         _TICK_PHASE_SECONDS.labels(name).observe(ms / 1e3)
     if record is not None:
         record["duration_ms"] = round(phases["total"], 4)
-        record["phases"] = {k: round(v, 4) for k, v in phases.items()}
+        record["phases"] = {k: round(v, 4) for k, v in tick_phases(phases)}
         core.flight.record_tick(record)
     if pipeline is not None and pipeline.pending is not None:
         # a solve is in flight: without another event (submit, completion,
@@ -1626,6 +1696,32 @@ def schedule(
         # the window the device has to finish before the readback.
         comm.ask_for_scheduling()
     return assigned
+
+
+def _record_since(core: Core, phases: dict, answers_s: float,
+                  answers_n: int) -> None:
+    """Put into the tick's record what happened since the tick before,
+    apart from its phases (tick_cache.PHASES_APART): `since_ms` holds the
+    collector's ms by where each pass fell (`gc_tick` inside this tick,
+    `gc_answers` inside the answers, `gc_other` elsewhere) and by
+    generation (`gc_gen0`-`gc_gen2`), and, where the timeline was on, the
+    answers' ms; `since_n` the passes of each generation and the
+    answers."""
+    now = GC_PASSES.totals()
+    tick, answers, other, ms0, ms1, ms2, n0, n1, n2 = (
+        a - b for a, b in zip(now, core.gc_mark)
+    )
+    core.gc_mark = now
+    since_ms = {"gc_tick": tick, "gc_answers": answers, "gc_other": other,
+                "gc_gen0": ms0, "gc_gen1": ms1, "gc_gen2": ms2}
+    since_n = {"gc_gen0": n0, "gc_gen1": n1, "gc_gen2": n2}
+    if answers_n:
+        since_ms["answers"] = answers_s * 1e3
+        since_n["answers"] = answers_n
+        TRACER.record("answers", answers_s)
+    phases["since_ms"] = since_ms
+    phases["since_n"] = since_n
+    GC_PASSES.flush()
 
 
 def on_retract_response(
@@ -1640,25 +1736,30 @@ def on_retract_response(
     onto the same worker) carries an old instance and must not steal the
     task off its new placement while that placement's compute message is in
     flight (duplicate execution)."""
-    task = core.tasks.get(task_id)
-    if task is None or task.is_done or not task.prefilled:
-        return
-    if task.instance_id != instance_id:
-        return  # answer about a previous incarnation
-    if not task.retract_pending:
-        return  # nothing asked
-    task.retract_pending = False
-    if not ok:
-        return  # it started racing; task_running accounting takes over
-    worker = core.workers.get(task.assigned_worker)
-    if worker is not None:
-        worker.prefilled_tasks.discard(task_id)
-    task.prefilled = False
-    task.assigned_worker = 0
-    task.increment_instance()
-    task.state = TaskState.WAITING
-    _make_ready(core, task)
-    comm.ask_for_scheduling()
+    t0 = _answer_start() if core.timeline_on else 0.0
+    try:
+        task = core.tasks.get(task_id)
+        if task is None or task.is_done or not task.prefilled:
+            return
+        if task.instance_id != instance_id:
+            return  # answer about a previous incarnation
+        if not task.retract_pending:
+            return  # nothing asked
+        task.retract_pending = False
+        if not ok:
+            return  # it started racing; task_running accounting takes over
+        worker = core.workers.get(task.assigned_worker)
+        if worker is not None:
+            worker.prefilled_tasks.discard(task_id)
+        task.prefilled = False
+        task.assigned_worker = 0
+        task.increment_instance()
+        task.state = TaskState.WAITING
+        _make_ready(core, task)
+        comm.ask_for_scheduling()
+    finally:
+        if t0:
+            _answer_end(core, t0)
 
 
 def _compute_message(core: Core, task: Task, variant: int) -> dict:

@@ -6,17 +6,24 @@ scheduler wraps its whole tick in one (scheduler/main.rs:49). Python
 tracing emits are comparatively expensive, so this tracer keeps rolling
 per-span statistics (count/total/max/last) plus a small ring of recent
 spans in-process, logs each span at DEBUG like the reference's events, and
-surfaces the aggregate through `snapshot()` — enough to see which tick
-phase (gangs, solve, mapping, prefill) is hot without attaching a
-profiler.
+surfaces the aggregate through `snapshot()`. It holds only spans that no
+other record measures: the workers' answers between ticks (`answers`)
+and the collector's passes (`gc/gen0`-`gc/gen2`); the tick's own phases
+live in `core.tick_stats` and `hq_tick_phase_seconds`.
+
+The detailed timeline (`timeline_on`, `Ranges`) follows a torch profiler:
+while one records in the process, the tick's phases, the answers' sums
+and the collector's passes are also put on the profiler's clock.
 
 `LagTracker` keeps the server event loop's per-plane lag histograms.
 """
 
 from __future__ import annotations
 
+import gc
 import logging
 import secrets
+import sys
 import time
 from collections import OrderedDict, deque
 from contextlib import contextmanager
@@ -105,6 +112,129 @@ class Tracer:
 # process-wide tracer (one server or worker per process)
 TRACER = Tracer()
 span = TRACER.span
+
+
+# ----------------------------------------------------------------------
+# The detailed timeline: on only while a torch profiler records in this
+# process (an operator's `torch.profiler` capture, the benchmark's traced
+# run). No flag or environment variable turns it on.
+# ----------------------------------------------------------------------
+
+
+def timeline_on() -> bool:
+    """True while a torch profiler records in this process. Reads the
+    profiler's process-wide flag, so it holds on every thread (the C++
+    `_profiler_enabled()` answers for the calling thread only)."""
+    torch = sys.modules.get("torch")
+    if torch is None:
+        return False  # no torch, no profiler
+    return bool(torch.autograd.profiler._is_profiler_enabled)
+
+
+class Ranges:
+    """`torch.profiler.record_function` ranges opened and closed by name,
+    for phases that a `with` block would force to re-indent. A profiler
+    records the ranges of the threads it was started on; a profiler with
+    `profile_all_threads` also those of the solve's thread."""
+
+    __slots__ = ("_open",)
+
+    def __init__(self):
+        self._open: dict = {}
+
+    def begin(self, name: str) -> None:
+        import torch
+
+        rf = torch.profiler.record_function(name)
+        rf.__enter__()
+        self._open[name] = rf
+
+    def end(self, name: str) -> None:
+        rf = self._open.pop(name, None)
+        if rf is not None:
+            rf.__exit__(None, None, None)
+
+
+class _NoRanges:
+    __slots__ = ()
+
+    def begin(self, name: str) -> None: ...
+    def end(self, name: str) -> None: ...
+
+
+NO_RANGES = _NoRanges()
+
+
+def ranges(on: bool | None = None):
+    """A fresh `Ranges` while the timeline is on, else the no-op one;
+    `on` is the caller's reading of `timeline_on()` where it has one."""
+    if on is None:
+        on = timeline_on()
+    return Ranges() if on else NO_RANGES
+
+
+class GcPasses:
+    """The collector's passes, timed on the real `time.perf_counter` (never
+    a simulated clock) by one `gc.callbacks` hook a process.
+
+    Each pass's ms is summed by where it fell (`place`: "tick" while
+    `reactor.schedule` runs, "answers" inside a worker's answer while the
+    timeline is on, else "other"), and passes and ms by generation.
+    The passes wait in a bounded ring until `flush()` records them
+    through `TRACER` as `gc/gen<n>`: the hook itself touches no shared
+    dict that a collection could interrupt. While the timeline is on,
+    each pass is also a profiler range of the same name."""
+
+    def __init__(self, ring: int = 1024):
+        self.installed = False
+        self.place = "other"
+        self.ms = {"tick": 0.0, "answers": 0.0, "other": 0.0}
+        self.gen_ms = [0.0, 0.0, 0.0]
+        self.gen_n = [0, 0, 0]
+        self.pending: deque = deque(maxlen=ring)
+        self._t0 = None
+        self._ranges = NO_RANGES
+
+    def install(self) -> None:
+        if not self.installed:
+            self.installed = True
+            gc.callbacks.append(self._on_gc)
+
+    def _on_gc(self, phase: str, info: dict) -> None:
+        gen = info["generation"]
+        if phase == "start":
+            self._t0 = time.perf_counter()
+            self._ranges = ranges()
+            self._ranges.begin(f"gc/gen{gen}")
+            return
+        t0 = self._t0
+        if t0 is None:
+            return
+        dt = time.perf_counter() - t0
+        self._t0 = None
+        self._ranges.end(f"gc/gen{gen}")
+        self.ms[self.place] += dt * 1e3
+        self.gen_ms[gen] += dt * 1e3
+        self.gen_n[gen] += 1
+        self.pending.append((gen, dt))
+
+    def totals(self) -> tuple:
+        """(tick, answers, other ms; gen-0, gen-1, gen-2 ms; gen-0, gen-1,
+        gen-2 passes) so far."""
+        ms = self.ms
+        return (ms["tick"], ms["answers"], ms["other"], *self.gen_ms,
+                *self.gen_n)
+
+    def flush(self) -> None:
+        """Record the passes since the last flush through `TRACER`."""
+        pending = self.pending
+        while pending:
+            gen, dt = pending.popleft()
+            TRACER.record(f"gc/gen{gen}", dt)
+
+
+# process-wide, like TRACER; `Core` installs its hook
+GC_PASSES = GcPasses()
 
 
 # ----------------------------------------------------------------------
