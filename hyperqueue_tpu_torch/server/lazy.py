@@ -33,7 +33,8 @@ from bisect import bisect_left
 from collections import deque
 from dataclasses import dataclass
 
-from hyperqueue_tpu_torch.ids import make_task_id
+from hyperqueue_tpu_torch.ids import TASK_ID_BITS, make_task_id
+from hyperqueue_tpu_torch.server.jobs import JobTaskInfo
 from hyperqueue_tpu_torch.server.task import Task, TaskState
 
 
@@ -111,8 +112,13 @@ class LazySegment:
     def remaining(self) -> int:
         return self.chunk.n - self.pos - self.dead_ahead
 
-    def take_indexes(self, count: int) -> list[int]:
-        """Advance the cursor past up to `count` live indexes."""
+    def take_indexes(self, count: int):
+        """Advance the cursor past up to `count` live indexes: one range
+        where no tombstone lies ahead of it."""
+        if not self.dead_ahead:
+            start = self.pos
+            self.pos = min(start + count, self.chunk.n)
+            return range(start, self.pos)
         out = []
         n = self.chunk.n
         while self.pos < n and len(out) < count:
@@ -260,7 +266,8 @@ class LazyStore:
     def take(self, core, rq_id: int, priority: tuple, count: int) -> list[int]:
         """Pop up to `count` ids at this level, MATERIALIZING each into a
         core Task + JobTaskInfo. This is the scheduler's dispatch-time
-        entry point — the one place lazy tasks become real in bulk."""
+        entry point — the one place lazy tasks become real in bulk, a
+        segment at a time."""
         segs = self.levels.get((rq_id, priority))
         if not segs:
             return []
@@ -269,10 +276,7 @@ class LazyStore:
         while segs and len(out) < count:
             seg = segs[0]
             taken = seg.take_indexes(count - len(out))
-            for index in taken:
-                out.append(
-                    self._materialize(core, jobs_mgr, seg.chunk, index)
-                )
+            out.extend(self._make(core, jobs_mgr, seg.chunk, taken))
             if seg.remaining == 0:
                 segs.popleft()
                 seg.in_queue = False
@@ -288,48 +292,61 @@ class LazyStore:
     # --- materialization -------------------------------------------------
     def _materialize(self, core, jobs_mgr, chunk: ArrayChunk,
                      index: int) -> int:
-        from hyperqueue_tpu_torch.server.jobs import JobTaskInfo
+        return self._make(core, jobs_mgr, chunk, (index,))[0]
 
-        job_task_id = chunk.id_at(index)
-        task_id = make_task_id(chunk.job_id, job_task_id)
-        task = Task(
-            task_id=task_id,
-            rq_id=chunk.rq_id,
-            priority=chunk.priority,
-            body=chunk.body,
-            entry=chunk.entry_at(index),
-            crash_limit=chunk.crash_limit,
-        )
-        task.state = TaskState.READY
-        task.t_ready = chunk.ready_at
-        core.tasks[task_id] = task
-        if jobs_mgr is not None:
-            job = jobs_mgr.jobs.get(chunk.job_id)
-            if job is not None:
-                job.tasks[job_task_id] = JobTaskInfo(
-                    job_task_id=job_task_id,
-                    submitted_at=chunk.submitted_at,
+    def _make(self, core, jobs_mgr, chunk: ArrayChunk, indexes) -> list[int]:
+        """Materialize the tasks at `indexes` (ascending) of one chunk: a
+        READY Task and a JobTaskInfo each. The job, the id base and the
+        chunk's fields are read once, and the id range checked at both
+        ends; a chunk with trace stamps then replays its submit spans."""
+        if not indexes:
+            return []
+        job_id = chunk.job_id
+        run = isinstance(indexes, range)
+        if chunk.ids is not None:
+            jids = (chunk.ids[indexes.start:indexes.stop] if run
+                    else [chunk.ids[i] for i in indexes])
+        else:
+            lo = chunk.id_range[0]
+            jids = (range(lo + indexes.start, lo + indexes.stop) if run
+                    else [lo + i for i in indexes])
+        make_task_id(job_id, jids[0])   # the range check, at both ends of
+        make_task_id(job_id, jids[-1])  # the sorted ids
+        base = job_id << TASK_ID_BITS
+        rq_id, priority, body = chunk.rq_id, chunk.priority, chunk.body
+        entries, crash_limit = chunk.entries, chunk.crash_limit
+        ready, ready_at = TaskState.READY, chunk.ready_at
+        submitted_at = chunk.submitted_at
+        job = jobs_mgr.jobs.get(job_id) if jobs_mgr is not None else None
+        job_tasks = job.tasks if job is not None else None
+        tasks = core.tasks
+        out: list[int] = []
+        for index, jid in zip(indexes, jids):
+            task_id = base | jid
+            # Task's fields in order, up to t_ready: task_id, rq_id,
+            # priority, body, entry, deps, crash_limit, state,
+            # unfinished_deps, consumers, instance_id, crash_counter,
+            # assigned_worker, assigned_variant, prefilled,
+            # retract_pending, mn_workers, t_ready
+            tasks[task_id] = Task(
+                task_id, rq_id, priority, body,
+                None if entries is None else entries[index], (),
+                crash_limit, ready, 0, set(), 0, 0, 0, 0, False, False,
+                (), ready_at,
+            )
+            if job_tasks is not None:
+                job_tasks[jid] = JobTaskInfo(
+                    jid, "waiting", "", [], submitted_at
                 )
-                job.n_lazy -= 1
+            out.append(task_id)
+        if job is not None:
+            job.n_lazy -= len(out)
         traces = core.traces
         if traces.enabled and chunk.trace and chunk.trace.get("id"):
-            tr = chunk.trace
-            traces.begin(task_id, tr["id"])
-            parent = None
-            sent = float(tr.get("sent_at") or 0.0)
-            recv = float(tr.get("recv_at") or 0.0)
-            commit = float(tr.get("commit_at") or 0.0) or recv
-            if sent and recv:
-                parent = traces.span(
-                    task_id, "client/submit", sent, recv, "client",
-                )
-            if recv:
-                traces.span(
-                    task_id, "server/submit", recv, commit, "server",
-                    parent=parent,
-                )
-        self.materialized_total += 1
-        return task_id
+            for task_id in out:
+                _replay_submit(traces, chunk.trace, task_id)
+        self.materialized_total += len(out)
+        return out
 
     # --- job-level operations --------------------------------------------
     def segments_of(self, job_id: int):
@@ -470,3 +487,17 @@ class LazyStore:
             "chunks": self.chunks_total,
             "materialized_total": self.materialized_total,
         }
+
+
+def _replay_submit(traces, trace: dict, task_id: int) -> None:
+    """Open a lazy task's trace with the submit spans its chunk stamped."""
+    traces.begin(task_id, trace["id"])
+    parent = None
+    sent = float(trace.get("sent_at") or 0.0)
+    recv = float(trace.get("recv_at") or 0.0)
+    commit = float(trace.get("commit_at") or 0.0) or recv
+    if sent and recv:
+        parent = traces.span(task_id, "client/submit", sent, recv, "client")
+    if recv:
+        traces.span(task_id, "server/submit", recv, commit, "server",
+                    parent=parent)

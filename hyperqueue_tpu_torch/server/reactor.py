@@ -830,6 +830,9 @@ def schedule(
     """
     assigned = 0
     prefilled = 0
+    # of those, the tasks the lazy store made in this tick's prefill takes
+    # (a segment at a time); the rest came out of the base queues
+    prefill_bulk = 0
     gang_assigned = 0
     per_worker_msgs: dict[int, list[dict]] = {}
     # per-phase latency breakdown of THIS tick (ms), recorded into
@@ -1395,6 +1398,9 @@ def schedule(
                 w.worker_id,
             ),
         )
+        core_tasks = core.tasks
+        assigned_state = TaskState.ASSIGNED
+        made_before = core.lazy.materialized_total
         for batch in leftover_batches:
             queue = core.queues.queue(batch.rq_id)
             rqv = core.rq_map.get_variants(batch.rq_id)
@@ -1426,27 +1432,31 @@ def schedule(
             while progress:
                 progress = False
                 for worker, variant in eligible:
-                    budget = budgets.get(worker.worker_id, 0)
+                    wid = worker.worker_id
+                    budget = budgets.get(wid, 0)
                     if budget <= 0:
                         continue
                     taken = queue.take(batch.priority, min(budget, fair))
                     if not taken:
                         break
                     progress = True
-                    batch.size -= len(taken)  # keeps leftover sizes true
-                    for task_id in taken:
-                        task = core.tasks[task_id]
-                        task.state = TaskState.ASSIGNED
+                    n = len(taken)
+                    batch.size -= n  # keeps leftover sizes true
+                    tasks = [core_tasks[task_id] for task_id in taken]
+                    for task in tasks:
+                        task.state = assigned_state
                         task.t_assigned = now
-                        task.assigned_worker = worker.worker_id
+                        task.assigned_worker = wid
                         task.assigned_variant = variant
                         task.prefilled = True
-                        prefilled += 1
-                        worker.prefilled_tasks.add(task_id)
-                        budgets[worker.worker_id] -= 1
-                        per_worker_msgs.setdefault(
-                            worker.worker_id, []
-                        ).append(_compute_message(core, task, variant))
+                    prefilled += n
+                    worker.prefilled_tasks.update(taken)
+                    budgets[wid] -= n
+                    _append_messages(
+                        core, tasks, variant,
+                        per_worker_msgs.setdefault(wid, []),
+                    )
+        prefill_bulk = core.lazy.materialized_total - made_before
     _t_fill = _time.perf_counter()
     if prefill:
         ranges.end("prefill_fill")
@@ -1667,6 +1677,8 @@ def schedule(
     ranges.end("total")
     GC_PASSES.place = "other"
     _record_since(core, phases, answers_s, answers_n)
+    phases["since_n"]["prefill_bulk"] = prefill_bulk
+    phases["since_n"]["prefill_each"] = prefilled - prefill_bulk
     core.tick_stats.record(phases)
     if core.policy is not None:
         # fairness/prediction telemetry: one ledger fold + two dict reads
@@ -1763,13 +1775,24 @@ def on_retract_response(
 
 
 def _compute_message(core: Core, task: Task, variant: int) -> dict:
+    msgs: list[dict] = []
+    _append_messages(core, [task], variant, msgs)
+    return msgs[0]
+
+
+def _append_messages(core: Core, tasks: list, variant: int,
+                     msgs: list) -> None:
+    """Append the compute message of each task of one class, sent with
+    `variant`, to `msgs`: the class's entries are looked up once, and the
+    trace store only while it holds a record."""
     # entries/n_nodes depend only on (rq_id, variant) within a Core (rq
     # interning is append-only): cache on the Core instance — at 100k-task
     # arrays this is per-task hot path
-    key = (task.rq_id, variant)
+    rq_id = tasks[0].rq_id
+    key = (rq_id, variant)
     cached = core.entries_cache.get(key)
     if cached is None:
-        rqv = core.rq_map.get_variants(task.rq_id)
+        rqv = core.rq_map.get_variants(rq_id)
         request = rqv.variants[variant]
         entries = [
             {
@@ -1785,24 +1808,27 @@ def _compute_message(core: Core, task: Task, variant: int) -> dict:
         cached = (entries, request.n_nodes)
         core.entries_cache[key] = cached
     entries, n_nodes = cached
-    msg = {
-        "id": task.task_id,
-        "instance": task.instance_id,
-        "body": task.body,
-        "entries": entries,
-        "n_nodes": n_nodes,
-        "variant": variant,
-        "priority": list(task.priority),
-    }
-    if task.entry is not None:
-        msg["entry"] = task.entry
     # trace-context header: the worker stamps accept/launch/spawn clocks
     # against this id and echoes the parent span in its uplinks, so the
     # server-side trace assembly can link the hops causally (the cost on
     # the per-task dispatch path is one small dict)
     traces = core.traces
-    if traces.enabled:
-        ctx = traces.wire_ctx(task.task_id)
-        if ctx is not None:
-            attach_trace_wire(msg, ctx[0], ctx[1])
-    return msg
+    traced = traces.enabled and len(traces) > 0
+    append = msgs.append
+    for task in tasks:
+        msg = {
+            "id": task.task_id,
+            "instance": task.instance_id,
+            "body": task.body,
+            "entries": entries,
+            "n_nodes": n_nodes,
+            "variant": variant,
+            "priority": list(task.priority),
+        }
+        if task.entry is not None:
+            msg["entry"] = task.entry
+        if traced:
+            ctx = traces.wire_ctx(task.task_id)
+            if ctx is not None:
+                attach_trace_wire(msg, ctx[0], ctx[1])
+        append(msg)
